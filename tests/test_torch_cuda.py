@@ -1,0 +1,88 @@
+"""The CUDA whole-sweep kernel on the card: against its plain version with
+identical Philox draws, z-skip on/off bitwise, and the wrapper's checks.
+
+Needs an NVIDIA GPU and nvcc (the kernel has no CPU mode); skips
+elsewhere. Imports no JAX, so it runs on a machine without it:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_smc_torch import ensemble as ten
+from tpu_smc_torch.config import SMCConfig
+from tpu_smc_torch.kernels import sweep as ks
+from tpu_smc_torch.state import init_ensemble_state, seed_words
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _inputs(n, c, device, sort):
+    cfg = SMCConfig.for_n(n)
+    rng = np.random.default_rng(n)
+    state, w = init_ensemble_state(cfg, seed_words(1), c, device=device)
+    r = state.r + torch.as_tensor(rng.normal(0.0, 0.3, state.r.shape),
+                                  dtype=torch.float32, device=device)
+    if sort:
+        r = torch.take_along_dim(r, r[..., 2].argsort(1)[..., None], 1)
+    state = state.replace(r=r)
+    words, offsets = ten._per_sweep_randomness(state, cfg, 5, 2)
+    x, y, z, _, wa, wb = ten._kernel_inputs(state, w, cfg)
+    from tpu_smc_torch.potentials import total_energy
+
+    e = total_energy(r, w, cfg).reshape(1, -1)
+    return cfg, (x, y, z, e, wa, wb, offsets, words)
+
+
+@pytest.mark.parametrize("zskip", [False, True])
+def test_kernel_matches_plain(cuda, zskip):
+    cfg, args = _inputs(300, 32, cuda, zskip)
+    dk, dp = {"uniforms": True}, {"uniforms": True}
+    before = dict(ks.sweep_block.launches)
+    outk = ks.sweep_block(*args, cfg, 2, cfg.proposal_a, zskip=zskip,
+                          diag=dk)
+    outp = ks.sweep_block_plain(*args, cfg, 2, cfg.proposal_a, zskip=zskip,
+                                diag=dp)
+    torch.cuda.synchronize()
+    mode = "zskip" if zskip else "dense"
+    assert ks.sweep_block.launches[mode] == before[mode] + 1
+    assert torch.equal(dk["uniforms"], dp["uniforms"])
+    same = (outk[5] == outp[5]).all(0)
+    assert int(same.sum()) >= 30            # near-tie flips stay rare
+    for k in range(3):
+        np.testing.assert_allclose(outk[k][:, same].cpu().numpy(),
+                                   outp[k][:, same].cpu().numpy(), atol=1e-2)
+    np.testing.assert_allclose(outk[3][:, same].cpu().numpy(),
+                               outp[3][:, same].cpu().numpy(),
+                               rtol=1e-4, atol=5e-2)
+
+
+def test_zskip_on_off_bitwise(cuda):
+    cfg, args = _inputs(300, 32, cuda, True)
+    dense = ks.sweep_block(*args, cfg, 2, cfg.proposal_a, zskip=False)
+    dz = {}
+    skip = ks.sweep_block(*args, cfg, 2, cfg.proposal_a, zskip=True, diag=dz)
+    for a, b in zip(dense, skip):
+        assert torch.equal(a, b)
+    assert int(dz["visited"].max()) < 2 * 2 * 300 * 304
+
+
+def test_wrapper_rejects_bad_inputs(cuda):
+    cfg, args = _inputs(108, 4, cuda, False)
+    bad = list(args)
+    bad[0] = args[0].double()
+    with pytest.raises(ValueError):
+        ks.sweep_block(*bad, cfg, 2, cfg.proposal_a)
+    bad = list(args)
+    bad[1] = args[1].t().contiguous().t()[:, :3]
+    with pytest.raises(ValueError):
+        ks.sweep_block(*bad, cfg, 2, cfg.proposal_a)

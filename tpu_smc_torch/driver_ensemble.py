@@ -1,0 +1,219 @@
+"""Ensemble driver: thermalization, the windowed gather loop and the
+per-chain / pooled post-processing (counterpart of
+tpu_smc.driver_ensemble without its device mesh and fault replay).
+
+Outputs keep the reference's per-rank naming with rank = chain index
+(SMC.c:66-96), plus the cross-chain aggregation it left to offline
+scripts.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .config import RunParams, SMCConfig
+from .driver import GatherOut, ObservableOptions, SimResults, _sync, therm_chunk
+from .ensemble import (ensemble_sweeps, ensemble_sweeps_dense,
+                       ensemble_sweeps_zsorted)
+from .observables import (autocorrelation, cluster_histograms_chains,
+                          density_mobility_update,
+                          integrated_autocorrelation_time, vmap_chains_bounded)
+from .potentials import total_pressure
+from .sampler import recompute_energy
+from .state import ChainState
+
+
+def _advance(state: ChainState, w, cfg: SMCConfig, a: float, n_sweeps: int,
+             opts: ObservableOptions, collect_trace: bool):
+    """n_sweeps of every chain on opts.sampler. Returns (state, trace)."""
+    if opts.sampler == "zsorted":
+        return ensemble_sweeps_zsorted(state, w, cfg, a, n_sweeps,
+                                       seed=opts.stream_seed)
+    if opts.sampler == "dense":
+        return ensemble_sweeps_dense(state, w, cfg, a, n_sweeps,
+                                     seed=opts.stream_seed)
+    if opts.sampler == "torch":
+        return ensemble_sweeps(state, w, cfg, a, n_sweeps,
+                               collect_trace=collect_trace,
+                               stream_seed=opts.stream_seed)
+    raise ValueError(f"unknown sampler {opts.sampler!r}")
+
+
+def _gather_step_batched(state: ChainState, w, cfg: SMCConfig,
+                         gather_lapse: int, gather_index: int,
+                         opts: ObservableOptions):
+    """One gather for every chain: gather_lapse sweeps, the exact-energy
+    resync, pressure, voxel density/mobility and (at the LCA cadence) the
+    cluster analysis. Returns (state, GatherOut)."""
+    state, trace = _advance(state, w, cfg, cfg.proposal_a, gather_lapse,
+                            opts, opts.collect_sweep_trace)
+    c = state.n_chains
+
+    if cfg.recompute_every and \
+            (int(state.sweeps[0]) // gather_lapse) % cfg.recompute_every == 0:
+        # keyed to ABSOLUTE chain time (state.sweeps), not the run-relative
+        # gather index, so a resumed run resyncs at the same chain times
+        state = recompute_energy(state, w, cfg)
+
+    p = vmap_chains_bounded(lambda r: total_pressure(r, w, cfg), state.r,
+                            cfg.n)
+    rbin, density, mobility = density_mobility_update(
+        state.r, state.rbin, state.density, state.mobility, cfg)
+    state = state.replace(rbin=rbin, density=density, mobility=mobility)
+
+    if (gather_index + 1) % cfg.lca_time == 0:
+        l1, l2, l3 = (t.cpu().numpy() for t in
+                      cluster_histograms_chains(state.r, cfg))
+    else:
+        l1 = np.zeros((c,), np.int64)
+        l2 = np.zeros((c, 7), np.int64)
+        l3 = np.zeros((c, 7), np.int64)
+
+    if opts.collect_sweep_trace:
+        e_tr = trace.energy.clone()
+        if cfg.recompute_every:
+            # the gather-boundary entry reports the state's (resynced)
+            # energy at this chain time, as the JAX driver does
+            e_tr[-1] = state.energy
+        e_tr = e_tr.cpu().numpy()
+        a_tr = trace.accepted.cpu().numpy()
+    else:
+        e_tr = np.zeros((0, c))
+        a_tr = np.zeros((0, c), np.int64)
+    return state, GatherOut(e_tr, a_tr, p.cpu().numpy(), l1, l2, l3)
+
+
+class EnsembleResults(NamedTuple):
+    chains: list                    # per-chain SimResults
+    mean_energy: float              # ensemble mean of chain means
+    std_energy: float               # std of chain means (replica error bar)
+    mean_pressure: float
+    std_pressure: float
+    acceptance_ratio: float
+    therm_acceptance: float
+    sweeps_per_second: float        # aggregate across chains
+
+
+def simulate_ensemble(cfg: SMCConfig, params: RunParams, state: ChainState,
+                      w: torch.Tensor,
+                      opts: ObservableOptions = ObservableOptions(),
+                      on_window=None):
+    """Ensemble run: thermalization + windowed main loop + per-chain and
+    pooled post-processing. `state` carries the chain axis. on_window(
+    widx, state, outs) runs after each storage window; returning "stop"
+    ends the run there. Returns (state, EnsembleResults)."""
+    lapse = params.gather_lapse
+    gather_steps = params.gather_steps
+    n_chains = state.n_chains
+    kinetic = 1.5 * cfg.n * cfg.temperature
+
+    therm_acc = 0.0
+    if params.eqsteps:
+        chunk = therm_chunk(cfg, sampler=opts.sampler)
+        done_eq, therm_moves = 0, 0.0
+        state = state.replace(accepted=torch.zeros_like(state.accepted))
+        while done_eq < params.eqsteps:
+            k = min(chunk, params.eqsteps - done_eq)
+            state = _sync(_advance(state, w, cfg, 2.0 * cfg.proposal_a, k,
+                                   opts, False)[0])
+            therm_moves += float(state.accepted.double().mean())
+            state = state.replace(accepted=torch.zeros_like(state.accepted))
+            done_eq += k
+        therm_acc = therm_moves / (params.eqsteps * cfg.n)
+        state = recompute_energy(state, w, cfg)
+
+    e_begin = state.energy.cpu().numpy()
+    prod_moves = np.zeros((n_chains,), np.int64)
+    state = state.replace(accepted=torch.zeros_like(state.accepted))
+    outs: list[GatherOut] = []
+    done = widx = 0
+    t1 = time.perf_counter()
+    while done < gather_steps:
+        g = min(cfg.storage_time, gather_steps - done)
+        window = []
+        for k in range(g):
+            state, out = _gather_step_batched(state, w, cfg, lapse, done + k,
+                                              opts)
+            prod_moves += state.accepted.cpu().numpy()
+            state = state.replace(accepted=torch.zeros_like(state.accepted))
+            window.append(out)
+        outs += window
+        done += g
+        verdict = on_window(widx, state, window) if on_window else None
+        widx += 1
+        if verdict == "stop":
+            gather_steps = done
+            break
+    elapsed = time.perf_counter() - t1
+    total_sweeps = gather_steps * lapse
+    sps = total_sweeps * n_chains / elapsed if elapsed > 0 else float("nan")
+
+    p_traces = np.stack([o.pressure for o in outs]) + cfg.rho * cfg.temperature
+    l1s = np.stack([o.l1 for o in outs])                      # [G, C]
+    l2s = np.stack([o.l2 for o in outs])                      # [G, C, 7]
+    l3s = np.stack([o.l3 for o in outs])
+    n_lca = max(1, gather_steps // cfg.lca_time)
+    if opts.collect_sweep_trace:
+        e_traces = np.concatenate([o.energy_trace for o in outs]) + kinetic
+        a_traces = np.concatenate([o.accept_trace for o in outs])
+    else:
+        e_traces = np.zeros((0, n_chains))
+        a_traces = np.zeros((0, n_chains), np.int64)
+
+    shape = (n_chains, cfg.ncx, cfg.ncx, cfg.ncz)
+    density = state.density.cpu().numpy().reshape(shape)
+    mobility = state.mobility.cpu().numpy().reshape(shape)
+    r_final = state.r.cpu().numpy()
+    e_final = state.energy.cpu().numpy()
+
+    per_chain = []
+    for ci in range(n_chains):
+        if e_traces.size:
+            e_full = np.concatenate([[e_begin[ci] + kinetic], e_traces[:, ci]])
+            me, ve = float(np.mean(e_full)), float(np.var(e_full))
+            acf = autocorrelation(e_full, cfg.kmax)
+            tau = integrated_autocorrelation_time(acf)
+            if not np.isfinite(tau):
+                tau = 0.0   # zero-variance trace: the ACF is 0/0
+            sub = e_full[::max(1, int(np.floor(abs(tau))))]
+            cv_strided = (float(np.sum((sub - me) ** 2) / max(1, len(sub) - 1))
+                          / cfg.temperature ** 2)
+            acc = float(np.mean(a_traces[:, ci])) / cfg.n
+        else:
+            e_full = np.zeros((0,))
+            me, ve = float(e_final[ci]) + kinetic, float("nan")
+            acf = np.zeros((0,))
+            tau = cv_strided = float("nan")
+            acc = float(prod_moves[ci] / (total_sweeps * cfg.n))
+        per_chain.append(SimResults(
+            mean_energy=me, std_energy=float(np.sqrt(ve)),
+            mean_pressure=float(np.mean(p_traces[:, ci])),
+            std_pressure=float(np.std(p_traces[:, ci])),
+            acceptance_ratio=acc, cv=ve / cfg.temperature ** 2,
+            cv_strided=cv_strided, tau=tau, acf=acf, r_final=r_final[ci],
+            l1=float(np.sum(l1s[:, ci])) / n_lca,
+            l2=l2s[:, ci].sum(axis=0) / n_lca,
+            l3=l3s[:, ci].sum(axis=0) / n_lca,
+            energy_trace=e_traces[:, ci] if e_traces.size else np.zeros((0,)),
+            energy_trace_full=e_full,
+            accept_trace=a_traces[:, ci] if a_traces.size else np.zeros((0,)),
+            pressure_trace=p_traces[:, ci],
+            density=density[ci], mobility=mobility[ci], gr=None,
+            zprofile=None, therm_acceptance=therm_acc,
+            sweeps_per_second=sps / n_chains))
+
+    chain_means = np.asarray([r.mean_energy for r in per_chain])
+    chain_ps = np.asarray([r.mean_pressure for r in per_chain])
+    return state, EnsembleResults(
+        chains=per_chain,
+        mean_energy=float(np.mean(chain_means)),
+        std_energy=float(np.std(chain_means)),
+        mean_pressure=float(np.mean(chain_ps)),
+        std_pressure=float(np.std(chain_ps)),
+        acceptance_ratio=float(np.mean([r.acceptance_ratio
+                                        for r in per_chain])),
+        therm_acceptance=therm_acc, sweeps_per_second=sps)

@@ -1,0 +1,164 @@
+"""Chain-ensemble sweep engines (counterpart of tpu_smc.ensemble).
+
+Three engines advance every chain of a ChainState by n sweeps:
+
+  * `ensemble_sweeps` — the plain PyTorch engine (sampler.sweep over the
+    chain batch, one visiting order shared by all chains);
+  * `ensemble_sweeps_dense` — the whole-sweep CUDA kernel
+    (kernels/sweep.py), one launch per call;
+  * `ensemble_sweeps_zsorted` — the same kernel with exact z-block
+    skipping over rows z-sorted per chain every `zsort_cadence(n)` sweeps,
+    particle identity carried through the sorts.
+
+All three draw from the same counter-based stream: per-sweep seed words
+and cyclic offsets folded from a base key and the ABSOLUTE sweep counter
+(`_per_sweep_randomness`), then Philox4x32-10 of (move, chain) under the
+sweep's words. Trajectories therefore do not depend on how a run is
+split into calls, and the plain engine makes exactly the kernel's draws.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .config import SMCConfig
+from .kernels import sweep as ks
+from .sampler import SweepStats, sweep_state
+from .state import ChainState, fold_in, seed_words
+
+
+def _base_words(state: ChainState, seed: int | None) -> torch.Tensor:
+    """Base seed words: the run seed, or chain 0's key when no seed is
+    given."""
+    if seed is None:
+        return fold_in(state.key[0].cpu(), [0x5EEDB1])[0]
+    return seed_words(seed)
+
+
+def _per_sweep_randomness(state: ChainState, cfg: SMCConfig, seed,
+                          n_sweeps: int):
+    """Per-sweep seed words [S, 2] (31-bit, int64) and cyclic offsets
+    [S] for the sweeps starting at the state's absolute counter."""
+    base = _base_words(state, seed)
+    s0 = int(state.sweeps.reshape(-1)[0])
+    ids = torch.arange(s0, s0 + n_sweeps, dtype=torch.int64)
+    words = fold_in(base, ids) & 0x7FFFFFFF
+    okey = fold_in(base, [0x0FF5E7])[0]
+    offsets = fold_in(okey, ids)[:, 0] % cfg.n
+    return words, offsets
+
+
+def ensemble_sweeps(state: ChainState, w: torch.Tensor, cfg: SMCConfig,
+                    a: float, n_sweeps: int, collect_trace: bool = False,
+                    stream_seed=None, draws=None):
+    """n_sweeps sweeps of every chain on the plain PyTorch engine.
+
+    draws: None = the kernel's Philox draws of each sweep; or injected
+    (noise [S, C, N, 3] by particle, unif [S, C, N] by move, offsets [S]).
+    Returns (state, SweepStats [S, C] or None)."""
+    if draws is None:
+        words, offsets = _per_sweep_randomness(state, cfg, stream_seed,
+                                               n_sweeps)
+    else:
+        offsets = draws[2]
+    s2a = (2.0 * float(a)) ** 0.5
+    c, dev, dt = state.n_chains, state.r.device, state.r.dtype
+    e_tr, a_tr = [], []
+    for s in range(n_sweeps):
+        off = int(offsets[s])
+        if draws is None:
+            g, unif = ks.box_muller(ks.move_uniforms(words[s], cfg.n, c, dev,
+                                                     dt), s2a)
+            # move-indexed -> particle-indexed: move nn visits (nn+off)%n
+            noise = torch.roll(g, off, dims=0).permute(1, 0, 2)
+            unif = unif.T
+        else:
+            noise, unif = draws[0][s], draws[1][s]
+        state, st = sweep_state(state, w, cfg, a, noise, unif, off)
+        if collect_trace:
+            e_tr.append(st.energy)
+            a_tr.append(st.accepted)
+    if not collect_trace:
+        return state, None
+    return state, SweepStats(torch.stack(e_tr), torch.stack(a_tr))
+
+
+def _kernel_inputs(state: ChainState, w: torch.Tensor, cfg: SMCConfig):
+    if cfg.lj_shift:
+        raise NotImplementedError(
+            "the sweep kernel implements the truncated-unshifted LJ")
+    x, y, z = ks.to_planes(state.r, cfg)
+    wa, wb = ks.wall_coeff_rows(w, cfg)
+    e = state.energy.reshape(1, -1).to(torch.float32)
+    return x, y, z, e, wa, wb
+
+
+def _finish(state: ChainState, r: torch.Tensor, e, e_trace, a_trace,
+            cfg: SMCConfig, n_sweeps: int):
+    dt = cfg.torch_dtype
+    new = state.replace(
+        r=r.to(dt), energy=e.reshape(-1).to(dt),
+        sweeps=state.sweeps + n_sweeps,
+        accepted=state.accepted + a_trace.sum(0).to(torch.int64))
+    return new, SweepStats(e_trace.to(dt), a_trace)
+
+
+def ensemble_sweeps_dense(state: ChainState, w: torch.Tensor,
+                          cfg: SMCConfig, a: float, n_sweeps: int,
+                          seed=None):
+    """n_sweeps sweeps of every chain in ONE launch of the whole-sweep
+    kernel (counterpart of ensemble_sweeps_pallas). The state stays in
+    real units, so the result does not depend on call boundaries."""
+    words, offsets = _per_sweep_randomness(state, cfg, seed, n_sweeps)
+    x, y, z, e, wa, wb = _kernel_inputs(state, w, cfg)
+    x, y, z, e, e_tr, a_tr = ks.sweep_block(
+        x, y, z, e, wa, wb, offsets, words, cfg, n_sweeps, float(a))
+    return _finish(state, ks.from_planes(x, y, z, cfg), e, e_tr, a_tr, cfg,
+                   n_sweeps)
+
+
+def zsort_cadence(n: int) -> int:
+    """Sweeps between per-chain z-sorts: 16 up to N = 1024, else 8
+    (tpu_smc's cadence, kept as behaviour; chip_smoke.py times 4 to 32
+    against it on the card, see PERF.md). Staleness costs skips, never
+    correctness: the kernel's block bounds are live."""
+    return 16 if n <= 1024 else 8
+
+
+def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
+                            cfg: SMCConfig, a: float, n_sweeps: int,
+                            seed=None, sweeps_per_sort: int | None = None):
+    """n_sweeps sweeps through the kernel with exact z-block skipping.
+
+    Every `sweeps_per_sort` sweeps (plus one shorter chunk for a
+    remainder) the real rows are argsorted by z per chain and the kernel
+    runs one launch over the sorted planes. idx[j, c] = particle id of
+    row j of chain c rides through the sorts, and positions are scattered
+    back to particle order at the end, so density/mobility bookkeeping
+    and the positions CSV keep particle identity."""
+    if n_sweeps < 1:
+        raise ValueError("n_sweeps must be >= 1")
+    n, c = cfg.n, state.n_chains
+    sps = max(1, int(sweeps_per_sort or zsort_cadence(n)))
+    words, offsets = _per_sweep_randomness(state, cfg, seed, n_sweeps)
+    x, y, z, e, wa, wb = _kernel_inputs(state, w, cfg)
+    idx = torch.arange(n, device=x.device)[:, None].expand(n, c)
+    e_pieces, a_pieces = [], []
+    k0 = 0
+    while k0 < n_sweeps:
+        length = min(sps, n_sweeps - k0)
+        perm = torch.argsort(z[:n], dim=0, stable=True)
+        x, y, z = (torch.cat([torch.take_along_dim(p[:n], perm, dim=0),
+                              p[n:]]) for p in (x, y, z))
+        idx = torch.take_along_dim(idx, perm, dim=0)
+        x, y, z, e, e_tr, a_tr = ks.sweep_block(
+            x, y, z, e, wa, wb, offsets[k0:k0 + length],
+            words[k0:k0 + length], cfg, length, float(a), zskip=True)
+        e_pieces.append(e_tr)
+        a_pieces.append(a_tr)
+        k0 += length
+    r_sorted = ks.from_planes(x, y, z, cfg)                  # [C, n, 3]
+    r = torch.empty_like(r_sorted)
+    r.scatter_(1, idx.T[:, :, None].expand(c, n, 3), r_sorted)
+    return _finish(state, r, e, torch.cat(e_pieces), torch.cat(a_pieces),
+                   cfg, n_sweeps)

@@ -1,0 +1,253 @@
+"""Reference-schema CSV outputs and warm start (counterpart of the
+subset of tpu_smc.io the NVT ensemble path writes).
+
+Files go to `Data/data_N{N}_M{M}_r{rho:.4f}_T{T:.2f}/` (main.c:55-60) with
+byte-identical headers and names, rank = chain index (SMC.c:66-96):
+
+  wall_<key>.csv                 nx, ny, x0, ymin          SMC.c:488-494
+  positions_<key>_rank<r>.csv    x1,y1,z1,... rows %0.3lf, SMC.c:66-73
+  data_<key>_rank<r>.csv         E, P, jj                  SMC.c:75-77
+  local_<key>_rank<r>.csv        nx, ny, nz, n, mu         SMC.c:79-82
+  total_clusters_<key>_rank<r>.csv  l1, l2, l3             SMC.c:89-92
+  autocorrelation_<key>_rank<r>.csv CH                     SMC.c:94-97
+  data_ensemble_<key>.csv        E_mean, E_std, P_mean, jj_mean
+  info_<key>.csv                 run summary               main.c:138-159
+  last_state_<key>.csv           3N doubles %0.12f         main.c:163-171
+
+Formatting is pure Python.
+"""
+
+from __future__ import annotations
+
+import functools
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+from .config import RunParams, SMCConfig
+
+
+def run_dir(cfg: SMCConfig, base: str | Path = "Data") -> Path:
+    d = Path(base) / cfg.run_name()
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def _fname(d: Path, stem: str, cfg: SMCConfig, rank: Optional[int] = None) -> Path:
+    key = cfg.file_key()
+    if rank is None:
+        return d / f"{stem}_{key}.csv"
+    return d / f"{stem}_{key}_rank{rank}.csv"
+
+
+def write_wall_csv(d: Path, cfg: SMCConfig, x0: np.ndarray, ym: np.ndarray) -> Path:
+    """wall csv: site grid indices + raw (x0, ymin) draws (SMC.c:488-494)."""
+    p = _fname(d, "wall", cfg)
+    x0 = np.asarray(x0)
+    ym = np.asarray(ym)
+    with open(p, "w") as f:
+        f.write("nx, ny, x0, ymin\n")
+        for i in range(cfg.m):
+            for j in range(cfg.m):
+                m = i * cfg.m + j
+                f.write(f"{i}, {j}, {x0[m]:f}, {ym[m]:f}\n")
+    return p
+
+
+class PositionsWriter:
+    """positions csv: header x1,y1,z1,...; one %0.3lf-formatted row per
+    snapshot, trailing comma like the reference (SMC.c:68-73)."""
+
+    def __init__(self, d: Path, cfg: SMCConfig, rank: int = 0):
+        self.path = _fname(d, "positions", cfg, rank)
+        with open(self.path, "w") as f:
+            f.write("".join(f"x{n+1},y{n+1},z{n+1}," for n in range(cfg.n)) + "\n")
+
+    def append(self, r: np.ndarray) -> None:
+        flat = np.asarray(r, np.float64).reshape(-1).tolist()
+        with open(self.path, "a") as f:
+            f.write("".join(f"{v:0.3f}," for v in flat) + "\n")
+
+
+class LocalWriter:
+    """local csv: voxel rows 'i, j, k, n, mu' (SMC.c:218-225)."""
+
+    def __init__(self, d: Path, cfg: SMCConfig, stem: str, rank: int = 0):
+        self.cfg = cfg
+        self.path = _fname(d, stem, cfg, rank)
+        with open(self.path, "w") as f:
+            f.write("nx, ny, nz, n, mu\n")
+
+    def append(self, density: np.ndarray, mobility: np.ndarray) -> None:
+        cfg = self.cfg
+        prefixes = _voxel_prefixes(cfg.ncx, cfg.ncz)
+        dv = np.asarray(density).reshape(-1).tolist()
+        mv = np.asarray(mobility).reshape(-1).tolist()
+        with open(self.path, "a") as f:
+            f.write("".join(f"{p}{d}, {m}\n"
+                            for p, d, m in zip(prefixes, dv, mv)))
+
+
+@functools.lru_cache(maxsize=4)
+def _voxel_prefixes(ncx: int, ncz: int) -> tuple:
+    """'i, j, k, ' of every voxel in file order (i, then j, then k)."""
+    return tuple(f"{i}, {j}, {k}, " for i in range(ncx) for j in range(ncx)
+                 for k in range(ncz))
+
+
+def write_data_csv(
+    d: Path,
+    cfg: SMCConfig,
+    energy_trace: np.ndarray,
+    pressure_trace: np.ndarray,
+    accept_trace: np.ndarray,
+    gather_lapse: int,
+    rank: int = 0,
+) -> Path:
+    """data csv: per-gather rows 'E, P, jj' (SMC.c:214-215).
+
+    Faithful to the reference's sampling: E subsampled at k*gather_lapse
+    from the full trace (index 0 = initial energy), P the k-th gather, and
+    jj the k-th SWEEP's acceptance count (the reference's E-vs-jj index
+    mismatch is reproduced for schema parity, SURVEY §7.4)."""
+    p = _fname(d, "data", cfg, rank)
+    gather_steps = len(pressure_trace)
+    with open(p, "w") as f:
+        f.write("E, P, jj\n")
+        for k in range(gather_steps):
+            idx = k * gather_lapse
+            e = float(energy_trace[idx]) if idx < len(energy_trace) else 0.0
+            jj = int(accept_trace[k]) if k < len(accept_trace) else 0
+            f.write(f"{e:0.9f}, {pressure_trace[k]:0.9f}, {jj}\n")
+    return p
+
+
+def write_total_clusters_csv(
+    d: Path, cfg: SMCConfig, l1: float, l2: np.ndarray, l3: np.ndarray, rank: int = 0
+) -> Path:
+    """total_clusters csv. The reference writes the header and then never
+    writes a row (SMC.c:89-92); we write the actual histograms."""
+    p = _fname(d, "total_clusters", cfg, rank)
+    with open(p, "w") as f:
+        f.write("l1, l2, l3\n")
+        for s in range(len(l2)):
+            f.write(f"{l1 if s == 0 else 0:0.9f}, {l2[s]:0.9f}, {l3[s]:0.9f}\n")
+    return p
+
+
+def write_autocorrelation_csv(
+    d: Path, cfg: SMCConfig, acf: np.ndarray, rank: int = 0
+) -> Path:
+    p = _fname(d, "autocorrelation", cfg, rank)
+    with open(p, "w") as f:
+        f.write("CH\n")
+        for v in np.asarray(acf):
+            f.write(f"{v:0.6f}\n")
+    return p
+
+
+def write_ensemble_data_csv(
+    d: Path,
+    cfg: SMCConfig,
+    chains,                 # list[SimResults] (driver_ensemble per-chain)
+    gather_lapse: int,
+) -> Path | None:
+    """Pooled ensemble data: `data_ensemble_*.csv`, one row per gather with
+    the CROSS-CHAIN mean/spread of E, mean P and mean acceptance count.
+
+    This is the aggregation the reference's replica model left to offline
+    filesystem scripts (per-rank data_*_rank%d.csv only, SMC.c:75-77,
+    SURVEY §5.8). Schema: `E_mean, E_std, P_mean, jj_mean` with the same
+    per-gather sampling convention as the per-rank files (E at k*lapse
+    from the full trace, jj the k-th sweep's acceptance count).
+    Returns None when no chain carries traces (--no-trace runs)."""
+    if not chains:
+        return None
+    e_tr = np.stack([np.asarray(c.energy_trace_full) for c in chains], axis=1)
+    a_tr = np.stack([np.asarray(c.accept_trace) for c in chains], axis=1)
+    if e_tr.size == 0 or a_tr.size == 0:
+        return None  # --no-trace runs carry no per-sweep data to pool
+    p_tr = np.stack([np.asarray(c.pressure_trace) for c in chains], axis=1)
+    gather_steps = p_tr.shape[0]
+    p = _fname(d, "data_ensemble", cfg)
+    with open(p, "w") as f:
+        f.write("E_mean, E_std, P_mean, jj_mean\n")
+        for k in range(gather_steps):
+            idx = k * gather_lapse
+            if idx < e_tr.shape[0]:
+                em = float(e_tr[idx].mean())
+                es = float(e_tr[idx].std())
+            else:
+                em = es = 0.0
+            jj = float(a_tr[k].mean()) if k < a_tr.shape[0] else 0.0
+            f.write(f"{em:0.9f}, {es:0.9f}, {float(p_tr[k].mean()):0.9f}, "
+                    f"{jj:0.4f}\n")
+    return p
+
+
+def write_info_csv(
+    d: Path, cfg: SMCConfig, params: RunParams, results, gamma: float | None = None
+) -> Path:
+    """info csv, field-for-field with main.c:141-159."""
+    gamma = cfg.gamma if gamma is None else gamma
+    p = _fname(d, "info", cfg)
+    l = cfg.box_l
+    lz = cfg.box_lz
+    with open(p, "w") as f:
+        f.write(f"\nEquilibration steps: {params.eqsteps}")
+        f.write(f"\nSimulation steps: {params.maxsteps}")
+        f.write(f"\nNumber of data: {params.numdata}")
+        f.write(f"\nBox dimensions: {l:0.1f} * {l:0.1f} * {lz:0.1f}")
+        f.write(f"\nCells grid: {cfg.ncx} * {cfg.ncx} * {cfg.ncz}")
+        f.write(f"\nParticle density: {cfg.rho:0.4f}")
+        f.write(
+            f"\nAverage interparticle distance: ~{(l * l * lz / cfg.n) ** (1 / 3) / 2:0.3f}"
+        )
+        f.write(
+            "\nWall elements distance / interparticle distance: "
+            f"~{(l / cfg.m) / ((l * l * lz / cfg.n) ** (1 / 3)) / 2:0.3f}"
+        )
+        f.write(f"\nA used: {cfg.proposal_a:0.3f} ({gamma:0.3f} * kT)")
+        f.write(f"\nMean energy: {results.mean_energy:f} ± {results.std_energy:f}")
+        f.write(
+            f"\nMean pressure: {results.mean_pressure:f} ± {results.std_pressure:f}"
+        )
+        f.write(f"\nApproximate heat capacity: {results.cv:f}")
+        f.write(f"\nAverage autocorrelation time: {results.tau:f}")
+        f.write(f"\nAverage acceptance ratio: {results.acceptance_ratio:f}")
+        f.write(f"\nCutoff used for the local cluster analysis: {cfg.lca_cutoff:f}")
+        f.write(
+            "\nl2[0] = {:0.11f}\tl2[1] = {:0.11f}\tl2[2] = {:0.11f}\t"
+            "l2[3] = {:0.11f}\tl2[4] = {:0.11f}\tl2[5] = {:0.11f}".format(
+                *results.l2[:6]
+            )
+        )
+        f.write(
+            "\nl3[0] = {:0.11f}\tl3[1] = {:0.11f}\tl3[2] = {:0.11f}\t"
+            "l3[3] = {:0.11f}\tl3[4] = {:0.11f}\tl3[5] = {:0.11f}\n".format(
+                *results.l3[:6]
+            )
+        )
+    return p
+
+
+def write_last_state(d: Path, cfg: SMCConfig, r: np.ndarray) -> Path:
+    """last_state csv: single row of 3N %0.12f doubles (main.c:163-171)."""
+    p = _fname(d, "last_state", cfg)
+    flat = np.asarray(r).reshape(-1)
+    with open(p, "w") as f:
+        f.write("".join(f"{v:0.12f}," for v in flat))
+    return p
+
+
+def load_last_state(d: Path, cfg: SMCConfig) -> Optional[np.ndarray]:
+    """Warm start: read last_state if a run with the same (N, M, rho, T)
+    key exists (main.c:98-113). Returns [N, 3] or None."""
+    p = _fname(d, "last_state", cfg)
+    if not p.exists():
+        return None
+    vals = [float(v) for v in p.read_text().strip().split(",") if v]
+    if len(vals) != 3 * cfg.n:
+        raise ValueError(f"{p} holds {len(vals)} values, expected {3 * cfg.n}")
+    return np.asarray(vals).reshape(cfg.n, 3)

@@ -1,0 +1,484 @@
+"""Whole-sweep Smart-MC kernel (CUDA, csrc/sweep.cu): build, binding, its
+plain PyTorch version, and the plane adapters.
+
+Counterpart of tpu_smc/kernels/sweep_pallas.py `pallas_sweep_block` in its
+dense and zskip modes. `sweep_block` launches the CUDA kernel for CUDA
+tensors and runs `sweep_block_plain` for CPU tensors; nothing else selects
+between them.
+
+The kernel is built at first use with plain `nvcc` into a shared library
+with a C interface (tpu_smc_torch/_build/, keyed by the source's hash) and
+bound with ctypes; no PyTorch headers are compiled.
+
+Layout at this interface is the JAX package's: position planes [N_pad, C]
+float32 (pad rows parked at 1e15), energy [1, C], wall coefficient rows
+[1, MM_pad], per-sweep offsets [S] and seed words [S, 2]. Unlike the TPU
+kernel, x/y are NOT pre-scaled by 1/L inside: coordinates stay in real
+units, so a call boundary rounds nothing and the kernel engines are
+invariant to how a run is split into calls.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from ..config import SMCConfig
+
+ROW_BLOCK = 128          # rows per z-skip block = threads per CTA
+PARK = 1e15              # pad / parked rows: beyond every cutoff
+_CSRC = Path(__file__).resolve().parent / "csrc" / "sweep.cu"
+_BUILD = Path(__file__).resolve().parents[1] / "_build"
+_MASK32 = 0xFFFFFFFF
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+# ----------------------------------------------------------------------
+# Philox4x32-10 (Salmon et al., SC'11), uint32 arithmetic in int64 ops
+# ----------------------------------------------------------------------
+
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """(hi, lo) 32-bit halves of a * b for a constant a < 2^32 and b
+    holding uint32 values in int64, without overflowing int64."""
+    b_hi, b_lo = b >> 16, b & 0xFFFF
+    p_lo = a * b_lo                        # < 2^48
+    p_hi = a * b_hi                        # < 2^48
+    mid = p_lo + ((p_hi & 0xFFFF) << 16)   # < 2^49
+    return (p_hi >> 16) + (mid >> 32), mid & _MASK32
+
+
+def philox4x32(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 of counters (c0..c3) under key (k0, k1); tensors of
+    one shape holding uint32 values as int64. Returns four such tensors."""
+    c = [t.to(torch.int64) & _MASK32 for t in (c0, c1, c2, c3)]
+    k0 = k0.to(torch.int64) & _MASK32
+    k1 = k1.to(torch.int64) & _MASK32
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W0) & _MASK32
+            k1 = (k1 + _PHILOX_W1) & _MASK32
+        hi0, lo0 = _mulhilo(_PHILOX_M0, c[0])
+        hi1, lo1 = _mulhilo(_PHILOX_M1, c[2])
+        c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+    return c
+
+
+def unit_uniform(bits: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """((bits >> 8) | 1) * 2^-24: exact in float32, strictly in (0, 1)."""
+    return ((bits >> 8) | 1).to(dtype) * (2.0 ** -24)
+
+
+def move_uniforms(words, n: int, c: int, device=None,
+                  dtype=torch.float32) -> torch.Tensor:
+    """The kernel's 5 uniforms of every move of one sweep: [n, c, 5] for
+    seed words (w0, w1), counters (move, chain, 0|1, 0)."""
+    nn = torch.arange(n, dtype=torch.int64, device=device)[:, None]
+    ch = torch.arange(c, dtype=torch.int64, device=device)[None, :]
+    nn, ch = torch.broadcast_tensors(nn, ch)
+    k0 = torch.full_like(nn, int(words[0]))
+    k1 = torch.full_like(nn, int(words[1]))
+    z = torch.zeros_like(nn)
+    b = philox4x32(nn, ch, z, z, k0, k1)
+    b4 = philox4x32(nn, ch, z + 1, z, k0, k1)[0]
+    return unit_uniform(torch.stack(b + [b4], dim=-1), dtype)
+
+
+def box_muller(u: torch.Tensor, s2a: float):
+    """Proposal noise [.., 3] and acceptance uniform from 5 uniforms, the
+    TPU kernel's recipe (3 Gaussians with sigma sqrt(2A) + 1 uniform)."""
+    two_pi = 2.0 * math.pi
+    r1 = torch.sqrt(-2.0 * torch.log(u[..., 0])) * s2a
+    g1 = r1 * torch.cos(two_pi * u[..., 1])
+    g2 = r1 * torch.sin(two_pi * u[..., 1])
+    g3 = torch.sqrt(-2.0 * torch.log(u[..., 2])) * s2a * torch.cos(
+        two_pi * u[..., 3])
+    return torch.stack([g1, g2, g3], dim=-1), u[..., 4]
+
+
+# ----------------------------------------------------------------------
+# Layout adapters: [C, N, 3]  <->  planes [N_pad, C]
+# ----------------------------------------------------------------------
+
+def to_planes(r: torch.Tensor, cfg: SMCConfig):
+    """[C, N, 3] -> three [N_pad, C] float32 planes, pad rows at 1e15."""
+    c, n, _ = r.shape
+    n_pad = _round_up(n, 8)
+    planes = r.permute(2, 1, 0).to(torch.float32)
+    pad = torch.full((3, n_pad - n, c), PARK, dtype=torch.float32,
+                     device=r.device)
+    planes = torch.cat([planes, pad], dim=1).contiguous()
+    return planes[0], planes[1], planes[2]
+
+
+def from_planes(x, y, z, cfg: SMCConfig, dtype=None) -> torch.Tensor:
+    """Three [N_pad, C] planes -> [C, N, 3]."""
+    n = cfg.n
+    out = torch.stack([x[:n], y[:n], z[:n]], dim=0).permute(2, 1, 0)
+    return out.to(dtype) if dtype is not None else out.contiguous()
+
+
+def wall_coeff_rows(w: torch.Tensor, cfg: SMCConfig):
+    """W [MM, 2] -> padded [1, MM_pad] float32 rows (MM_pad = 128k)."""
+    mm = cfg.m * cfg.m
+    mm_pad = _round_up(mm, 128)
+    wa = torch.zeros((1, mm_pad), dtype=torch.float32, device=w.device)
+    wb = torch.zeros((1, mm_pad), dtype=torch.float32, device=w.device)
+    wa[0, :mm] = w[:, 0].to(torch.float32)
+    wb[0, :mm] = w[:, 1].to(torch.float32)
+    return wa, wb
+
+
+# ----------------------------------------------------------------------
+# Plain PyTorch version
+# ----------------------------------------------------------------------
+
+def _scales(cfg: SMCConfig, a: float):
+    t = float(cfg.temperature)
+    return dict(a_t=a / t, a_4t=a / (4.0 * t), s2a=math.sqrt(2.0 * a),
+                inv_t=1.0 / t)
+
+
+def _pair_pass(qx, qy, qz, x, y, z, rows, cfg: SMCConfig):
+    """LJ energy and force sums [C] of queries [C] against planes
+    [N_pad, C]; `rows` [N_pad, C] bool restricts the rows (None = all)."""
+    inv_l = 1.0 / cfg.box_l
+    dx = qx - x
+    dx = dx - cfg.box_l * torch.round(dx * inv_l)
+    dy = qy - y
+    dy = dy - cfg.box_l * torch.round(dy * inv_l)
+    dz = qz - z
+    dr2 = dx * dx + dy * dy + dz * dz
+    mask = dr2 < cfg.cutoff2
+    if rows is not None:
+        mask = mask & rows
+    inv2 = torch.where(mask, 1.0 / torch.clamp(dr2, min=1e-12),
+                       torch.zeros_like(dr2))
+    inv6 = inv2 * inv2 * inv2
+    inv12 = inv6 * inv6
+    ut = inv12 - inv6
+    dv = (inv12 + ut) * inv2
+    return (4.0 * ut.sum(0), 24.0 * (dv * dx).sum(0),
+            24.0 * (dv * dy).sum(0), 24.0 * (dv * dz).sum(0))
+
+
+def _wall_terms(qx, qy, qz, wa, wb, cfg: SMCConfig):
+    """Uniform + grid wall energy and force [C] at query positions [C],
+    site by site in the kernel's order."""
+    box_l, box_lz = cfg.box_l, cfg.box_lz
+    inv_l, inv_lz, half = 1.0 / box_l, 1.0 / box_lz, box_lz / 2.0
+    dz = qz + half
+    dz = dz - box_lz * torch.round(dz * inv_lz)
+    dz = torch.where(qz <= -half, torch.full_like(dz, cfg.contact_dz),
+                     torch.where(qz >= half,
+                                 torch.full_like(dz, -cfg.contact_dz), dz))
+    dz2 = dz * dz
+    iz2 = 1.0 / dz2
+    iz6 = iz2 * iz2 * iz2
+    iz12 = iz6 * iz6
+    us = cfg.a0 * iz12 - cfg.b0 * iz6
+    fz0 = (48.0 * cfg.a0 * iz12 - 24.0 * cfg.b0 * iz6) * iz2 * dz
+    fx = torch.zeros_like(qx)
+    fy = torch.zeros_like(qx)
+    fzs = torch.zeros_like(qx)
+    dw = box_l / cfg.m
+    one = torch.ones((), dtype=qx.dtype, device=qx.device)
+    for s in range(cfg.m * cfg.m):
+        dxm = qx - (s // cfg.m) * one * dw
+        dxm = dxm - box_l * torch.round(dxm * inv_l)
+        dym = qy - (s % cfg.m) * one * dw
+        dym = dym - box_l * torch.round(dym * inv_l)
+        dr2 = dxm * dxm + dym * dym + dz2
+        m = dr2 < cfg.cutoff2
+        inv2 = 1.0 / torch.clamp(dr2, min=1e-12)
+        inv6 = inv2 * inv2 * inv2
+        inv12 = inv6 * inv6
+        a, b = wa[0, s], wb[0, s]
+        zero = torch.zeros_like(dr2)
+        us = us + torch.where(m, a * inv12 - b * inv6, zero)
+        dv = torch.where(m, (48.0 * a * inv12 - 24.0 * b * inv6) * inv2, zero)
+        fx = fx + dv * dxm
+        fy = fy + dv * dym
+        fzs = fzs + dv
+    return 4.0 * us, fx, fy, fz0 + fzs * dz
+
+
+def _envelope_rows(sbmin, sbmax, lo, hi, n_pad: int):
+    """Rows [N_pad, C] inside each chain's block envelope [b_lo, b_hi)
+    over [lo, hi], and the number of such rows per chain."""
+    nb = sbmin.shape[0]
+    b = torch.arange(nb, device=sbmin.device)[:, None]
+    need = (sbmin <= hi) & (sbmax >= lo)
+    b_lo = torch.where(need, b, nb).amin(0)
+    b_hi = torch.where(need, b + 1, 0).amax(0)
+    j = torch.arange(n_pad, device=sbmin.device)[:, None]
+    rows = (j >= b_lo * ROW_BLOCK) & (j < b_hi * ROW_BLOCK)
+    return rows, rows.sum(0)
+
+
+def sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
+                      n_sweeps: int, a: float, zskip: bool = False,
+                      draws=None, diag: dict | None = None):
+    """Plain PyTorch version of the kernel: same arguments, results and
+    semantics, in the dtype of the planes (float32 for the kernel's
+    inputs; float64 for parity with tpu_smc.sampler.sweep).
+
+    The moving row is parked at 1e15 during its move, pads sit at 1e15,
+    the acceptance uses the unwrapped displacement, and zskip restricts
+    each pass to the block envelope the kernel visits.
+
+    draws: None = the kernel's own Philox stream, bit for bit (exact
+    mode); or injected (g [S, N, C, 3] proposal noise already scaled by
+    sqrt(2A), u [S, N, C] acceptance uniforms), indexed by MOVE.
+    diag: optional dict; filled with "visited" [C] (pair rows visited),
+    "min_gap" [C] (smallest |min(log_ap, 0) - log u| of any move),
+    "near_ties" [C] (moves with that gap below diag["tie_margin"],
+    default 0) and, when it holds "uniforms": True on entry, the kernel's
+    uniforms [S, C, N, 5] in exact mode.
+
+    Returns (x, y, z, e [1, C], e_trace [S, C], acc_trace [S, C] int32)."""
+    if cfg.reference_noise or cfg.pbc_z or not cfg.use_walls:
+        raise NotImplementedError(
+            "the sweep kernel implements walls + i.i.d. noise only")
+    x, y, z, e = x.clone(), y.clone(), z.clone(), e.clone().reshape(-1)
+    n, (n_pad, c) = cfg.n, x.shape
+    dt, dev = x.dtype, x.device
+    sc = _scales(cfg, float(a))
+    zcut = float(cfg.lj_cutoff * (1.0 + 1e-5))
+    nb = -(-n_pad // ROW_BLOCK)
+    e_trace = torch.empty((n_sweeps, c), dtype=dt, device=dev)
+    a_trace = torch.empty((n_sweeps, c), dtype=torch.int32, device=dev)
+    visited = torch.zeros((c,), dtype=torch.int64, device=dev)
+    min_gap = torch.full((c,), float("inf"), dtype=dt, device=dev)
+    near_ties = torch.zeros((c,), dtype=torch.int64, device=dev)
+    tie_margin = float(diag.get("tie_margin", 0.0)) if diag else 0.0
+    dump = [] if diag is not None and diag.get("uniforms") else None
+    for s in range(n_sweeps):
+        off = int(offsets[s])
+        if draws is None:
+            u5 = move_uniforms(seeds[s], n, c, dev, dt)
+            if dump is not None:
+                dump.append(u5.permute(1, 0, 2))
+            g_all, u_all = box_muller(u5, sc["s2a"])
+        else:
+            g_all, u_all = draws[0][s], draws[1][s]
+        if zskip:
+            # exact bounds of the real rows per block at sweep start
+            zp = torch.cat([z, z.new_full((nb * ROW_BLOCK - n_pad, c), PARK)])
+            zp = zp.reshape(nb, ROW_BLOCK, c)
+            real = zp < 1e14
+            sbmin = torch.where(real, zp, PARK).amin(1)
+            sbmax = torch.where(real, zp, -PARK).amax(1)
+        acc = torch.zeros((c,), dtype=torch.int32, device=dev)
+        for nn in range(n):
+            i = (nn + off) % n
+            xi, yi, zi = x[i].clone(), y[i].clone(), z[i].clone()
+            x[i] = PARK
+            y[i] = PARK
+            z[i] = PARK
+            rows = None
+            if zskip:
+                rows, cnt = _envelope_rows(sbmin, sbmax, zi - zcut,
+                                           zi + zcut, n_pad)
+            else:
+                cnt = n_pad
+            visited += cnt
+            um, fmx, fmy, fmz = _pair_pass(xi, yi, zi, x, y, z, rows, cfg)
+            uw, wx, wy, wz = _wall_terms(xi, yi, zi, wa, wb, cfg)
+            um, fmx, fmy, fmz = um + uw, fmx + wx, fmy + wy, fmz + wz
+
+            g, u_acc = g_all[nn], u_all[nn]
+            ddx = fmx * sc["a_t"] + g[:, 0]
+            ddy = fmy * sc["a_t"] + g[:, 1]
+            ddz = fmz * sc["a_t"] + g[:, 2]
+            px = xi + ddx
+            px = px - cfg.box_l * torch.round(px * (1.0 / cfg.box_l))
+            py = yi + ddy
+            py = py - cfg.box_l * torch.round(py * (1.0 / cfg.box_l))
+            pz = zi + ddz
+
+            if zskip:
+                rows, cnt = _envelope_rows(sbmin, sbmax, pz - zcut,
+                                           pz + zcut, n_pad)
+            visited += cnt
+            un, fnx, fny, fnz = _pair_pass(px, py, pz, x, y, z, rows, cfg)
+            uw, wx, wy, wz = _wall_terms(px, py, pz, wa, wb, cfg)
+            un, fnx, fny, fnz = un + uw, fnx + wx, fny + wy, fnz + wz
+
+            dfx, dfy, dfz = fnx - fmx, fny - fmy, fnz - fmz
+            dw_term = (dfx * dfx + dfy * dfy + dfz * dfz
+                       + 2.0 * (dfx * fmx + dfy * fmy + dfz * fmz)) * sc["a_4t"]
+            log_ap = -(un - um
+                       + 0.5 * (ddx * (fnx + fmx) + ddy * (fny + fmy)
+                                + ddz * (fnz + fmz))
+                       + dw_term) * sc["inv_t"]
+            # a NaN log_ap rejects, as with jnp.minimum on the TPU
+            accept = (log_ap >= 0.0) | (u_acc < torch.exp(log_ap))
+            gap = (torch.clamp(log_ap, max=0.0) - torch.log(u_acc)).abs()
+            min_gap = torch.minimum(min_gap, gap)
+            near_ties += gap < tie_margin
+
+            x[i] = torch.where(accept, px, xi)
+            y[i] = torch.where(accept, py, yi)
+            z[i] = torch.where(accept, pz, zi)
+            if zskip:
+                ib = i // ROW_BLOCK
+                sbmin[ib] = torch.minimum(sbmin[ib], pz)
+                sbmax[ib] = torch.maximum(sbmax[ib], pz)
+            e = e + torch.where(accept, un - um, torch.zeros_like(un))
+            acc += accept.to(torch.int32)
+        e_trace[s] = e
+        a_trace[s] = acc
+    if diag is not None:
+        diag["visited"] = visited
+        diag["min_gap"] = min_gap
+        diag["near_ties"] = near_ties
+        if dump is not None:
+            diag["uniforms"] = torch.stack(dump) if dump else None
+    return x, y, z, e.reshape(1, c), e_trace, a_trace
+
+
+# ----------------------------------------------------------------------
+# CUDA kernel: build, bind, launch
+# ----------------------------------------------------------------------
+
+class _Build:
+    """The compiled kernel library, built once per process."""
+    lib = None
+    log = ""
+    seconds = 0.0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
+    return path
+
+
+def build() -> ctypes.CDLL:
+    """Compile csrc/sweep.cu with nvcc (sm_90a) into _build/ unless a
+    library built from the same source exists, and load it."""
+    if _Build.lib is not None:
+        return _Build.lib
+    import time
+
+    src = _CSRC.read_bytes()
+    tag = hashlib.sha256(src).hexdigest()[:16]
+    so = _BUILD / f"sweep_{tag}.so"
+    t0 = time.perf_counter()
+    if not so.exists():
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", str(tmp), str(_CSRC)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        _Build.log = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{_Build.log}")
+        os.replace(tmp, so)
+    _Build.seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(so))
+    fn = lib.smc_sweep_launch
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    fn.argtypes = [P] * 16 + [I] * 6 + [D] * 10 + [P]
+    fn.restype = ctypes.c_int
+    _Build.lib = lib
+    return lib
+
+
+def _check(t: torch.Tensor, name: str, shape, dtype, device):
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: need contiguous {dtype} {tuple(shape)} on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+
+
+def _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
+                      n_sweeps: int, a: float, zskip: bool, diag):
+    if cfg.reference_noise or cfg.pbc_z or not cfg.use_walls:
+        raise NotImplementedError(
+            "the sweep kernel implements walls + i.i.d. noise only")
+    n_pad, c = x.shape
+    dev = x.device
+    f32 = torch.float32
+    for name, t in (("x", x), ("y", y), ("z", z)):
+        _check(t, name, (n_pad, c), f32, dev)
+    _check(e, "e", (1, c), f32, dev)
+    _check(wa, "wa", wa.shape, f32, dev)
+    _check(wb, "wb", wa.shape, f32, dev)
+    if wa.shape[-1] < cfg.m * cfg.m or n_pad < cfg.n:
+        raise ValueError("wall rows or planes shorter than the config")
+    offsets = offsets.to(device=dev, dtype=torch.int32).contiguous()
+    seeds = seeds.to(device=dev, dtype=torch.int32).contiguous()
+    _check(offsets, "offsets", (n_sweeps,), torch.int32, dev)
+    _check(seeds, "seeds", (n_sweeps, 2), torch.int32, dev)
+    lib = build()
+    xo, yo, zo = (torch.empty_like(x) for _ in range(3))
+    eo = torch.empty_like(e)
+    e_tr = torch.empty((n_sweeps, c), dtype=f32, device=dev)
+    a_tr = torch.empty((n_sweeps, c), dtype=torch.int32, device=dev)
+    visited = u_dump = None
+    if diag is not None:
+        visited = torch.empty((c,), dtype=torch.int64, device=dev)
+    if diag is not None and diag.get("uniforms"):
+        u_dump = torch.empty((n_sweeps, c, cfg.n, 5), dtype=f32, device=dev)
+    sc = _scales(cfg, float(a))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.smc_sweep_launch(
+            x.data_ptr(), y.data_ptr(), z.data_ptr(), e.data_ptr(),
+            wa.data_ptr(), wb.data_ptr(), offsets.data_ptr(), seeds.data_ptr(),
+            xo.data_ptr(), yo.data_ptr(), zo.data_ptr(), eo.data_ptr(),
+            e_tr.data_ptr(), a_tr.data_ptr(),
+            visited.data_ptr() if visited is not None else None,
+            u_dump.data_ptr() if u_dump is not None else None,
+            cfg.n, n_pad, c, n_sweeps, cfg.m, int(bool(zskip)),
+            float(cfg.box_l), float(cfg.box_lz), float(cfg.lj_cutoff),
+            float(cfg.contact_dz), float(cfg.a0), float(cfg.b0),
+            sc["a_t"], sc["a_4t"], sc["s2a"], sc["inv_t"], stream)
+    if err != 0:
+        raise RuntimeError(f"smc_sweep_launch failed: cudaError {err}")
+    sweep_block.launches["zskip" if zskip else "dense"] += 1
+    if diag is not None:
+        diag["visited"] = visited
+        if u_dump is not None:
+            diag["uniforms"] = u_dump
+    return xo, yo, zo, eo, e_tr, a_tr
+
+
+def sweep_block(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
+                n_sweeps: int, a: float, zskip: bool = False,
+                diag: dict | None = None):
+    """n_sweeps Smart-MC sweeps of every chain (columns of the planes).
+
+    CUDA tensors go through the CUDA kernel (and count a launch in
+    `sweep_block.launches[mode]`); CPU tensors through the plain version.
+    zskip: rows must be z-sorted per chain for the skips to pay; results
+    are bitwise those of zskip=False on the same row order.
+
+    Returns (x, y, z, e [1, C], e_trace [S, C], acc_trace [S, C])."""
+    if x.is_cuda:
+        return _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg,
+                                 n_sweeps, a, zskip, diag)
+    return sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg,
+                             n_sweeps, a, zskip=zskip, diag=diag)
+
+
+sweep_block.launches = {"dense": 0, "zskip": 0}

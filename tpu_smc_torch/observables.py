@@ -1,0 +1,263 @@
+"""Observables of the NVT ensemble gather step (counterpart of the
+subset of tpu_smc.observables that the ensemble driver uses): voxel
+density/mobility (SMC.c:912-927), common neighbour analysis
+(SMC.c:971-1045, corrected as in the JAX package), and the host-side
+autocorrelation and variance statistics (SMC.c:1055-1142).
+
+Device observables take positions [C, N, 3]; O(N^2) ones run over chain
+batches (`vmap_chains_bounded`) so their pair temporaries stay bounded.
+The statistics are numpy on host traces.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from .config import SMCConfig
+
+
+def obs_chain_batch(n: int) -> int:
+    """Chains per batch bounding [B, N, N] pair temporaries to ~1 GB
+    (2^28 float32 each): 256 at N = 1024."""
+    return max(1, (1 << 28) // max(n * n, 1))
+
+
+def vmap_chains_bounded(fn, r: torch.Tensor, n: int,
+                        batch: int | None = None):
+    """fn over the chain axis of r in batches of at most `batch` chains
+    (default obs_chain_batch(n)); fn maps [B, ...] to a tensor or a
+    tuple of tensors with leading [B]. Results are concatenated."""
+    b = batch or obs_chain_batch(n)
+    if r.shape[0] <= b:
+        return fn(r)
+    parts = [fn(r[i:i + b]) for i in range(0, r.shape[0], b)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
+
+
+# ----------------------------------------------------------------------
+# Voxel density & mobility (SMC.c:912-927)
+# ----------------------------------------------------------------------
+
+def z_range_edges(cfg: SMCConfig) -> np.ndarray:
+    """Non-uniform z bin edges in [0, Lz] (createZRange, SMC.c:1153-1169):
+    (Ncz-3)/2 thin layers of layer_depth per wall + 3 equal central
+    layers, as tpu_smc.observables.z_range_edges builds them."""
+    ncz = cfg.ncz
+    ld = float(cfg.layer_depth)
+    lz = float(cfg.box_lz)
+    half = (ncz - 3) // 2
+    ld = min(ld, lz / (2.0 * half + 3.0)) if half else ld
+    lower = ld * np.arange(half + 1)
+    upper = lz - ld * np.arange(half, -1, -1)
+    inner_lo, inner_hi = lower[-1], upper[0]
+    central = inner_lo + (inner_hi - inner_lo) / 3.0 * np.arange(1, 3)
+    edges = np.concatenate([lower, central, upper])
+    if edges.size != ncz + 1:
+        edges = np.unique(np.concatenate(
+            [edges, [inner_lo + (inner_hi - inner_lo) / 2.0]]))[: ncz + 1]
+    if edges.size != ncz + 1:
+        raise ValueError(f"z edges: {edges.size} for ncz={ncz}")
+    return edges
+
+
+def voxel_index(r: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
+    """Voxel id per particle [C, N]: i*Ncx*Ncz + j*Ncz + k with
+    i = floor((x/L + 1/2) Ncx) etc. (SMC.c:917-920), clipped into range."""
+    i = torch.floor((r[..., 0] / cfg.box_l + 0.5) * cfg.ncx).to(torch.int64)
+    j = torch.floor((r[..., 1] / cfg.box_l + 0.5) * cfg.ncx).to(torch.int64)
+    if cfg.nonuniform_z:
+        edges = torch.as_tensor(z_range_edges(cfg), dtype=r.dtype,
+                                device=r.device)
+        k = torch.searchsorted(edges, (r[..., 2] + cfg.box_lz / 2.0)
+                               .contiguous(), right=True) - 1
+    else:
+        k = torch.floor((r[..., 2] / cfg.box_lz + 0.5) * cfg.ncz
+                        ).to(torch.int64)
+    i = i.clamp(0, cfg.ncx - 1)
+    j = j.clamp(0, cfg.ncx - 1)
+    k = k.clamp(0, cfg.ncz - 1)
+    return i * (cfg.ncx * cfg.ncz) + j * cfg.ncz + k
+
+
+def density_mobility_update(r, rbin, density, mobility, cfg: SMCConfig):
+    """One gather's cumulative voxel update for every chain (SMC.c:916-926):
+    D[v]++ per particle; Mu[v]++ and Rbin[n] = v when particle n changed
+    voxel. Returns (rbin, density, mobility)."""
+    v = voxel_index(r, cfg)
+    density = density.scatter_add(1, v, torch.ones_like(v))
+    mobility = mobility.scatter_add(1, v, (rbin != v).to(mobility.dtype))
+    return v, density, mobility
+
+
+# ----------------------------------------------------------------------
+# Common Neighbour Analysis
+# ----------------------------------------------------------------------
+
+class ClusterCounts(NamedTuple):
+    num1: torch.Tensor  # [P] bool: pair within lca_cutoff
+    num2: torch.Tensor  # [P] int: common neighbours of the pair
+    num3: torch.Tensor  # [P] int: bonds among those common neighbours
+
+
+def pair_indices(n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Row/col arrays of the N(N-1)/2 unique pairs (l, i < l), row-major."""
+    l, i = np.tril_indices(n, k=-1)
+    return l, i
+
+
+def _adjacency(r: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
+    """[..., N, N] bond matrix: within lca_cutoff, x/y min-image, z
+    unwrapped (SMC.c:987-992), diagonal removed."""
+    n = r.shape[-2]
+    d = r.unsqueeze(-2) - r.unsqueeze(-3)
+    dx = d[..., 0] - cfg.box_l * torch.round(d[..., 0] / cfg.box_l)
+    dy = d[..., 1] - cfg.box_l * torch.round(d[..., 1] / cfg.box_l)
+    dz = d[..., 2]
+    if cfg.pbc_z:
+        dz = dz - cfg.box_lz * torch.round(dz / cfg.box_lz)
+    dr2 = dx * dx + dy * dy + dz * dz
+    eye = torch.eye(n, dtype=torch.bool, device=r.device)
+    return (dr2 < cfg.lca_cutoff * cfg.lca_cutoff) & ~eye
+
+
+def _pair_counts(adj_f: torch.Tensor, lrow: torch.Tensor, icol: torch.Tensor):
+    """num2, num3 of pairs (lrow, icol) of one chain's 0/1 adjacency:
+    num2 = common neighbours, num3 = 1/2 cn^T A cn (matmuls; counts are
+    exact integers in float32)."""
+    cn = adj_f[lrow] * adj_f[icol]                        # [P, N]
+    num2 = cn.sum(-1)
+    num3 = 0.5 * (torch.matmul(cn, adj_f) * cn).sum(-1)
+    return num2.to(torch.int64), num3.to(torch.int64)
+
+
+def cluster_analysis(r: torch.Tensor, cfg: SMCConfig) -> ClusterCounts:
+    """CNA of one chain r [N, 3] over all unique pairs, the corrected
+    analysis tpu_smc.observables.cluster_analysis documents: num1 = pair
+    bonded, num2 = particles bonded to both, num3 = bonds among them."""
+    adj = _adjacency(r, cfg)
+    lrow, icol = (torch.as_tensor(a, device=r.device)
+                  for a in pair_indices(r.shape[0]))
+    num2, num3 = _pair_counts(adj.to(torch.float32), lrow, icol)
+    return ClusterCounts(adj[lrow, icol], num2, num3)
+
+
+def cluster_histograms(counts: ClusterCounts, nbins: int = 7):
+    """Among bonded pairs, histograms of num2 and num3 in `nbins` buckets
+    (SMC.c:146-155, the corrected aggregation). Returns (l1, l2, l3)."""
+    bonded = counts.num1
+    l1 = bonded.sum()
+    l2 = torch.bincount(counts.num2[bonded].clamp(0, nbins - 1),
+                        minlength=nbins)
+    l3 = torch.bincount(counts.num3[bonded].clamp(0, nbins - 1),
+                        minlength=nbins)
+    return l1, l2, l3
+
+
+def cluster_histograms_chains(r: torch.Tensor, cfg: SMCConfig,
+                              nbins: int = 7):
+    """(l1 [C], l2 [C, nbins], l3 [C, nbins]) of every chain of r
+    [C, N, 3]: cluster_histograms(cluster_analysis(r[c])) per chain,
+    evaluated on the bonded pairs only (the only pairs the histograms
+    count), so the common-neighbour matmul is [P_bonded, N] x [N, N]."""
+    c = r.shape[0]
+    l1 = torch.zeros((c,), dtype=torch.int64, device=r.device)
+    l2 = torch.zeros((c, nbins), dtype=torch.int64, device=r.device)
+    l3 = torch.zeros((c, nbins), dtype=torch.int64, device=r.device)
+    for ci in range(c):
+        adj = _adjacency(r[ci], cfg)
+        lrow, icol = torch.nonzero(torch.tril(adj, diagonal=-1),
+                                   as_tuple=True)
+        num2, num3 = _pair_counts(adj.to(torch.float32), lrow, icol)
+        l1[ci] = lrow.shape[0]
+        l2[ci] = torch.bincount(num2.clamp(0, nbins - 1), minlength=nbins)
+        l3[ci] = torch.bincount(num3.clamp(0, nbins - 1), minlength=nbins)
+    return l1, l2, l3
+
+
+# ----------------------------------------------------------------------
+# Autocorrelation and summary statistics (host numpy)
+# ----------------------------------------------------------------------
+
+def autocorrelation(trace: np.ndarray, k_max: int,
+                    mode: str = "reference") -> np.ndarray:
+    """Normalized autocorrelation of a scalar trace, acf[0] = 1.
+
+    "reference" reproduces fft_acf (SMC.c:1055-1093): de-mean, rfft,
+    power spectrum truncated to n//2 + n%2 bins, complex inverse FFT,
+    normalised by lag 0. "circular" is the Wiener-Khinchin circular ACF;
+    "unbiased" zero-pads and divides by (n - k)."""
+    trace = np.asarray(trace)
+    n = trace.shape[0]
+    if n < 2 * k_max + 1:
+        k_max = int(np.rint(n / 2)) - 2
+    z = trace - np.mean(trace)
+    if mode == "reference":
+        lfft = n // 2 + n % 2
+        f = np.fft.rfft(z)
+        ch = np.fft.ifft((f * np.conj(f))[:lfft])
+        return np.real(ch[:k_max]) / np.real(ch[0])
+    if mode == "circular":
+        f = np.fft.rfft(z)
+        ch = np.fft.irfft(f * np.conj(f), n=n)
+        return ch[:k_max] / ch[0]
+    if mode == "unbiased":
+        m = 2 * n
+        f = np.fft.rfft(z, n=m)
+        ch = np.fft.irfft(f * np.conj(f), n=m)[:k_max]
+        ch = ch / (n - np.arange(k_max))
+        return ch / ch[0]
+    raise ValueError(f"unknown acf mode {mode}")
+
+
+def autocorrelation_direct(trace: np.ndarray, k_max: int) -> np.ndarray:
+    """Direct O(n k) ACF of simple_acf (SMC.c:1096-1122)."""
+    trace = np.asarray(trace)
+    n = trace.shape[0]
+    z = trace - np.mean(trace)
+    m = n - k_max - 1
+    acf = np.array([np.sum(z[:m] * z[k:k + m]) / (n - k_max)
+                    for k in range(k_max)])
+    return acf / acf[0]
+
+
+def integrated_autocorrelation_time(acf: np.ndarray) -> float:
+    """tau = sum of the ACF, as the reference driver computes it
+    (SMC.c:235)."""
+    return float(np.sum(acf))
+
+
+def tau_int(trace: np.ndarray, k_max: int | None = None) -> float:
+    """0.5 + sum of the normalized circular ACF up to its first negative
+    lag; k_max defaults to len/3 capped at 20k lags (tpu_smc's rule)."""
+    trace = np.asarray(trace, np.float64)
+    if k_max is None:
+        k_max = max(2, min(len(trace) // 3, 20_000))
+    acf = autocorrelation(trace, k_max, mode="circular")
+    neg = int(np.argmax(acf < 0)) or len(acf)
+    if neg == len(acf):
+        warnings.warn(
+            f"tau_int: ACF has no negative crossing within k_max={k_max} "
+            f"lags (trace length {len(trace)}); the returned tau is a "
+            "truncated lower bound", stacklevel=2)
+    return float(0.5 + acf[1:neg].sum())
+
+
+def variance_strided(trace: np.ndarray, tau: float) -> float:
+    """Variance over tau-strided samples (variance_corr, SMC.c:1128-1142)."""
+    trace = np.asarray(trace)
+    sub = trace[::max(1, int(np.floor(tau)))]
+    return float(np.sum((sub - np.mean(trace)) ** 2) / (sub.shape[0] - 1))
+
+
+def trace_mean_var(trace: np.ndarray) -> Tuple[float, float]:
+    """Mean and population variance E[x^2] - E[x]^2
+    (matematicose.c:97-104)."""
+    trace = np.asarray(trace)
+    m = np.mean(trace)
+    return float(m), float(np.mean(trace * trace) - m * m)

@@ -1,0 +1,264 @@
+"""Lennard-Jones pair and surface-wall physics on tensors with a leading
+chain axis (PyTorch counterpart of tpu_smc.potentials).
+
+Reference semantics (file:line cites into the C original, as in the JAX
+package):
+  - pair energy/force of one particle:  SMC.c:557-618  (energySingle, forceSingle)
+  - total pair energy / virial:          SMC.c:626-720
+  - wall energy/force of one particle:   SMC.c:729-813
+  - total wall energy / virial:          SMC.c:822-895
+
+Conventions kept from the reference:
+  * minimum image in x and y only (z unwrapped); the bulk variant
+    (cfg.pbc_z) wraps z too;
+  * pair cutoff tested on r^2 < LJ_CUTOFF^2;
+  * V = 4 (r^-12 - r^-6); force kernel (-dV/dr)/r = 48 r^-14 - 24 r^-8;
+  * the uniform wall term uses the signed distance to the NEAREST wall,
+    clamped at contact.
+
+Every function takes positions R [C, N, 3] (C chains) and returns one
+value per chain; `torch.round` is round-half-to-even like C `rint` and
+`jnp.round`.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .config import SMCConfig
+
+
+def _min_image(d: torch.Tensor, period: float) -> torch.Tensor:
+    return d - period * torch.round(d / period)
+
+
+def wrap_xy(r: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
+    """Wrap positions into the periodic x/y box (shiftSystem2D,
+    SMC.c:521-527); z too when cfg.pbc_z."""
+    x = _min_image(r[..., 0], cfg.box_l)
+    y = _min_image(r[..., 1], cfg.box_l)
+    z = _min_image(r[..., 2], cfg.box_lz) if cfg.pbc_z else r[..., 2]
+    return torch.stack([x, y, z], dim=-1)
+
+
+def _pair_displacements(ri: torch.Tensor, R: torch.Tensor, cfg: SMCConfig):
+    """ri [..., 3] against R [..., N, 3] -> d [..., N, 3], dr2 [..., N]."""
+    d = ri.unsqueeze(-2) - R
+    dx = _min_image(d[..., 0], cfg.box_l)
+    dy = _min_image(d[..., 1], cfg.box_l)
+    dz = _min_image(d[..., 2], cfg.box_lz) if cfg.pbc_z else d[..., 2]
+    d = torch.stack([dx, dy, dz], dim=-1)
+    return d, dx * dx + dy * dy + dz * dz
+
+
+def _lj_terms(d: torch.Tensor, dr2: torch.Tensor, mask: torch.Tensor,
+              cfg: SMCConfig):
+    """Masked LJ energy and force sums over the last particle axis."""
+    safe = torch.where(mask, dr2, torch.ones_like(dr2))
+    inv2 = 1.0 / safe
+    inv6 = inv2 * inv2 * inv2
+    inv12 = inv6 * inv6
+    zero = torch.zeros_like(dr2)
+    u = 4.0 * torch.where(mask, inv12 - inv6, zero).sum(-1)
+    if cfg.lj_shift:
+        rc6 = cfg.cutoff2 ** 3
+        u = u - 4.0 * (1.0 / (rc6 * rc6) - 1.0 / rc6) * mask.to(u.dtype).sum(-1)
+    dv = torch.where(mask, (48.0 * inv12 - 24.0 * inv6) * inv2, zero)
+    f = (dv.unsqueeze(-1) * d).sum(-2)
+    return u, f
+
+
+def pair_energy_force_single(R: torch.Tensor, i, ri: torch.Tensor,
+                             cfg: SMCConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pair energy of and force on a particle at `ri` [C, 3], excluding
+    particle index `i` (int or [C] tensor) of R [C, N, 3].
+    Returns (U [C], F [C, 3])."""
+    n = R.shape[-2]
+    d, dr2 = _pair_displacements(ri, R, cfg)
+    idx = torch.arange(n, device=R.device)
+    i = torch.as_tensor(i, device=R.device)
+    mask = (dr2 < cfg.cutoff2) & (idx != i.reshape(-1, 1))
+    return _lj_terms(d, dr2, mask, cfg)
+
+
+def _pair_dr2(R: torch.Tensor, cfg: SMCConfig):
+    """All-pairs squared distances [C, N, N] and the in-cutoff mask with
+    the diagonal removed (no [C, N, N, 3] displacement tensor)."""
+    n = R.shape[-2]
+
+    def comp(k, period):
+        dk = R[..., :, k].unsqueeze(-1) - R[..., :, k].unsqueeze(-2)
+        return _min_image(dk, period) if period else dk
+
+    dx = comp(0, cfg.box_l)
+    dr2 = dx * dx
+    del dx
+    dy = comp(1, cfg.box_l)
+    dr2 += dy * dy
+    del dy
+    dz = comp(2, cfg.box_lz if cfg.pbc_z else None)
+    dr2 += dz * dz
+    del dz
+    eye = torch.eye(n, dtype=torch.bool, device=R.device)
+    return dr2, (dr2 < cfg.cutoff2) & ~eye
+
+
+def pair_energy_total(R: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
+    """Total pair energy per chain, all unique pairs (SMC.c:626-646)."""
+    dr2, mask = _pair_dr2(R, cfg)
+    safe = torch.where(mask, dr2, torch.ones_like(dr2))
+    inv6 = 1.0 / (safe * safe * safe)
+    u = torch.where(mask, inv6 * inv6 - inv6, torch.zeros_like(dr2))
+    u = 4.0 * u.sum(-1)
+    if cfg.lj_shift:
+        rc6 = cfg.cutoff2 ** 3
+        u = u - 4.0 * (1.0 / (rc6 * rc6) - 1.0 / rc6) * mask.to(u.dtype).sum(-1)
+    return 0.5 * u.sum(-1)
+
+
+def pair_virial_pressure(R: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
+    """Virial pair pressure -sum(24 r^-6 - 48 r^-12)/(3 L^2 Lz) per chain
+    (SMC.c:696-720)."""
+    dr2, mask = _pair_dr2(R, cfg)
+    safe = torch.where(mask, dr2, torch.ones_like(dr2))
+    inv6 = 1.0 / (safe * safe * safe)
+    p = torch.where(mask, 24.0 * inv6 - 48.0 * inv6 * inv6,
+                    torch.zeros_like(dr2))
+    p = 0.5 * p.sum(-1).sum(-1)
+    return -p / (3.0 * cfg.box_l * cfg.box_l * cfg.box_lz)
+
+
+# ----------------------------------------------------------------------
+# Walls
+# ----------------------------------------------------------------------
+
+def wall_site_positions(cfg: SMCConfig, dtype=None, device=None) -> torch.Tensor:
+    """In-plane coordinates of the M*M wall sites at (i*L/M, j*L/M),
+    m = i*M + j ordering (SMC.c:748-751). Returns [M*M, 2]."""
+    dw = cfg.box_l / cfg.m
+    ii, jj = torch.meshgrid(torch.arange(cfg.m), torch.arange(cfg.m),
+                            indexing="ij")
+    s = torch.stack([ii.reshape(-1) * dw, jj.reshape(-1) * dw], dim=-1)
+    return s.to(dtype=dtype or cfg.torch_dtype, device=device)
+
+
+def _wall_dz(rz: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
+    """Signed distance to the nearest wall with the contact clamp
+    (SMC.c:736-739)."""
+    lz = cfg.box_lz
+    dz = rz + lz / 2.0
+    dz = dz - lz * torch.round(dz / lz)
+    c = cfg.contact_dz
+    return torch.where(rz <= -lz / 2.0, torch.full_like(dz, c),
+                       torch.where(rz >= lz / 2.0, torch.full_like(dz, -c), dz))
+
+
+def wall_energy_force_single(rpos: torch.Tensor, W: torch.Tensor,
+                             cfg: SMCConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Wall energy of and force on particles at rpos [..., 3]: the uniform
+    planar 12-6 term on the nearest-wall distance plus the M*M grid sites
+    with per-site (a, b) = W [M*M, 2] (SMC.c:729-813).
+    Returns (U [...], F [..., 3])."""
+    rx, ry, rz = rpos[..., 0], rpos[..., 1], rpos[..., 2]
+    dz = _wall_dz(rz, cfg)
+    dz2 = dz * dz
+    izv2 = 1.0 / dz2
+    izv6 = izv2 * izv2 * izv2
+    izv12 = izv6 * izv6
+    u = cfg.a0 * izv12 - cfg.b0 * izv6
+    fz = (48.0 * cfg.a0 * izv12 - 24.0 * cfg.b0 * izv6) * izv2 * dz
+
+    sites = wall_site_positions(cfg, rpos.dtype, rpos.device)
+    dx = _min_image(rx.unsqueeze(-1) - sites[:, 0], cfg.box_l)   # [..., MM]
+    dy = _min_image(ry.unsqueeze(-1) - sites[:, 1], cfg.box_l)
+    dr2 = dx * dx + dy * dy + dz2.unsqueeze(-1)
+    mask = dr2 < cfg.cutoff2
+    safe = torch.where(mask, dr2, torch.ones_like(dr2))
+    inv2 = 1.0 / safe
+    inv6 = inv2 * inv2 * inv2
+    inv12 = inv6 * inv6
+    a, b = W[:, 0].to(rpos.dtype), W[:, 1].to(rpos.dtype)
+    zero = torch.zeros_like(dr2)
+    u = u + torch.where(mask, a * inv12 - b * inv6, zero).sum(-1)
+    dv = torch.where(mask, (48.0 * a * inv12 - 24.0 * b * inv6) * inv2, zero)
+    fx = (dv * dx).sum(-1)
+    fy = (dv * dy).sum(-1)
+    fz = fz + dv.sum(-1) * dz
+    return 4.0 * u, torch.stack([fx, fy, fz], dim=-1)
+
+
+def wall_energy_total(R: torch.Tensor, W: torch.Tensor,
+                      cfg: SMCConfig) -> torch.Tensor:
+    """Total particle-wall energy per chain (SMC.c:822-859)."""
+    return wall_energy_force_single(R, W, cfg)[0].sum(-1)
+
+
+def wall_virial_pressure(R: torch.Tensor, W: torch.Tensor, cfg: SMCConfig,
+                         reproduce_ref_bug: bool = False) -> torch.Tensor:
+    """Wall virial pressure per chain (SMC.c:862-895), with the
+    reference's dz = rz + L/2 bug fixed unless reproduce_ref_bug; no
+    contact clamp, and the uniform-wall virial counted once per in-cutoff
+    site, as in the reference (see tpu_smc.potentials)."""
+    half = (cfg.box_l if reproduce_ref_bug else cfg.box_lz) / 2.0
+    sites = wall_site_positions(cfg, R.dtype, R.device)
+    a, b = W[:, 0].to(R.dtype), W[:, 1].to(R.dtype)
+    dz = R[..., 2] + half
+    dz = (dz - cfg.box_lz * torch.round(dz / cfg.box_lz)).unsqueeze(-1)
+    dx = _min_image(R[..., 0].unsqueeze(-1) - sites[:, 0], cfg.box_l)
+    dy = _min_image(R[..., 1].unsqueeze(-1) - sites[:, 1], cfg.box_l)
+    dr2 = dx * dx + dy * dy + dz * dz
+    mask = dr2 < cfg.cutoff2
+    safe = torch.where(mask, dr2, torch.ones_like(dr2))
+    inv6 = 1.0 / (safe * safe * safe)
+    term = 24.0 * b * inv6 - 48.0 * a * inv6 * inv6
+    dz6 = dz ** 6
+    term0 = 24.0 * cfg.b0 / dz6 - 48.0 * cfg.a0 / (dz6 * dz6)
+    p = torch.where(mask, term + term0, torch.zeros_like(dr2)).sum(-1).sum(-1)
+    return -p / (3.0 * cfg.box_l * cfg.box_l * cfg.box_lz)
+
+
+# ----------------------------------------------------------------------
+# Combined evaluations
+# ----------------------------------------------------------------------
+
+def energy_force_single(R: torch.Tensor, i, ri: torch.Tensor, W: torch.Tensor,
+                        cfg: SMCConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """U [C] and F [C, 3] of particle i at ri [C, 3]: pair + wall terms
+    (the four calls per evaluation of oneParticleMoves, SMC.c:300-321)."""
+    u, f = pair_energy_force_single(R, i, ri, cfg)
+    if cfg.use_walls:
+        uw, fw = wall_energy_force_single(ri, W, cfg)
+        u = u + uw
+        f = f + fw
+    return u, f
+
+
+def total_forces(R: torch.Tensor, W: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
+    """Total force on every particle [C, N, 3]: pair + wall terms."""
+    n = R.shape[-2]
+    d, dr2 = _pair_displacements(R, R.unsqueeze(-3), cfg)
+    mask = (dr2 < cfg.cutoff2) & ~torch.eye(n, dtype=torch.bool,
+                                             device=R.device)
+    f = _lj_terms(d, dr2, mask, cfg)[1]
+    if cfg.use_walls:
+        f = f + wall_energy_force_single(R, W, cfg)[1]
+    return f
+
+
+def total_energy(R: torch.Tensor, W: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
+    """Total potential energy per chain: pair + wall (SMC.c:48)."""
+    u = pair_energy_total(R, cfg)
+    if cfg.use_walls:
+        u = u + wall_energy_total(R, W, cfg)
+    return u
+
+
+def total_pressure(R: torch.Tensor, W: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
+    """Virial pressure per chain, pair + wall (SMC.c:140); the ideal-gas
+    term is added by the driver."""
+    p = pair_virial_pressure(R, cfg)
+    if cfg.use_walls:
+        p = p + wall_virial_pressure(R, W, cfg)
+    return p

@@ -1,0 +1,126 @@
+"""The Smart (force-biased) Monte Carlo sweep, plain PyTorch — the port's
+reference engine and the oracle its kernel is held against
+(counterpart of tpu_smc.sampler; reference: oneParticleMoves,
+SMC.c:278-351).
+
+One sweep makes N single-particle moves in cyclic order from `offset`.
+Each move proposes
+
+    delta = F * A/T + xi,        xi ~ N(0, 2A)        (SMC.c:284, 307-309)
+
+wraps the proposal in x, y (SMC.c:315-316), and accepts with
+
+    ap = exp(-(dU + delta.(Fn+Fm)/2 + dW)/T)           (SMC.c:329)
+    dW = (|Fn|^2 - |Fm|^2) * A/(4T)                    (SMC.c:326-327)
+
+The moves are sequential; every tensor carries a leading chain axis [C]
+and all chains share the visiting order. Randomness is injected: the
+caller passes the proposal noise (indexed by particle, like the
+reference's displ[3n]) and the acceptance uniforms (indexed by move).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .config import SMCConfig
+from .potentials import energy_force_single, total_energy
+from .state import ChainState
+
+
+class SweepStats(NamedTuple):
+    """Per-sweep traces [S, C]: running energy and accepted moves."""
+
+    energy: torch.Tensor
+    accepted: torch.Tensor
+
+
+def _wrap_proposal(rp: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
+    """Periodic wrap of proposals [C, 3]: x, y always; z in bulk only."""
+    l = cfg.box_l
+    x = rp[:, 0] - l * torch.round(rp[:, 0] / l)
+    y = rp[:, 1] - l * torch.round(rp[:, 1] / l)
+    z = rp[:, 2]
+    if cfg.pbc_z:
+        z = z - cfg.box_lz * torch.round(z / cfg.box_lz)
+    return torch.stack([x, y, z], dim=-1)
+
+
+def sweep(r: torch.Tensor, energy: torch.Tensor, w: torch.Tensor,
+          cfg: SMCConfig, a: float, noise: torch.Tensor, unif: torch.Tensor,
+          offset: int, temperature: float | None = None):
+    """One sweep of every chain.
+
+    r [C, N, 3], energy [C]; noise [C, N, 3] is the proposal noise
+    sqrt(2A) * xi by particle, unif [C, N] the acceptance uniforms by
+    move, offset the shared cyclic start (SMC.c:290).
+    Returns (r, energy, n_accepted [C])."""
+    if cfg.reference_noise:
+        raise NotImplementedError("reference_noise: not yet ported")
+    n = cfg.n
+    t = float(cfg.temperature if temperature is None else temperature)
+    a = float(a)
+    r = r.clone()
+    acc = torch.zeros(r.shape[0], dtype=torch.int64, device=r.device)
+    zero = torch.zeros((), dtype=r.dtype, device=r.device)
+    for nn in range(n):
+        i = (nn + int(offset)) % n
+        ri = r[:, i]
+        um, fm = energy_force_single(r, i, ri, w, cfg)
+        # acceptance uses the UNWRAPPED delta, energies the wrapped
+        # position (SMC.c:307-316)
+        delta = fm * (a / t) + noise[:, i]
+        rp = _wrap_proposal(ri + delta, cfg)
+        un, fn = energy_force_single(r, i, rp, w, cfg)
+        df = fn - fm
+        dw = ((df * df).sum(-1) + 2.0 * (df * fm).sum(-1)) * a / (4.0 * t)
+        log_ap = -(un - um + 0.5 * (delta * (fn + fm)).sum(-1) + dw) / t
+        accept = (unif[:, nn] < torch.exp(torch.clamp(log_ap, max=0.0))) \
+            | (log_ap >= 0.0)
+        r[:, i] = torch.where(accept[:, None], rp, ri)
+        energy = energy + torch.where(accept, un - um, zero)
+        acc += accept.to(torch.int64)
+    return r, energy, acc
+
+
+def sweep_state(state: ChainState, w: torch.Tensor, cfg: SMCConfig,
+                a: float, noise: torch.Tensor, unif: torch.Tensor,
+                offset: int, temperature: float | None = None):
+    """One sweep on a ChainState. Returns (state, SweepStats row)."""
+    r, e, acc = sweep(state.r, state.energy, w, cfg, a, noise, unif, offset,
+                      temperature=temperature)
+    new = state.replace(r=r, energy=e, sweeps=state.sweeps + 1,
+                        accepted=state.accepted + acc)
+    return new, SweepStats(energy=e, accepted=acc)
+
+
+def run_sweeps(state: ChainState, w: torch.Tensor, cfg: SMCConfig,
+               a: float, n_sweeps: int, collect_trace: bool = True,
+               seed=None):
+    """`n_sweeps` consecutive sweeps of every chain (the main loop body,
+    SMC.c:134-196), on the plain engine with the counter-based draws of
+    ensemble._per_sweep_randomness."""
+    from .ensemble import ensemble_sweeps
+
+    return ensemble_sweeps(state, w, cfg, a, n_sweeps,
+                           collect_trace=collect_trace, stream_seed=seed)
+
+
+def recompute_energy(state: ChainState, w: torch.Tensor,
+                     cfg: SMCConfig) -> ChainState:
+    """Replace the tracked energy by an exact recompute (the reference
+    never does; float32 drift needs it, SURVEY §7.4.5)."""
+    from .observables import vmap_chains_bounded
+
+    e = vmap_chains_bounded(lambda rb: total_energy(rb, w, cfg), state.r,
+                            cfg.n)
+    return state.replace(energy=e.to(state.energy.dtype))
+
+
+def thermalize(state: ChainState, w: torch.Tensor, cfg: SMCConfig,
+               eqsteps: int, collect_trace: bool = True, seed=None):
+    """Thermalization: eqsteps sweeps with A doubled (SMC.c:110-125)."""
+    return run_sweeps(state, w, cfg, 2.0 * cfg.proposal_a, eqsteps,
+                      collect_trace=collect_trace, seed=seed)

@@ -1,0 +1,145 @@
+"""Chain state (PyTorch counterpart of tpu_smc.state).
+
+One dataclass of tensors holds everything a chain carries: positions, the
+running energy, its seed words, the sweep and acceptance counters, and the
+voxel density/mobility accumulators (SMC.c:44-60). An ensemble carries a
+leading chain axis [C] on every field.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .config import SMCConfig
+from .system import build_walls, fcc_lattice
+
+
+@dataclasses.dataclass
+class ChainState:
+    r: torch.Tensor         # [C, N, 3] positions
+    energy: torch.Tensor    # [C] running potential energy (pair + wall)
+    key: torch.Tensor       # [C, 2] int64 seed words (uint32 values)
+    sweeps: torch.Tensor    # [C] int64 sweeps completed (therm included)
+    accepted: torch.Tensor  # [C] int64 accepted moves
+    rbin: torch.Tensor      # [C, N] int64 current voxel of each particle
+    density: torch.Tensor   # [C, Nc] int64 cumulative voxel counts
+    mobility: torch.Tensor  # [C, Nc] int64 cumulative cell-change counts
+
+    def replace(self, **kw) -> "ChainState":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def n_chains(self) -> int:
+        return self.r.shape[0]
+
+
+def seed_words(seed: int) -> torch.Tensor:
+    """A run seed as the two 32-bit words of a chain key."""
+    seed = int(seed)
+    return torch.tensor([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
+                        dtype=torch.int64)
+
+
+def fold_in(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """Child seed words of `key` [2] for each integer in `data` [K]:
+    Philox4x32-10 of the counter (data, 0xF01D, 0, 0) under `key`."""
+    from .kernels.sweep import philox4x32
+
+    data = torch.as_tensor(data, dtype=torch.int64)
+    z = torch.zeros_like(data)
+    k0 = torch.full_like(data, int(key[0]))
+    k1 = torch.full_like(data, int(key[1]))
+    b = philox4x32(data, torch.full_like(data, 0xF01D), z, z, k0, k1)
+    return torch.stack([b[0], b[1]], dim=-1)
+
+
+def init_chain_state(cfg: SMCConfig, key: torch.Tensor,
+                     r0: np.ndarray | None = None,
+                     w: np.ndarray | None = None,
+                     device="cuda") -> tuple[ChainState, torch.Tensor]:
+    """(state, wall table) for ONE chain, carried with a chain axis of 1.
+
+    r0 defaults to the reference's FCC lattice, w to its bit-exact wall
+    table; the initial energy is computed from scratch (SMC.c:48)."""
+    from .potentials import total_energy
+
+    dtype = cfg.torch_dtype
+    if r0 is None:
+        r0 = fcc_lattice(cfg)
+    if w is None:
+        w, _, _ = build_walls(cfg)
+    r = torch.as_tensor(np.asarray(r0), dtype=dtype, device=device)[None]
+    w = torch.as_tensor(np.asarray(w), dtype=dtype, device=device)
+    nvox = cfg.n_voxels
+    i64 = dict(dtype=torch.int64, device=device)
+    state = ChainState(
+        r=r,
+        energy=total_energy(r, w, cfg),
+        key=torch.as_tensor(key, **i64).reshape(1, 2),
+        sweeps=torch.zeros((1,), **i64),
+        accepted=torch.zeros((1,), **i64),
+        # Rbin starts calloc'd to 0 in the reference (SMC.c:52)
+        rbin=torch.zeros((1, cfg.n), **i64),
+        density=torch.zeros((1, nvox), **i64),
+        mobility=torch.zeros((1, nvox), **i64),
+    )
+    return state, w
+
+
+def batch_chain_state(state: ChainState, n_chains: int,
+                      chain_offset: int = 0) -> ChainState:
+    """Broadcast a one-chain state to `n_chains` chains, each with its
+    own seed words folded from the seed chain's key by global chain index
+    (chain_offset + i), like tpu_smc.state.batch_chain_state."""
+    keys = fold_in(state.key[0].cpu(),
+                   torch.arange(chain_offset, chain_offset + n_chains))
+
+    def rep(x):
+        return x.expand((n_chains,) + x.shape[1:]).clone()
+
+    return ChainState(
+        r=rep(state.r), energy=rep(state.energy),
+        key=keys.to(state.r.device),
+        sweeps=rep(state.sweeps), accepted=rep(state.accepted),
+        rbin=rep(state.rbin), density=rep(state.density),
+        mobility=rep(state.mobility))
+
+
+def init_ensemble_state(cfg: SMCConfig, key: torch.Tensor, n_chains: int,
+                        r0: np.ndarray | None = None,
+                        w: np.ndarray | None = None,
+                        device="cuda") -> tuple[ChainState, torch.Tensor]:
+    """`n_chains` chains from one common start configuration (every MPI
+    rank of the reference starts from the common R0, SMC.c:43-45)."""
+    state, w_t = init_chain_state(cfg, key, r0=r0, w=w, device=device)
+    return batch_chain_state(state, n_chains), w_t
+
+
+def from_jax_state(arrays: dict, w, cfg: SMCConfig,
+                   device="cpu") -> tuple[ChainState, torch.Tensor]:
+    """Carry a tpu_smc ensemble state across: `arrays` holds its leaves as
+    numpy (r, energy, sweeps, accepted, rbin, density, mobility, and
+    `key` = jax.random.key_data of the chain keys, [C, 2] uint32), `w`
+    the [M*M, 2] wall table. Returns (ChainState, wall table tensor)."""
+    dtype = cfg.torch_dtype
+    i64 = dict(dtype=torch.int64, device=device)
+
+    def f(name, **kw):
+        return torch.as_tensor(np.asarray(arrays[name]).astype(
+            np.float64 if kw["dtype"].is_floating_point else np.int64),
+            **kw)
+
+    state = ChainState(
+        r=f("r", dtype=dtype, device=device),
+        energy=f("energy", dtype=dtype, device=device),
+        key=f("key", **i64).reshape(-1, 2),
+        sweeps=f("sweeps", **i64),
+        accepted=f("accepted", **i64),
+        rbin=f("rbin", **i64),
+        density=f("density", **i64),
+        mobility=f("mobility", **i64),
+    )
+    return state, torch.as_tensor(np.array(w), dtype=dtype, device=device)
