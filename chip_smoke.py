@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """On-card check of tpu_smc_torch: builds the CUDA kernel, holds it against
-its plain PyTorch version, and drives the NVT chain-ensemble CLI at full
-width (N = 1024 x 512 chains, and N = 108 x 512 chains).
+its plain PyTorch version in every mode, and drives the CLI at full width:
+the NVT chain ensemble (N = 1024 x 512 and N = 108 x 512 chains), the
+temperature ladder with parallel tempering, tuning and MBAR (N = 1024,
+8 x 64 chains), the quenched-disorder ladder (N = 108, 4 x 128 chains, 4
+walls) and the disordered ensemble (N = 108 x 512, 8 walls).
 
     python3 chip_smoke.py
 
@@ -14,15 +17,32 @@ Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
      positions/energies equal within the stated tolerances except chains
      whose trajectory passed a near-tie move, z-skip on/off bitwise equal
      on the same row order, determinism, carried energy vs recompute;
+     then the ladder modes at the same shapes: per-chain (A, T) over 8
+     levels, plain and with the x2 thermalization mobility + per-chain
+     walls of 4 realizations, against the plain version as above (carried
+     E against a per-chain-wall recompute); uniform rows bitwise the
+     scalar call, identical per-chain wall tables bitwise the shared row,
+     and a [w0.., w1.., w2.., w3..] ensemble bitwise the shared-row runs;
   3. the main path: `tpu_smc_torch.cli.main` at N = 1024 x 512 chains
      (auto -> zsorted, z-skip launches) and N = 108 x 512 (auto -> dense),
-     launch counts reset before and read after each, the plain version
-     barred;
+     each reproducing the mean energy and acceptance recorded for it
+     exactly; then (a) the N = 1024 ladder with parallel tempering, tuned
+     mobility and MBAR, (b) the N = 108 disorder ladder with per-
+     realization MBAR, (d) an N = 108 parallel-tempering ladder run near
+     equilibrium and (c) the N = 108 disordered ensemble; launch counts
+     reset before and read after each run, the plain version barred;
+     per-T results finite and rising with T, swap acceptance in (0, 1],
+     MBAR at the ladder's temperatures within 3 combined SE of the
+     sampled means (printed only for (a), which is far from equilibrium),
+     tpu_smc's CSV names and headers;
   4. at the main path's shapes (N = 108 x 512 dense, N = 1024 x 512
-     z-skip): kernel vs plain as in phase 2, kernel and plain times and
-     the bound; dense mode at N = 1024 x 512 beside z-skip; and the dense
-     and zsorted engines at N = 256 ... 2048 x 512, behind auto routing,
-     and the zsorted engine at sort cadences 4 ... 32 (N = 1024 x 512).
+     z-skip): kernel vs plain as in phase 2, the plain time and the
+     bound, for the uniform form and for per-chain (A, T) and per-chain
+     walls (N = 108 x 512); kernel times of those and of per-chain (A, T)
+     z-skip (N = 1024 x 512) taken in turns within the call; dense mode
+     at N = 1024 x 512 beside z-skip; the dense and zsorted engines at
+     N = 512 and 1024 x 512, behind auto routing, and the zsorted engine
+     at sort cadences 8 and 16 (N = 1024 x 512).
 
 Each phase prints its elapsed seconds; any failure exits non-zero before
 the result lines. The last two lines are the kernel table (JSON) and
@@ -31,8 +51,11 @@ the result lines. The last two lines are the kernel table (JSON) and
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -71,6 +94,17 @@ def check(cond, msg: str) -> None:
         raise Failure(msg)
 
 
+FAILED = []   # statistical checks of the main path, reported at the end
+
+
+def check_later(cond, msg: str) -> None:
+    """A check whose failure lets the run go on to show the rest; the
+    script still fails, before its result lines."""
+    if not cond:
+        print(f"  FAILED: {msg}", flush=True)
+        FAILED.append(msg)
+
+
 def phase_line(name: str, t0: float) -> None:
     print(f"[phase] {name}: {time.perf_counter() - t0:.2f} s "
           f"(total {time.perf_counter() - T_START:.2f} s)", flush=True)
@@ -90,16 +124,23 @@ def card_line() -> str:
 # ----------------------------------------------------------------------
 
 def kernel_inputs(n: int, c: int, device, seed: int = 11, sweeps: int = 2,
-                  sort: bool = False):
-    """Planes of an FCC-started ensemble, advanced one sweep on the plain
-    engine so the chains differ, plus the per-sweep draws of `sweeps`."""
+                  sort: bool = False, walls: int = 0):
+    """Planes of an FCC-started ensemble, advanced one sweep on the dense
+    engine so the chains differ, plus the per-sweep draws of `sweeps`.
+    walls = K > 0: per-chain wall tables of K realizations, each on a
+    contiguous block of c / K chains (the energies under their own walls);
+    the returned w is then the [c, M*M, 2] table."""
     from tpu_smc_torch import ensemble as en
     from tpu_smc_torch.config import SMCConfig
     from tpu_smc_torch.kernels import sweep as ks
     from tpu_smc_torch.state import init_ensemble_state, seed_words
+    from tpu_smc_torch.system import build_wall_ensemble
 
     cfg = SMCConfig.for_n(n)
-    state, w = init_ensemble_state(cfg, seed_words(seed), c, device=device)
+    w_np = (np.repeat(build_wall_ensemble(cfg, walls)[0], c // walls, axis=0)
+            if walls else None)
+    state, w = init_ensemble_state(cfg, seed_words(seed), c, w=w_np,
+                                   device=device)
     state, _ = en.ensemble_sweeps_dense(state, w, cfg, cfg.proposal_a, 1,
                                         seed=seed)
     words, offsets = en._per_sweep_randomness(state, cfg, seed + 1, sweeps)
@@ -111,22 +152,33 @@ def kernel_inputs(n: int, c: int, device, seed: int = 11, sweeps: int = 2,
     return cfg, w, (x, y, z, e, wa, wb, offsets, words), ks
 
 
-def compare(cfg, w, args, ks, zskip: bool, label: str):
-    """Kernel vs plain (exact Philox) on the same inputs. Returns the
-    kernel's outputs, the largest position error over chains whose
-    trajectories agree, the plain version's wall ms (diagnostics included)
-    and the kernel's visited pair rows [C]."""
+def ladder_rows(cfg, c: int, device, a_scale: float = 1.0):
+    """Per-chain (A, T) [c] of an 8-level ladder T = 0.9 ... 1.6,
+    temperature-major, A = a_scale * gamma * T; float64."""
+    t = torch.repeat_interleave(torch.linspace(0.9, 1.6, 8,
+                                               dtype=torch.float64), c // 8)
+    t = t.to(device)
+    return a_scale * cfg.gamma * t, t
+
+
+def compare(cfg, w, args, ks, zskip: bool, label: str, a=None, t=None):
+    """Kernel vs plain (exact Philox) on the same inputs, with mobility
+    and temperature a / t (default the config's; scalars or per-chain
+    rows). Returns the kernel's outputs, the largest position error over
+    chains whose trajectories agree, the plain version's wall ms
+    (diagnostics included) and the kernel's visited pair rows [C]."""
     from tpu_smc_torch.potentials import total_energy
 
     sweeps = args[-1].shape[0]
+    a = cfg.proposal_a if a is None else a
     dk = {"uniforms": True}
-    outk = ks.sweep_block(*args, cfg, sweeps, cfg.proposal_a, zskip=zskip,
-                          diag=dk)
+    outk = ks.sweep_block(*args, cfg, sweeps, a, zskip=zskip, diag=dk,
+                          temperature=t)
     dp = {"uniforms": True, "tie_margin": TIE_MARGIN}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outp = ks.sweep_block_plain(*args, cfg, sweeps, cfg.proposal_a,
-                                zskip=zskip, diag=dp)
+    outp = ks.sweep_block_plain(*args, cfg, sweeps, a, zskip=zskip, diag=dp,
+                                temperature=t)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     uk, up = dk["uniforms"], dp["uniforms"]
@@ -161,7 +213,8 @@ def compare(cfg, w, args, ks, zskip: bool, label: str):
     vis_k, vis_p = dk["visited"][agree], dp["visited"][agree]
     check(bool(((vis_k - vis_p).abs() <= 0.01 * vis_p).all()),
           f"{label}: pair rows visited differ from the plain envelope")
-    # carried energy against a from-scratch recompute
+    # carried energy against a from-scratch recompute (under each chain's
+    # own wall when w is a per-chain table)
     r = ks.from_planes(outk[0], outk[1], outk[2], cfg)
     exact = total_energy(r, w.to(torch.float32), cfg)
     err = (outk[3].reshape(-1) - exact).abs()
@@ -189,6 +242,57 @@ def phase_kernel_vs_plain(device):
               f"N={n}: z-skip on/off not bitwise equal on the same rows")
 
 
+def bitwise(out1, out2) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(out1, out2))
+
+
+def phase_ladder_modes(device):
+    """The kernel's per-chain (A, T) and per-chain wall modes against the
+    plain version, and their bitwise contracts, at phase 2's shapes."""
+    for n, c, zskip in ((108, 64, False), (1024, 128, True)):
+        mode = "zskip" if zskip else "dense"
+        cfg, w, args, ks = kernel_inputs(n, c, device, sort=zskip)
+        a_c, t_c = ladder_rows(cfg, c, device)
+        compare(cfg, w, args, ks, zskip, f"{mode} N={n} C={c} per-chain "
+                "(A, T) 8 levels", a=a_c, t=t_c)
+        # uniform rows against the scalar form
+        full = lambda v: torch.full((c,), v, dtype=torch.float64,
+                                    device=device)
+        scalar = ks.sweep_block(*args, cfg, 2, cfg.proposal_a, zskip=zskip)
+        rows = ks.sweep_block(*args, cfg, 2, full(cfg.proposal_a),
+                              zskip=zskip, temperature=full(cfg.temperature))
+        check(bitwise(scalar, rows), f"{mode} N={n}: uniform (A, T) rows "
+              "are not bitwise the scalar call")
+        # identical per-chain wall tables against the shared row
+        x, y, z, e, wa, wb, offsets, words = args
+        tab = ks.wall_coeff_rows(w.expand(c, -1, -1), cfg)
+        same = ks.sweep_block(x, y, z, e, *tab, offsets, words, cfg, 2,
+                              cfg.proposal_a, zskip=zskip)
+        check(bitwise(scalar, same), f"{mode} N={n}: identical per-chain "
+              "wall tables are not bitwise the shared row")
+
+        cfg, w, args, ks = kernel_inputs(n, c, device, sort=zskip, walls=4)
+        a2, t_c = ladder_rows(cfg, c, device, a_scale=2.0)
+        compare(cfg, w, args, ks, zskip, f"{mode} N={n} C={c} per-chain "
+                "(2A, T) + walls of 4 realizations", a=a2, t=t_c)
+        # [w0.., w1.., w2.., w3..] against the shared-row runs of each
+        x, y, z, e, wa, wb, offsets, words = args
+        comb = ks.sweep_block(*args, cfg, 2, a2, zskip=zskip, temperature=t_c)
+        g = c // 4
+        for k in range(4):
+            rows = ks.wall_coeff_rows(w[k * g], cfg)
+            split = ks.sweep_block(x, y, z, e, *rows, offsets, words, cfg, 2,
+                                   a2, zskip=zskip, temperature=t_c)
+            check(all(torch.equal(u[..., k * g:(k + 1) * g],
+                                  v[..., k * g:(k + 1) * g])
+                      for u, v in zip(comb, split)),
+                  f"{mode} N={n}: realization {k}'s chains differ from its "
+                  "shared-row run")
+        print(f"  {mode} N={n} C={c}: uniform rows == scalar, identical "
+              "tables == shared row, per-realization blocks == shared-row "
+              "runs (all bitwise)", flush=True)
+
+
 # ----------------------------------------------------------------------
 # Phase 3: the main path through the CLI
 # ----------------------------------------------------------------------
@@ -198,82 +302,215 @@ STEMS_RANK = ("positions", "data", "local", "total_clusters",
 STEMS_SHARED = ("wall", "data_ensemble", "info", "last_state")
 
 
-def drive_cli(n: int, chains: int, eq: int, mx: int, num: int, card: str):
-    """cli.main at (n, chains) into a temporary data dir, with the kernel's
-    plain version made to fail if called; checks the CSV set and the
-    summary; prints where the run's wall time went; returns the run's
-    launch counts."""
+class Tee(io.TextIOBase):
+    """Standard output kept while it is printed."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, text):
+        self.buf.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_main(argv):
+    """cli.main(argv) with the launch counts set to 0 just before it and
+    read just after, the kernel's plain version made to fail if called,
+    and simulate_ensemble timed when the run calls it. Returns (standard
+    output, launch counts, wall s, simulate_ensemble times)."""
     from tpu_smc_torch import cli
     from tpu_smc_torch import driver_ensemble as de
-    from tpu_smc_torch.config import SMCConfig
     from tpu_smc_torch.kernels import sweep as ks
 
-    with tempfile.TemporaryDirectory() as tmp:
-        for k in ks.sweep_block.launches:
-            ks.sweep_block.launches[k] = 0
-        plain = ks.sweep_block_plain
+    plain, simulate = ks.sweep_block_plain, de.simulate_ensemble
+    sim = {}
 
-        def refuse(*args, **kw):
-            raise Failure("the plain version ran on the main path")
+    def refuse(*args, **kw):
+        raise Failure("the plain version ran on the main path")
 
-        ks.sweep_block_plain = refuse
-        simulate = de.simulate_ensemble
-        sim = {}
-
-        def timed_simulate(*args, **kw):
-            sim["t0"] = time.perf_counter()
-            out = simulate(*args, **kw)
-            torch.cuda.synchronize()
-            sim["t1"] = time.perf_counter()
-            sim["sps"] = out[1].sweeps_per_second
-            return out
-
-        de.simulate_ensemble = timed_simulate
-        t0 = time.perf_counter()
-        try:
-            rc = cli.main([str(eq), str(mx), str(num), "1.1", "--n", str(n),
-                           "--chains", str(chains), "--sampler", "auto",
-                           "--seed", "2024", "--lca-time", "2",
-                           "--data-dir", tmp])
-        finally:
-            ks.sweep_block_plain = plain
-            de.simulate_ensemble = simulate
+    def timed_simulate(*args, **kw):
+        sim["t0"] = time.perf_counter()
+        out = simulate(*args, **kw)
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = dict(ks.sweep_block.launches)
-        check(rc == 0, f"cli.main returned {rc}")
+        sim["t1"] = time.perf_counter()
+        sim["sps"] = out[1].sweeps_per_second
+        return out
+
+    tee = Tee(sys.stdout)
+    for k in ks.sweep_block.launches:
+        ks.sweep_block.launches[k] = 0
+    ks.sweep_block_plain, de.simulate_ensemble = refuse, timed_simulate
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        ks.sweep_block_plain, de.simulate_ensemble = plain, simulate
+    dt = time.perf_counter() - t0
+    launches = dict(ks.sweep_block.launches)
+    check(rc == 0, f"cli.main{argv} returned {rc}")
+    sim["start"] = t0
+    return tee.buf.getvalue(), launches, dt, sim
+
+
+def summary_value(out: str, label: str) -> str:
+    m = re.search(re.escape(label) + r" (-?[0-9.]+)", out)
+    check(m is not None, f"no '{label}' in the run's output")
+    return m.group(1)
+
+
+def check_ensemble_files(d: Path, cfg, chains: int, num: int):
+    key = cfg.file_key()
+    want = {f"{s}_{key}_rank{r}.csv" for s in STEMS_RANK
+            for r in range(chains)}
+    want |= {f"{s}_{key}.csv" for s in STEMS_SHARED}
+    have = {p.name for p in d.iterdir()}
+    check(want <= have, f"missing CSVs: {sorted(want - have)[:5]}")
+    pooled = np.loadtxt(d / f"data_ensemble_{key}.csv", delimiter=",",
+                        skiprows=1, ndmin=2)
+    check(pooled.shape[0] == num and np.isfinite(pooled).all(),
+          f"pooled per-gather means not all finite: {pooled[:, 0]}")
+
+
+def drive_cli(n: int, chains: int, eq: int, mx: int, num: int, card: str,
+              expect: tuple):
+    """The ensemble CLI at (n, chains) into a temporary data dir: the CSV
+    set, the summary, and the mean energy and acceptance printed exactly
+    as `expect` (the values recorded for these seeds); prints where the
+    run's wall time went; returns the run's launch counts."""
+    from tpu_smc_torch.config import SMCConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out, launches, dt, sim = run_main(
+            [str(eq), str(mx), str(num), "1.1", "--n", str(n), "--chains",
+             str(chains), "--sampler", "auto", "--seed", "2024",
+             "--lca-time", "2", "--data-dir", tmp])
         cfg = SMCConfig.for_n(n)
-        d = Path(tmp) / cfg.run_name()
-        key = cfg.file_key()
-        want = {f"{s}_{key}_rank{r}.csv" for s in STEMS_RANK
-                for r in range(chains)}
-        want |= {f"{s}_{key}.csv" for s in STEMS_SHARED}
-        have = {p.name for p in d.iterdir()}
-        check(want <= have, f"missing CSVs: {sorted(want - have)[:5]}")
-        pooled = np.loadtxt(d / f"data_ensemble_{key}.csv", delimiter=",",
-                            skiprows=1, ndmin=2)
-        check(pooled.shape[0] == num and np.isfinite(pooled).all(),
-              f"pooled per-gather means not all finite: {pooled[:, 0]}")
-        info = (d / f"info_{key}.csv").read_text()
-        mean_e = float(info.split("Mean energy: ")[1].split(" ")[0])
-        acc = float(info.split("Average acceptance ratio: ")[1].split()[0])
-        kinetic = 1.5 * n * 1.1
-        check(math.isfinite(mean_e) and kinetic - 6 * n < mean_e
-              < kinetic + n, f"mean energy {mean_e} out of range")
-        check(0.3 < acc <= 1.0, f"acceptance {acc} out of range")
+        check_ensemble_files(Path(tmp) / cfg.run_name(), cfg, chains, num)
+    mean_e = summary_value(out, "Mean energy:")
+    acc = summary_value(out, "Average acceptance ratio:")
+    check((mean_e, acc) == expect,
+          f"N={n}: mean energy {mean_e}, acceptance {acc}; recorded "
+          f"{expect[0]}, {expect[1]}")
     rate = (eq + mx) * chains / dt
     loop = mx * chains / sim["sps"]
-    print(f"  N={n} x {chains} chains: {dt:.1f} s, mean E {mean_e:.3f}, "
-          f"acceptance {acc:.4f}, {rate:,.0f} chain-sweeps/s end to end "
-          f"incl. observables and CSVs ({card})", flush=True)
-    print(f"  N={n} wall time: {sim['t0'] - t0:.3f} s before "
+    print(f"  N={n} x {chains} chains: {dt:.1f} s, mean E {mean_e}, "
+          f"acceptance {acc} (bitwise the recorded run), {rate:,.0f} "
+          f"chain-sweeps/s end to end incl. observables and CSVs ({card})",
+          flush=True)
+    print(f"  N={n} wall time: {sim['t0'] - sim['start']:.3f} s before "
           f"simulate_ensemble (walls, state), "
           f"{sim['t1'] - sim['t0'] - loop:.3f} s in it outside the gather "
           f"loop (thermalization, post-processing), {loop:.3f} s gather "
           f"loop (incl. per-window positions CSV), "
-          f"{t0 + dt - sim['t1']:.3f} s after it (per-chain CSVs)",
+          f"{sim['start'] + dt - sim['t1']:.3f} s after it (per-chain CSVs)",
           flush=True)
     return launches
+
+
+# tpu_smc's headers of the ladder CSVs (tsweep.py, pt.py, reweight.py)
+LADDER_HEADERS = {
+    "tsweep": "T, E_mean, E_err, acceptance, cv",
+    "pt": "T_lo, T_hi, swap_acceptance, attempts",
+    "reweight": "T, E_mean, E_err, cv, cv_err, P, P_err, ess, f",
+    "reweight_disorder": "k, T, E_mean, cv, P, ess, f",
+}
+
+
+def read_csv(path: Path):
+    lines = path.read_text().splitlines()
+    return lines[0], np.asarray([[float(v) for v in ln.split(",")]
+                                 for ln in lines[1:]])
+
+
+def drive_ladder(argv, label: str, stems, card: str, mbar_gate=True):
+    """A ladder through cli.main (launch counts, plain barred): per-T mean
+    E and acceptance finite, mean E rising with T, swap acceptance in
+    (0, 1] for every pair, MBAR at the ladder's own temperatures within 3
+    combined SE of the sampled means (printed only, when not mbar_gate:
+    the comparison assumes stationary samples), the CSVs with tpu_smc's
+    headers. Returns (launch counts, seconds)."""
+    from tpu_smc_torch.config import SMCConfig
+
+    n = int(argv[argv.index("--n") + 1])
+    temps = [float(v) for v in argv[argv.index("--temperatures") + 1]
+             .split(",")]
+    with tempfile.TemporaryDirectory() as tmp:
+        out, launches, dt, _ = run_main(argv + ["--data-dir", tmp])
+        cfg = SMCConfig.for_n(n, temperature=float(argv[3]))
+        d = Path(tmp) / cfg.run_name()
+        tabs = {}
+        for stem in stems:
+            path = d / f"{stem}_{cfg.file_key()}.csv"
+            check(path.exists(), f"{label}: no {path.name}")
+            head, tabs[stem] = read_csv(path)
+            check(head == LADDER_HEADERS[stem],
+                  f"{label}: {path.name} header {head!r}")
+    ts = tabs["tsweep"]
+    check(np.allclose(ts[:, 0], temps), f"{label}: tsweep temperatures")
+    check(np.isfinite(ts).all(), f"{label}: per-T results not finite")
+    check_later(bool((np.diff(ts[:, 1]) > 0).all()),
+                f"{label}: mean E does not rise with T: {ts[:, 1]}")
+    check(bool(((ts[:, 3] > 0) & (ts[:, 3] <= 1)).all()),
+          f"{label}: acceptance {ts[:, 3]}")
+    if "pt" in tabs:
+        sw = tabs["pt"][:, 2]
+        check_later(len(sw) == len(temps) - 1
+                    and bool(((sw > 0) & (sw <= 1)).all()),
+                    f"{label}: swap acceptance {sw}")
+    rw = tabs["reweight"]
+    z = []
+    for i, t in enumerate(temps):
+        j = np.flatnonzero(np.isclose(rw[:, 0], t))
+        check(len(j) == 1, f"{label}: reweight grid lacks T = {t}")
+        se = math.hypot(ts[i, 2], rw[j[0], 2])
+        z.append(abs(rw[j[0], 1] - ts[i, 1]) / se)
+    print(f"  {label}: {dt:.1f} s, launches {launches}; per-T mean E "
+          f"{np.round(ts[:, 1], 3).tolist()}, acceptance "
+          f"{np.round(ts[:, 3], 4).tolist()}"
+          + (f", swap acceptance {np.round(tabs['pt'][:, 2], 3).tolist()}"
+             if "pt" in tabs else "")
+          + f"; |MBAR - sampled| / combined SE at the ladder's T: "
+          f"{np.round(z, 2).tolist()} ({card})", flush=True)
+    if mbar_gate:
+        check_later(max(z) <= 3.0, f"{label}: MBAR at the ladder's "
+                    f"temperatures is {max(z):.2f} combined SE from the "
+                    "sampled means")
+    return launches, dt
+
+
+def drive_disorder_ensemble(n: int, chains: int, k: int, card: str):
+    """The disordered ensemble: the CSV set (wall CSV with the realization
+    column), finite results, the per-realization summary."""
+    from tpu_smc_torch.config import SMCConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out, launches, dt, _ = run_main(
+            ["200", "600", "6", "1.1", "--n", str(n), "--chains", str(chains),
+             "--wall-realizations", str(k), "--seed", "2024",
+             "--lca-time", "2", "--data-dir", tmp])
+        cfg = SMCConfig.for_n(n)
+        d = Path(tmp) / cfg.run_name()
+        check_ensemble_files(d, cfg, chains, 6)
+        wall = (d / f"wall_{cfg.file_key()}.csv").read_text().splitlines()
+        check(wall[0] == "k, nx, ny, x0, ymin"
+              and len(wall) == 1 + k * cfg.m * cfg.m,
+              f"disorder wall CSV: {wall[:2]}")
+    e_k = [float(v) for v in re.findall(r"realization \d+ \(wall seed "
+                                        r"\d+\): E = (-?[0-9.]+)", out)]
+    mean_e = float(summary_value(out, "Disorder-averaged energy:"))
+    check(len(e_k) == k and np.isfinite(e_k).all() and math.isfinite(mean_e)
+          and abs(np.mean(e_k) - mean_e) < 1e-5,
+          f"disorder summary: {e_k}, {mean_e}")
+    print(f"  disordered ensemble N={n} x {chains}, {k} walls: {dt:.1f} s, "
+          f"launches {launches}; per-realization E "
+          f"{np.round(e_k, 3).tolist()}, disorder-averaged {mean_e} ({card})",
+          flush=True)
+    return launches, dt
 
 
 # ----------------------------------------------------------------------
@@ -293,25 +530,53 @@ def cuda_ms(fn, reps: int = 3) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def time_kernel(n: int, c: int, zskip: bool, device, sweeps: int = 2):
+def kernel_case(n: int, c: int, zskip: bool, device, sweeps: int = 2,
+                at: bool = False, walls: int = 0, plain: bool = True):
     """At the main path's shape (n, c): kernel vs plain on the same inputs
-    (phase 2's comparison), the kernel's ms, the plain version's ms and
-    the bound of this run's work."""
+    (phase 2's comparison; skipped when not `plain`), the plain version's
+    ms and the bound of this run's work, and a launch of the kernel on
+    these inputs to time. at: per-chain (A, T) rows of an 8-level ladder;
+    walls: per-chain wall tables of that many realizations."""
     cfg, w, args, ks = kernel_inputs(n, c, device, sweeps=sweeps,
-                                     sort=zskip)
+                                     sort=zskip, walls=walls)
+    a, t = ladder_rows(cfg, c, device) if at else (cfg.proposal_a, None)
     mode = "zskip" if zskip else "dense"
-    cmp = compare(cfg, w, args, ks, zskip, f"{mode} N={n} C={c}")
-    ms = cuda_ms(lambda: ks.sweep_block(*args, cfg, sweeps, cfg.proposal_a,
-                                        zskip=zskip))
+    label = (f"{mode} N={n} C={c}" + (" per-chain (A, T)" if at else "")
+             + (f" walls of {walls}" if walls else ""))
+    dk = {}
+    cmp = (compare(cfg, w, args, ks, zskip, label, a=a, t=t) if plain
+           else None)
+    if cmp is None:
+        ks.sweep_block(*args, cfg, sweeps, a, zskip=zskip, diag=dk,
+                       temperature=t)
+    visited = cmp["visited"] if cmp else dk["visited"]
     n_pad = args[0].shape[0]
-    nbytes = 4 * (2 * (3 * n_pad * c + c) + 2 * 128 + 3 * sweeps
-                  + 2 * sweeps * c)
-    flops = (FLOPS_PER_ROW * float(cmp["visited"].double().sum())
+    wall_floats = args[4].numel() + args[5].numel()
+    # planes and energy in and out, wall rows, per-chain scales, offsets
+    # and seed words, traces
+    nbytes = 4 * (2 * (3 * n_pad * c + c) + wall_floats + 4 * c
+                  + 3 * sweeps + 2 * sweeps * c)
+    flops = (FLOPS_PER_ROW * float(visited.double().sum())
              + FLOPS_PER_MOVE * sweeps * n * c)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
-    return dict(max_abs_err=cmp["max_err"], ms=ms, plain_ms=cmp["plain_ms"],
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes > t_ops else "operations")
+    launch = lambda: ks.sweep_block(*args, cfg, sweeps, a, zskip=zskip,
+                                    temperature=t)
+    return launch, dict(max_abs_err=cmp["max_err"] if cmp else None,
+                        plain_ms=cmp["plain_ms"] if cmp else None,
+                        bound_ms=max(t_bytes, t_ops),
+                        bound_by=("bytes" if t_bytes > t_ops
+                                  else "operations"))
+
+
+def interleaved_ms(launches: dict, rounds: int = 3, reps: int = 10) -> dict:
+    """ms per launch of each kernel case, timed in turns (one batch of
+    `reps` launches of each case per round) so that clock and power
+    drift falls on all alike; the median over rounds."""
+    times = {name: [] for name in launches}
+    for _ in range(rounds):
+        for name, fn in launches.items():
+            times[name].append(cuda_ms(fn, reps=reps))
+    return {name: float(np.median(v)) for name, v in times.items()}
 
 
 def engine_ms(n: int, c: int, device, sweeps: int = 16,
@@ -372,48 +637,115 @@ def main() -> int:
     phase_line("kernel vs plain", t0)
 
     t0 = time.perf_counter()
-    launches = {}
-    launches["zskip"] = drive_cli(1024, 512, 64, 192, 3, card)
-    check(launches["zskip"]["zskip"] > 0 and launches["zskip"]["dense"] == 0,
-          f"N=1024 main path launches {launches['zskip']}")
-    launches["dense"] = drive_cli(108, 512, 200, 600, 6, card)
-    check(launches["dense"]["dense"] > 0 and launches["dense"]["zskip"] == 0,
-          f"N=108 main path launches {launches['dense']}")
-    phase_line("main path", t0)
+    phase_ladder_modes(device)
+    phase_line("kernel vs plain, ladder modes", t0)
 
     t0 = time.perf_counter()
-    rows = []
-    for name, n, zskip, replaces in (
-            ("sweep_dense", 108, False,
-             "tpu_smc/kernels/sweep_pallas.py:992"),
-            ("sweep_zskip", 1024, True,
-             "tpu_smc/kernels/sweep_pallas.py:306")):
-        t = time_kernel(n, 512, zskip, device)
-        mode = "zskip" if zskip else "dense"
+    launches = {}
+    launches["zskip"] = drive_cli(1024, 512, 64, 192, 3, card,
+                                  ("1590.673720", "0.789075"))
+    check(launches["zskip"]["zskip"] > 0 and launches["zskip"]["dense"] == 0,
+          f"N=1024 main path launches {launches['zskip']}")
+    launches["dense"] = drive_cli(108, 512, 200, 600, 6, card,
+                                  ("176.874728", "0.979679"))
+    check(launches["dense"]["dense"] > 0 and launches["dense"]["zskip"] == 0,
+          f"N=108 main path launches {launches['dense']}")
+    phase_line("main path, ensembles", t0)
+
+    t0 = time.perf_counter()
+    # (a) starts from the FCC lattice below the LJ critical temperature and
+    # runs 64 + 192 sweeps: far from stationary, so MBAR's Boltzmann
+    # reweighting and the plain per-level means need not agree there
+    # (PERF.md); its MBAR comparison is printed, and (d) holds PT + MBAR
+    # to it on a ladder near equilibrium.
+    la, _ = drive_ladder(
+        ["64", "192", "3", "1.1", "--n", "1024", "--temperatures",
+         "0.9,1.0,1.1,1.2,1.3,1.4,1.5,1.6", "--chains-per-t", "64",
+         "--pt-exchange", "16", "--target-acceptance", "0.5",
+         "--reweight", "0.9:1.6:15", "--seed", "2024"],
+        "(a) ladder N=1024 8 x 64, PT, tuned A, MBAR",
+        ("tsweep", "pt", "reweight"), card, mbar_gate=False)
+    check(la["zskip"] > 0 and la["dense"] > 0
+          and la["per_chain_at"] == la["zskip"] + la["dense"],
+          f"(a) launches {la}: every launch per-chain (A, T), z-skip "
+          "production and dense tuning probes")
+    lb, _ = drive_ladder(
+        ["200", "600", "6", "1.1", "--n", "108", "--temperatures",
+         "1.0,1.1,1.2,1.3", "--chains-per-t", "128", "--wall-realizations",
+         "4", "--reweight", "1.0:1.3:7", "--seed", "2024"],
+        "(b) disorder ladder N=108 4 x 128, 4 walls, MBAR per realization",
+        ("tsweep", "reweight", "reweight_disorder"), card)
+    check(lb["dense"] > 0 and lb["zskip"] == 0
+          and lb["per_chain_at"] == lb["per_chain_w"] == lb["dense"],
+          f"(b) launches {lb}: every launch dense with per-chain (A, T) "
+          "and walls")
+    ld, _ = drive_ladder(
+        ["1000", "4000", "20", "1.1", "--n", "108", "--temperatures",
+         "1.0,1.1,1.2,1.3", "--chains-per-t", "128", "--pt-exchange", "10",
+         "--reweight", "1.0:1.3:7", "--seed", "2024"],
+        "(d) PT ladder N=108 4 x 128 near equilibrium, MBAR",
+        ("tsweep", "pt", "reweight"), card)
+    check(ld["dense"] > 0 and ld["per_chain_at"] == ld["dense"],
+          f"(d) launches {ld}: every launch dense with per-chain (A, T)")
+    lc, _ = drive_disorder_ensemble(108, 512, 8, card)
+    check(lc["dense"] > 0 and lc["per_chain_w"] == lc["dense"]
+          and lc["per_chain_at"] == lc["zskip"] == 0,
+          f"(c) launches {lc}: every launch dense with per-chain walls")
+    phase_line("main path, ladders and disorder", t0)
+
+    t0 = time.perf_counter()
+    cases = (
+        ("sweep_dense", 108, False, {}, "tpu_smc/kernels/sweep_pallas.py:992",
+         launches["dense"]["dense"]),
+        ("sweep_zskip", 1024, True, {}, "tpu_smc/kernels/sweep_pallas.py:306",
+         launches["zskip"]["zskip"]),
+        ("sweep_per_chain_at", 108, False, {"at": True},
+         "tpu_smc/kernels/sweep_pallas.py:475",
+         la["per_chain_at"] + lb["per_chain_at"] + ld["per_chain_at"]),
+        ("sweep_per_chain_w", 108, False, {"walls": 8},
+         "tpu_smc/kernels/sweep_pallas.py:1064",
+         lb["per_chain_w"] + lc["per_chain_w"]))
+    runs, rows = {}, []
+    for name, n, zskip, kw, replaces, count in cases:
+        runs[name], t = kernel_case(n, 512, zskip, device, **kw)
         rows.append({"name": name, "route": "cuda",
                      "source": "tpu_smc_torch/kernels/csrc/sweep.cu",
-                     "replaces": replaces,
-                     "launches": launches[mode][mode], **t,
+                     "replaces": replaces, "launches": count, **t,
                      "library_ms": None})
-        print(f"  {name} N={n} x 512, 2 sweeps: kernel {t['ms']:.3f} ms, "
-              f"plain {t['plain_ms']:.1f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']}), max |dx| {t['max_abs_err']:.3g} "
-              f"({card})", flush=True)
+    runs["sweep_zskip_per_chain_at"], zat = kernel_case(
+        1024, 512, True, device, at=True, plain=False)
+    ms = interleaved_ms(runs)
+    for row, (_, n, *_) in zip(rows, cases):
+        row["ms"] = ms[row["name"]]
+        print(f"  {row['name']} N={n} x 512, 2 sweeps: kernel "
+              f"{row['ms']:.3f} ms, plain {row['plain_ms']:.1f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), max |dx| "
+              f"{row['max_abs_err']:.3g} ({card})", flush=True)
+    print(f"  sweep_zskip per-chain (A, T) N=1024 x 512, 2 sweeps: kernel "
+          f"{ms['sweep_zskip_per_chain_at']:.3f} ms, bound "
+          f"{zat['bound_ms']:.4f} ms ({card})", flush=True)
+    print(f"  per-chain against uniform, same call: dense (A, T) "
+          f"{ms['sweep_per_chain_at'] / ms['sweep_dense'] - 1:+.1%}, "
+          f"walls {ms['sweep_per_chain_w'] / ms['sweep_dense'] - 1:+.1%}, "
+          f"z-skip (A, T) "
+          f"{ms['sweep_zskip_per_chain_at'] / ms['sweep_zskip'] - 1:+.1%}",
+          flush=True)
     cfg, _, args, _ = kernel_inputs(1024, 512, device)
-    ms = cuda_ms(lambda: ks.sweep_block(*args, cfg, 2, cfg.proposal_a))
     print(f"  dense mode N=1024 x 512 on unsorted rows, 2 sweeps: kernel "
-          f"{ms:.3f} ms ({card})", flush=True)
-    for n in (256, 512, 1024, 2048):
+          f"{cuda_ms(lambda: ks.sweep_block(*args, cfg, 2, cfg.proposal_a)):.3f}"
+          f" ms ({card})", flush=True)
+    for n in (512, 1024):
         e = engine_ms(n, 512, device)
         print(f"  engines N={n} x 512, 16 sweeps: dense {e['dense']:.3f} ms, "
               f"zsorted {e['zsorted']:.3f} ms ({card})", flush=True)
-    e = engine_ms(1024, 512, device, sweeps=32, cadences=(4, 8, 16, 32))
+    e = engine_ms(1024, 512, device, sweeps=32, cadences=(8, 16))
     print(f"  engines N=1024 x 512, 32 sweeps: dense {e['dense']:.3f} ms; "
           f"zsorted sorting every " + ", ".join(
-              f"{k} sweeps {e[f'zsorted/{k}']:.3f} ms" for k in (4, 8, 16, 32))
+              f"{k} sweeps {e[f'zsorted/{k}']:.3f} ms" for k in (8, 16))
           + f" ({card})", flush=True)
     phase_line("timing", t0)
 
+    check(not FAILED, f"{len(FAILED)} main-path checks failed: {FAILED}")
     print("kernels: " + ", ".join(r["name"] for r in rows))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -86,3 +86,57 @@ def test_wrapper_rejects_bad_inputs(cuda):
     bad[1] = args[1].t().contiguous().t()[:, :3]
     with pytest.raises(ValueError):
         ks.sweep_block(*bad, cfg, 2, cfg.proposal_a)
+
+
+def _ladder_rows(c, device):
+    """Per-chain (A, T) of a 4-level ladder, temperature-major, float64."""
+    temps = torch.repeat_interleave(
+        torch.tensor([0.9, 1.1, 1.3, 1.5], dtype=torch.float64), c // 4)
+    return temps.to(device) * 1.0, temps.to(device)
+
+
+@pytest.mark.parametrize("zskip", [False, True])
+def test_uniform_rows_bitwise_scalar(cuda, zskip):
+    """Uniform per-chain (A, T) rows give bitwise the scalar call; a real
+    ladder differs from it."""
+    cfg, args = _inputs(300, 32, cuda, zskip)
+    a = cfg.proposal_a
+    scalar = ks.sweep_block(*args, cfg, 2, a, zskip=zskip)
+    rows = ks.sweep_block(
+        *args, cfg, 2, torch.full((32,), a, dtype=torch.float64,
+                                  device=cuda),
+        zskip=zskip, temperature=torch.full((32,), cfg.temperature,
+                                            dtype=torch.float64, device=cuda))
+    for u, v in zip(scalar, rows):
+        assert torch.equal(u, v)
+    a_c, t_c = _ladder_rows(32, cuda)
+    ladder = ks.sweep_block(*args, cfg, 2, a_c, zskip=zskip, temperature=t_c)
+    assert not torch.equal(ladder[0], scalar[0])
+
+
+def test_per_chain_walls_vs_split_runs(cuda):
+    """Per-chain wall tables [w0, w0, w1, w1] follow bitwise the runs with
+    the shared row w0 (chains 0, 1) and w1 (chains 2, 3); identical tables
+    are bitwise the shared row."""
+    from tpu_smc_torch.system import build_wall_ensemble
+
+    cfg, args = _inputs(108, 4, cuda, False)
+    w_k = torch.as_tensor(build_wall_ensemble(cfg, 2)[0], device=cuda)
+    x, y, z, e, _, _, offsets, words = args
+    rows = [ks.wall_coeff_rows(w_k[g], cfg) for g in range(2)]
+    table = ks.wall_coeff_rows(w_k.repeat_interleave(2, dim=0), cfg)
+    comb = ks.sweep_block(x, y, z, e, *table, offsets, words, cfg, 2,
+                          cfg.proposal_a)
+    for g in range(2):
+        split = ks.sweep_block(x, y, z, e, *rows[g], offsets, words, cfg, 2,
+                               cfg.proposal_a)
+        for u, v in zip(comb, split):
+            assert torch.equal(u[..., 2 * g:2 * g + 2],
+                               v[..., 2 * g:2 * g + 2])
+    same = ks.wall_coeff_rows(w_k[0].expand(4, -1, -1), cfg)
+    out = ks.sweep_block(x, y, z, e, *same, offsets, words, cfg, 2,
+                         cfg.proposal_a)
+    shared = ks.sweep_block(x, y, z, e, *rows[0], offsets, words, cfg, 2,
+                            cfg.proposal_a)
+    for u, v in zip(out, shared):
+        assert torch.equal(u, v)

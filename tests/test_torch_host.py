@@ -61,16 +61,23 @@ def test_cli_covers_every_jax_option():
     assert ported - {"--help", "--device"} == {
         "--n", "--m", "--gamma", "--dtype", "--data-dir", "--seed",
         "--chains", "--lca-time", "--storage-time", "--no-trace",
-        "--sampler"}
+        "--sampler", "--temperatures", "--chains-per-t", "--pt-exchange",
+        "--target-acceptance", "--reweight", "--wall-seed",
+        "--wall-realizations"}
 
 
 @pytest.mark.parametrize("flag", ["--bulk", "--temperatures=1.0,1.2",
                                   "--checkpoint", "--gr-bins=8"])
 def test_cli_refuses_unported_options(flag, capsys):
+    """Unported options exit 2 by name; so does a ported mode (the
+    temperature ladder) combined with one (--sk-kmax)."""
+    extra = ["--sk-kmax=4"] if flag.startswith("--temperatures") else []
     with pytest.raises(SystemExit) as exc:
-        tcli.main(["1", "2", "1", "1.1", "--device", "cpu", flag])
+        tcli.main(["1", "2", "1", "1.1", "--device", "cpu", flag] + extra)
     assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not yet ported" in err and (flag if not extra else extra[0]) \
+        .split("=")[0] in err
 
 
 def test_resolve_sampler_routing():

@@ -1,7 +1,10 @@
 """Command-line entry point of the port: the NVT chain-ensemble path of
-tpu_smc.cli (main.c equivalent).
+tpu_smc.cli (main.c equivalent), its temperature ladders (tsweep,
+parallel tempering, tuned mobility, MBAR reweighting) and quenched wall
+disorder.
 
     python -m tpu_smc_torch EQSTEPS MAXSTEPS NUMDATA T --chains C [options]
+    python -m tpu_smc_torch EQSTEPS MAXSTEPS NUMDATA T --temperatures T1,T2,..
 
 Runs on the CUDA device unless `--device cpu` is given. Options of the JAX
 CLI that this port does not have yet are recognised and refused by name.
@@ -15,19 +18,25 @@ import time
 
 # Options of `python -m tpu_smc` that are not ported yet.
 NOT_PORTED = (
-    "--wall-seed", "--wall-realizations", "--bulk", "--gr-bins", "--z-bins",
+    "--bulk", "--gr-bins", "--z-bins",
     "--widom", "--widom-bins", "--ptensor-bins", "--gcmc", "--gcmc-cap",
     "--gcmc-exchanges", "--gcmc-grid", "--npt", "--npt-grid", "--npt-dlnv",
     "--gibbs", "--gibbs-transfers", "--gibbs-cap", "--gibbs-temps",
     "--npt-reweight", "--rho", "--lj-cutoff", "--sk-kmax", "--checkpoint",
     "--resume", "--acf-mode", "--auto-checkpoint", "--fault-retries",
     "--health-checks", "--profile-dir", "--platform", "--x64",
-    "--temperatures", "--chains-per-t", "--pt-exchange",
-    "--target-acceptance", "--umbrella", "--umbrella-spring",
+    "--umbrella", "--umbrella-spring",
     "--umbrella-tag", "--umbrella-replicas", "--umbrella-bins",
-    "--umbrella-exchange", "--reweight", "--coordinator", "--num-processes",
+    "--umbrella-exchange", "--coordinator", "--num-processes",
     "--process-id", "--global-ladder", "--nonuniform-z",
 )
+
+
+def _exchange_arg(v: str):
+    """--pt-exchange accepts an integer interval or 'auto'."""
+    if v == "auto":
+        return v
+    return int(v)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -65,6 +74,35 @@ def build_parser() -> argparse.ArgumentParser:
                         "N=1024 and zsorted from N=1024 on a CUDA device in "
                         "float32, torch otherwise")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--temperatures", default=None, metavar="T1,T2,...",
+                   help="temperature-ladder mode: chains at EVERY listed "
+                        "temperature in one ensemble, tsweep_*.csv with "
+                        "E/acceptance/cv per T; the positional T names the "
+                        "run directory")
+    p.add_argument("--chains-per-t", type=int, default=16,
+                   help="replicas per temperature in --temperatures mode")
+    p.add_argument("--pt-exchange", type=_exchange_arg, default=None,
+                   metavar="K|auto",
+                   help="with --temperatures: parallel tempering, replica "
+                        "exchanges between adjacent temperatures every K "
+                        "sweeps (pt_*.csv); 'auto' picks K from a short "
+                        "post-thermalization probe")
+    p.add_argument("--target-acceptance", type=float, default=None,
+                   metavar="ACC",
+                   help="tune the proposal mobility A before the run to hit "
+                        "this acceptance ratio (per level on a ladder); "
+                        "production holds the tuned A fixed")
+    p.add_argument("--reweight", default=None, metavar="TMIN:TMAX:NUM",
+                   help="with --temperatures: MBAR-reweight the ladder's "
+                        "samples onto this grid (inclusive linspace or "
+                        "T1,T2,...), reweight_*.csv")
+    p.add_argument("--wall-seed", type=int, default=42,
+                   help="seed of the wall draws (the reference's srand(42)); "
+                        "with --wall-realizations the first of K seeds")
+    p.add_argument("--wall-realizations", type=int, default=1, metavar="K",
+                   help="quenched wall disorder: K wall realizations as "
+                        "per-chain wall tables (chains, or replicas per "
+                        "temperature, split evenly)")
     for flag in NOT_PORTED:
         p.add_argument(flag, nargs="?", const=True, default=None,
                        help=argparse.SUPPRESS)
@@ -99,10 +137,32 @@ def main(argv=None) -> int:
     if given:
         parser.exit(2, f"tpu_smc_torch: {', '.join(given)}: not yet ported "
                        "to the PyTorch package (use python -m tpu_smc)\n")
-    if args.chains < 2:
+    if args.chains < 2 and not args.temperatures:
         parser.exit(2, "tpu_smc_torch: the single-chain path (--chains 1) "
                        "is not yet ported; use --chains >= 2\n")
+    wall_k = max(1, args.wall_realizations)
+    if wall_k > 1:
+        if args.temperatures and (args.chains_per_t < wall_k
+                                  or args.chains_per_t % wall_k):
+            raise SystemExit(f"--chains-per-t {args.chains_per_t} must be a "
+                             f"positive multiple of --wall-realizations "
+                             f"{wall_k}")
+        if args.target_acceptance:
+            raise SystemExit("--wall-realizations does not support "
+                             "--target-acceptance yet (one tuned A would "
+                             "have to serve every realization)")
+        if not args.temperatures and (args.chains < wall_k
+                                      or args.chains % wall_k):
+            raise SystemExit(f"--chains {args.chains} must be a positive "
+                             f"multiple of --wall-realizations {wall_k}")
+    rw_grid = None
+    if args.reweight and args.temperatures:
+        from .reweight import parse_t_grid
 
+        # a malformed grid fails now, not after the ladder has run
+        rw_grid = parse_t_grid(args.reweight)
+
+    import numpy as np
     import torch
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -112,7 +172,7 @@ def main(argv=None) -> int:
     from . import io as smcio
     from .config import RunParams, SMCConfig
     from .state import init_chain_state, seed_words
-    from .system import build_walls, fcc_lattice
+    from .system import build_wall_ensemble, build_walls, fcc_lattice
 
     gkw = {} if args.gamma is None else {"gamma": args.gamma}
     if args.lca_time is not None:
@@ -128,10 +188,23 @@ def main(argv=None) -> int:
     print(f"\n\n----  Starting the simulation at local time "
           f"{now.tm_hour:02d}:{now.tm_min:02d}  ----\n")
     d = smcio.run_dir(cfg, args.data_dir)
-    w_np, x0, ym = build_walls(cfg)
+    w_k = None
+    if wall_k > 1:
+        # quenched wall disorder: the reference freezes its wall at
+        # srand(42) for every run and rank (SMC.c:477)
+        w_k, x0, ym = build_wall_ensemble(cfg, wall_k,
+                                          base_seed=args.wall_seed)
+        w_np = w_k[0]
+    else:
+        w_np, x0, ym = build_walls(cfg, seed=args.wall_seed)
     smcio.write_wall_csv(d, cfg, x0, ym)
 
     seed = args.seed if args.seed is not None else int(time.time())
+    if args.reweight and not args.temperatures:
+        print("Note: --reweight needs the --temperatures ladder; ignored.")
+    if args.temperatures:
+        return _run_ladder(args, cfg, params, d, w_np, w_k, sampler, seed,
+                           rw_grid)
     r0 = smcio.load_last_state(d, cfg)
     if r0 is not None:
         print("\nUsing previously saved particle configuration...")
@@ -140,6 +213,13 @@ def main(argv=None) -> int:
         r0 = fcc_lattice(cfg)
     state, w = init_chain_state(cfg, seed_words(seed), r0=r0, w=w_np,
                                 device=args.device)
+    if w_k is not None:
+        reps = args.chains // wall_k
+        w = torch.as_tensor(np.repeat(w_k, reps, axis=0),
+                            dtype=cfg.torch_dtype, device=args.device)
+        print(f"Quenched wall disorder: {wall_k} realizations x {reps} "
+              f"chains (wall seeds {args.wall_seed}.."
+              f"{args.wall_seed + wall_k - 1})")
 
     kinetic = 1.5 * cfg.n * cfg.temperature
     print(f"\nSystem initialized, with energy E0 = "
@@ -155,13 +235,19 @@ def _run_ensemble(args, cfg, params, d, seed_state, w, sampler: str,
                   seed: int) -> int:
     """Multi-chain run: per-chain files (rank = chain, the reference's
     per-MPI-rank naming) + the pooled ensemble summary."""
+    import numpy as np
+
     from . import io as smcio
     from .driver import ObservableOptions
     from .driver_ensemble import simulate_ensemble
-    from .state import batch_chain_state
+    from .state import batch_chain_state, per_chain_wall_energy
 
     c = args.chains
     state = batch_chain_state(seed_state, c)
+    if w.dim() == 3:
+        # each realization's chains start at their own wall energy
+        state = state.replace(energy=per_chain_wall_energy(state.r, w, cfg)
+                              .to(state.energy.dtype))
     pos_writers = [smcio.PositionsWriter(d, cfg, rank=ci) for ci in range(c)]
     r = state.r.cpu().numpy()
     for ci in range(c):
@@ -176,6 +262,18 @@ def _run_ensemble(args, cfg, params, d, seed_state, w, sampler: str,
     print(f"Ensemble sweep engine: {sampler}")
     opts = ObservableOptions(collect_sweep_trace=not args.no_trace,
                              sampler=sampler, stream_seed=seed)
+    if args.target_acceptance:
+        import dataclasses
+
+        from .tuning import tune_mobility
+
+        state, tr = tune_mobility(cfg, state, w,
+                                  target=args.target_acceptance,
+                                  sampler=sampler, seed=seed)
+        opts = dataclasses.replace(opts, proposal_a=tr.proposal_a)
+        print(f"Auto-tuned proposal mobility: A = {tr.proposal_a:0.4g} "
+              f"(gamma = {tr.gamma:0.3g}, acceptance {tr.acceptance:0.3f} "
+              f"after {tr.sweeps_used} tuning sweeps)")
     state, agg = simulate_ensemble(cfg, params, state, w, opts=opts,
                                    on_window=on_window)
 
@@ -194,9 +292,137 @@ def _run_ensemble(args, cfg, params, d, seed_state, w, sampler: str,
           "(chain spread)")
     print(f"Mean pressure: {agg.mean_pressure:f} ± {agg.std_pressure:f}")
     print(f"Average acceptance ratio: {agg.acceptance_ratio:f}")
+    k_real = max(1, args.wall_realizations)
+    if k_real > 1:
+        # quenched average: mean within each realization first, then
+        # across realizations; their spread is the disorder error bar
+        e_k = np.asarray([r.mean_energy for r in agg.chains]) \
+            .reshape(k_real, -1).mean(axis=1)
+        print("\n###  Quenched wall-disorder summary  ###")
+        for i, ek in enumerate(e_k):
+            print(f"realization {i} (wall seed {args.wall_seed + i}): "
+                  f"E = {ek:f}")
+        se = np.std(e_k, ddof=1) / np.sqrt(k_real)
+        print(f"Disorder-averaged energy: {e_k.mean():f} ± {se:f} "
+              "(between-realization SE)")
     smcio.write_ensemble_data_csv(d, cfg, agg.chains, params.gather_lapse)
     smcio.write_info_csv(d, cfg, params, agg.chains[0])
     smcio.write_last_state(d, cfg, agg.chains[0].r_final)
+    return 0
+
+
+def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
+                rw_grid) -> int:
+    """--temperatures: the ladder (tsweep, or parallel tempering with
+    --pt-exchange), optional per-level tuning, optional MBAR reweighting;
+    with --wall-realizations the realizations ride the replica index."""
+    import numpy as np
+
+    from .state import fold_in, seed_words
+    from .tsweep import simulate_temperature_sweep, write_tsweep_csv
+
+    temps = [float(v) for v in args.temperatures.split(",")]
+    cpt = args.chains_per_t
+    key = seed_words(seed)
+    wall_k = max(1, args.wall_realizations)
+    w_ladder = w_np
+    if w_k is not None:
+        # slot-indexed per-chain walls: realization = replica index
+        # group, identical across levels, so PT swaps (along the
+        # temperature axis within a replica column) never cross them
+        g_rep = cpt // wall_k
+        w_ladder = np.tile(np.repeat(w_k, g_rep, axis=0),
+                           (len(temps), 1, 1))
+        print(f"Quenched wall disorder ladder: {wall_k} realizations "
+              f"x {g_rep} replicas per level (wall seeds "
+              f"{args.wall_seed}..{args.wall_seed + wall_k - 1})")
+    print(f"Temperature sweep: {len(temps)} temperatures x {cpt} chains, "
+          f"one ensemble ({sampler} engine)")
+    a_per_t = None
+    if args.target_acceptance:
+        from .tuning import tune_mobility_ladder
+
+        lt = tune_mobility_ladder(
+            cfg, temps, fold_in(key, [0x7E0])[0], w=w_np, chains_per_t=cpt,
+            target=args.target_acceptance, sampler=sampler,
+            device=args.device)
+        a_per_t = lt.a_per_t
+        print(f"Auto-tuned per-level mobility "
+              f"({lt.sweeps_used} tuning sweeps):")
+        for i, t in enumerate(lt.temps):
+            print(f"  T {t:0.3f}: A = {lt.a_per_t[i]:0.4g} "
+                  f"(gamma = {lt.gamma_per_t[i]:0.3g}, "
+                  f"acceptance {lt.acceptance[i]:0.3f})")
+    kw = dict(chains_per_t=cpt, w=w_ladder, sampler=sampler,
+              a_per_t=a_per_t, device=args.device)
+    if args.pt_exchange:
+        from .pt import simulate_parallel_tempering, write_pt_csv
+
+        if args.pt_exchange == "auto":
+            print("Parallel tempering: auto exchange interval (choosing "
+                  "from a post-thermalization probe)")
+        else:
+            print(f"Parallel tempering: exchange attempts every "
+                  f"{args.pt_exchange} sweeps")
+        _, pt_res = simulate_parallel_tempering(
+            cfg, params, temps, key, exchange_interval=args.pt_exchange,
+            **kw)
+        res = pt_res.tsweep
+        pt_path = write_pt_csv(d, cfg, pt_res)
+        if args.pt_exchange == "auto":
+            pa = ", ".join(f"{v:0.3f}" for v in pt_res.probe_acceptance)
+            print(f"Auto-chosen exchange interval: "
+                  f"{pt_res.exchange_interval} sweeps "
+                  f"(probe swap acceptance [{pa}])")
+        print("\n###  Replica-exchange swap acceptance  ###")
+        for i in range(len(pt_res.pair_t_lo)):
+            print(f"T {pt_res.pair_t_lo[i]:0.3f} <-> "
+                  f"{pt_res.pair_t_hi[i]:0.3f}: "
+                  f"{pt_res.swap_acceptance[i]:0.3f} "
+                  f"({pt_res.swap_attempts[i]} attempts)")
+        print(f"Written to {pt_path}")
+    else:
+        _, res = simulate_temperature_sweep(cfg, params, temps, key, **kw)
+    path = write_tsweep_csv(d, cfg, res)
+    print(f"\n\nAggregate throughput: {res.sweeps_per_second:,.0f} "
+          f"sweeps/s across {len(temps) * cpt} chains")
+    print("\n###  Temperature sweep results  ###")
+    print("T        E_mean      +-err     acc      cv")
+    for i, t in enumerate(res.temps):
+        print(f"{t:0.3f}  {res.mean_energy[i]:10.4f}  "
+              f"{res.err_energy[i]:8.4f}  {res.acceptance[i]:0.4f}  "
+              f"{res.cv[i]:8.4f}")
+    print(f"\nWritten to {path}")
+    if rw_grid is None:
+        return 0
+    from .reweight import reweight_from_ladder, write_reweight_csv
+
+    if wall_k > 1:
+        # one MBAR solve per wall realization, quenched-averaged
+        from .reweight import (reweight_disorder_ladder,
+                               write_reweight_disorder_csv)
+
+        rw, rw_parts = reweight_disorder_ladder(res, cfg, rw_grid, wall_k)
+        rwd_path = write_reweight_disorder_csv(d, cfg, rw_parts)
+        print(f"\n###  MBAR reweighting ({rw.iterations} iterations; "
+              f"quenched average over {wall_k} wall realizations, errors = "
+              "between-realization SE)  ###")
+        print(f"Per-realization curves written to {rwd_path}")
+    else:
+        rw = reweight_from_ladder(res, cfg, rw_grid, n_boot=16, seed=seed)
+        print(f"\n###  MBAR reweighting ({rw.iterations} iterations, 16 "
+              "bootstrap draws)  ###")
+    rw_path = write_reweight_csv(d, cfg, rw)
+    has_p = rw.pressure is not None
+    print("T        E_mean     +-err       cv   "
+          + ("      P      " if has_p else "") + "   ESS       f")
+    for i, t in enumerate(rw.temps):
+        pcol = f"{rw.pressure[i]:12.6g} " if has_p else ""
+        print(f"{t:0.3f}  {rw.mean_energy[i]:10.4f}  "
+              f"{rw.err_energy[i]:8.4f}  "
+              f"{rw.cv[i]:8.4f} {pcol} {rw.ess[i]:8.1f}  "
+              f"{rw.free_energy[i]:8.4f}")
+    print(f"\nWritten to {rw_path}")
     return 0
 
 

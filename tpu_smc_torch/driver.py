@@ -54,6 +54,8 @@ class ObservableOptions:
     # run seed of the per-sweep streams; None derives them from chain 0's
     # key
     stream_seed: int | None = None
+    # production mobility A (tuning.tune_mobility); None = gamma*T
+    proposal_a: float | None = None
 
 
 class SimResults(NamedTuple):

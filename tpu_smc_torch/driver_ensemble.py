@@ -21,7 +21,7 @@ from .ensemble import (ensemble_sweeps, ensemble_sweeps_dense,
                        ensemble_sweeps_zsorted)
 from .observables import (autocorrelation, cluster_histograms_chains,
                           density_mobility_update,
-                          integrated_autocorrelation_time, vmap_chains_bounded)
+                          integrated_autocorrelation_time, wall_obs_chains)
 from .potentials import total_pressure
 from .sampler import recompute_energy
 from .state import ChainState
@@ -43,13 +43,18 @@ def _advance(state: ChainState, w, cfg: SMCConfig, a: float, n_sweeps: int,
     raise ValueError(f"unknown sampler {opts.sampler!r}")
 
 
+def _mobility(cfg: SMCConfig, opts: ObservableOptions) -> float:
+    """Production mobility: the tuned A when given, else A = gamma*T."""
+    return cfg.proposal_a if opts.proposal_a is None else opts.proposal_a
+
+
 def _gather_step_batched(state: ChainState, w, cfg: SMCConfig,
                          gather_lapse: int, gather_index: int,
                          opts: ObservableOptions):
     """One gather for every chain: gather_lapse sweeps, the exact-energy
     resync, pressure, voxel density/mobility and (at the LCA cadence) the
     cluster analysis. Returns (state, GatherOut)."""
-    state, trace = _advance(state, w, cfg, cfg.proposal_a, gather_lapse,
+    state, trace = _advance(state, w, cfg, _mobility(cfg, opts), gather_lapse,
                             opts, opts.collect_sweep_trace)
     c = state.n_chains
 
@@ -59,8 +64,8 @@ def _gather_step_batched(state: ChainState, w, cfg: SMCConfig,
         # gather index, so a resumed run resyncs at the same chain times
         state = recompute_energy(state, w, cfg)
 
-    p = vmap_chains_bounded(lambda r: total_pressure(r, w, cfg), state.r,
-                            cfg.n)
+    p = wall_obs_chains(lambda r, wb: total_pressure(r, wb, cfg), state.r, w,
+                        cfg.n)
     rbin, density, mobility = density_mobility_update(
         state.r, state.rbin, state.density, state.mobility, cfg)
     state = state.replace(rbin=rbin, density=density, mobility=mobility)
@@ -105,7 +110,8 @@ def simulate_ensemble(cfg: SMCConfig, params: RunParams, state: ChainState,
     """Ensemble run: thermalization + windowed main loop + per-chain and
     pooled post-processing. `state` carries the chain axis. on_window(
     widx, state, outs) runs after each storage window; returning "stop"
-    ends the run there. Returns (state, EnsembleResults)."""
+    ends the run there. `w` is the shared wall table or per-chain tables
+    [C, M*M, 2] (quenched disorder). Returns (state, EnsembleResults)."""
     lapse = params.gather_lapse
     gather_steps = params.gather_steps
     n_chains = state.n_chains
@@ -118,8 +124,8 @@ def simulate_ensemble(cfg: SMCConfig, params: RunParams, state: ChainState,
         state = state.replace(accepted=torch.zeros_like(state.accepted))
         while done_eq < params.eqsteps:
             k = min(chunk, params.eqsteps - done_eq)
-            state = _sync(_advance(state, w, cfg, 2.0 * cfg.proposal_a, k,
-                                   opts, False)[0])
+            state = _sync(_advance(state, w, cfg, 2.0 * _mobility(cfg, opts),
+                                   k, opts, False)[0])
             therm_moves += float(state.accepted.double().mean())
             state = state.replace(accepted=torch.zeros_like(state.accepted))
             done_eq += k

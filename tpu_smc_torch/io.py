@@ -42,16 +42,27 @@ def _fname(d: Path, stem: str, cfg: SMCConfig, rank: Optional[int] = None) -> Pa
 
 
 def write_wall_csv(d: Path, cfg: SMCConfig, x0: np.ndarray, ym: np.ndarray) -> Path:
-    """wall csv: site grid indices + raw (x0, ymin) draws (SMC.c:488-494)."""
+    """wall csv: site grid indices + raw (x0, ymin) draws (SMC.c:488-494).
+    Draws of a quenched-disorder ensemble ([K, M*M]) gain a leading `k`
+    realization column; the 1-D schema is the reference's."""
     p = _fname(d, "wall", cfg)
     x0 = np.asarray(x0)
     ym = np.asarray(ym)
     with open(p, "w") as f:
-        f.write("nx, ny, x0, ymin\n")
-        for i in range(cfg.m):
-            for j in range(cfg.m):
-                m = i * cfg.m + j
-                f.write(f"{i}, {j}, {x0[m]:f}, {ym[m]:f}\n")
+        if x0.ndim == 2:
+            f.write("k, nx, ny, x0, ymin\n")
+            for k in range(x0.shape[0]):
+                for i in range(cfg.m):
+                    for j in range(cfg.m):
+                        m = i * cfg.m + j
+                        f.write(f"{k}, {i}, {j}, {x0[k, m]:f}, "
+                                f"{ym[k, m]:f}\n")
+        else:
+            f.write("nx, ny, x0, ymin\n")
+            for i in range(cfg.m):
+                for j in range(cfg.m):
+                    m = i * cfg.m + j
+                    f.write(f"{i}, {j}, {x0[m]:f}, {ym[m]:f}\n")
     return p
 
 

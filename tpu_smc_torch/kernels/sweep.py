@@ -2,17 +2,20 @@
 plain PyTorch version, and the plane adapters.
 
 Counterpart of tpu_smc/kernels/sweep_pallas.py `pallas_sweep_block` in its
-dense and zskip modes. `sweep_block` launches the CUDA kernel for CUDA
-tensors and runs `sweep_block_plain` for CPU tensors; nothing else selects
-between them.
+dense and zskip modes, with per-chain (A, T) (`per_chain_at`) and per-chain
+wall coefficients (`per_chain_w`). `sweep_block` launches the CUDA kernel
+for CUDA tensors and runs `sweep_block_plain` for CPU tensors; nothing else
+selects between them.
 
 The kernel is built at first use with plain `nvcc` into a shared library
 with a C interface (tpu_smc_torch/_build/, keyed by the source's hash) and
 bound with ctypes; no PyTorch headers are compiled.
 
 Layout at this interface is the JAX package's: position planes [N_pad, C]
-float32 (pad rows parked at 1e15), energy [1, C], wall coefficient rows
-[1, MM_pad], per-sweep offsets [S] and seed words [S, 2]. Unlike the TPU
+float32 (pad rows parked at 1e15), energy [1, C], per-sweep offsets [S]
+and seed words [S, 2]. Wall coefficients are one shared row [1, MM_pad]
+or a chain-major table [C, MM_pad] (the TPU kernel's per-chain planes are
+[s_pad, C]). A and T are scalars or per-chain rows [C]. Unlike the TPU
 kernel, x/y are NOT pre-scaled by 1/L inside: coordinates stay in real
 units, so a call boundary rounds nothing and the kernel engines are
 invariant to how a run is split into calls.
@@ -97,9 +100,10 @@ def move_uniforms(words, n: int, c: int, device=None,
     return unit_uniform(torch.stack(b + [b4], dim=-1), dtype)
 
 
-def box_muller(u: torch.Tensor, s2a: float):
+def box_muller(u: torch.Tensor, s2a):
     """Proposal noise [.., 3] and acceptance uniform from 5 uniforms, the
-    TPU kernel's recipe (3 Gaussians with sigma sqrt(2A) + 1 uniform)."""
+    TPU kernel's recipe (3 Gaussians with sigma sqrt(2A) + 1 uniform);
+    s2a is a scalar or one value per chain (the last axis of u[..., 0])."""
     two_pi = 2.0 * math.pi
     r1 = torch.sqrt(-2.0 * torch.log(u[..., 0])) * s2a
     g1 = r1 * torch.cos(two_pi * u[..., 1])
@@ -132,13 +136,17 @@ def from_planes(x, y, z, cfg: SMCConfig, dtype=None) -> torch.Tensor:
 
 
 def wall_coeff_rows(w: torch.Tensor, cfg: SMCConfig):
-    """W [MM, 2] -> padded [1, MM_pad] float32 rows (MM_pad = 128k)."""
+    """W [MM, 2] -> padded [1, MM_pad] float32 rows (MM_pad = 128k); per-
+    chain tables W [C, MM, 2] -> [C, MM_pad], row c for chain c. Pad
+    sites carry zeros and contribute exactly 0."""
     mm = cfg.m * cfg.m
     mm_pad = _round_up(mm, 128)
-    wa = torch.zeros((1, mm_pad), dtype=torch.float32, device=w.device)
-    wb = torch.zeros((1, mm_pad), dtype=torch.float32, device=w.device)
-    wa[0, :mm] = w[:, 0].to(torch.float32)
-    wb[0, :mm] = w[:, 1].to(torch.float32)
+    w3 = w.reshape((-1, mm, 2))
+    wa = torch.zeros((w3.shape[0], mm_pad), dtype=torch.float32,
+                     device=w.device)
+    wb = torch.zeros_like(wa)
+    wa[:, :mm] = w3[..., 0].to(torch.float32)
+    wb[:, :mm] = w3[..., 1].to(torch.float32)
     return wa, wb
 
 
@@ -146,10 +154,16 @@ def wall_coeff_rows(w: torch.Tensor, cfg: SMCConfig):
 # Plain PyTorch version
 # ----------------------------------------------------------------------
 
-def _scales(cfg: SMCConfig, a: float):
-    t = float(cfg.temperature)
-    return dict(a_t=a / t, a_4t=a / (4.0 * t), s2a=math.sqrt(2.0 * a),
-                inv_t=1.0 / t)
+def chain_scales(a, t, c: int, device, dtype=torch.float32) -> torch.Tensor:
+    """[4, C] rows A/T, A/(4T), sqrt(2A), 1/T of every chain for mobility
+    `a` and temperature `t` (each a scalar or [C]), computed in float64
+    and rounded once to `dtype`: uniform rows are bitwise the scalar
+    arithmetic of a float64 (A, T) rounded to float32."""
+    f64 = dict(dtype=torch.float64, device=device)
+    a = torch.as_tensor(a, **f64).expand(c)
+    t = torch.as_tensor(t, **f64).expand(c)
+    rows = torch.stack([a / t, a / (4.0 * t), torch.sqrt(2.0 * a), 1.0 / t])
+    return rows.to(dtype).contiguous()
 
 
 def _pair_pass(qx, qy, qz, x, y, z, rows, cfg: SMCConfig):
@@ -177,7 +191,7 @@ def _pair_pass(qx, qy, qz, x, y, z, rows, cfg: SMCConfig):
 
 def _wall_terms(qx, qy, qz, wa, wb, cfg: SMCConfig):
     """Uniform + grid wall energy and force [C] at query positions [C],
-    site by site in the kernel's order."""
+    site by site in the kernel's order; wa/wb [1 or C, MM_pad]."""
     box_l, box_lz = cfg.box_l, cfg.box_lz
     inv_l, inv_lz, half = 1.0 / box_l, 1.0 / box_lz, box_lz / 2.0
     dz = qz + half
@@ -206,7 +220,7 @@ def _wall_terms(qx, qy, qz, wa, wb, cfg: SMCConfig):
         inv2 = 1.0 / torch.clamp(dr2, min=1e-12)
         inv6 = inv2 * inv2 * inv2
         inv12 = inv6 * inv6
-        a, b = wa[0, s], wb[0, s]
+        a, b = wa[:, s], wb[:, s]         # shared [1] or per-chain [C]
         zero = torch.zeros_like(dr2)
         us = us + torch.where(m, a * inv12 - b * inv6, zero)
         dv = torch.where(m, (48.0 * a * inv12 - 24.0 * b * inv6) * inv2, zero)
@@ -230,11 +244,15 @@ def _envelope_rows(sbmin, sbmax, lo, hi, n_pad: int):
 
 
 def sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
-                      n_sweeps: int, a: float, zskip: bool = False,
-                      draws=None, diag: dict | None = None):
+                      n_sweeps: int, a, zskip: bool = False,
+                      draws=None, diag: dict | None = None,
+                      temperature=None):
     """Plain PyTorch version of the kernel: same arguments, results and
     semantics, in the dtype of the planes (float32 for the kernel's
     inputs; float64 for parity with tpu_smc.sampler.sweep).
+
+    a, temperature: scalars or per-chain [C] (None = cfg.temperature);
+    wa/wb: the shared [1, MM_pad] rows or per-chain [C, MM_pad] tables.
 
     The moving row is parked at 1e15 during its move, pads sit at 1e15,
     the acceptance uses the unwrapped displacement, and zskip restricts
@@ -256,7 +274,8 @@ def sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
     x, y, z, e = x.clone(), y.clone(), z.clone(), e.clone().reshape(-1)
     n, (n_pad, c) = cfg.n, x.shape
     dt, dev = x.dtype, x.device
-    sc = _scales(cfg, float(a))
+    t = cfg.temperature if temperature is None else temperature
+    a_t, a_4t, s2a, inv_t = chain_scales(a, t, c, dev, dt)
     zcut = float(cfg.lj_cutoff * (1.0 + 1e-5))
     nb = -(-n_pad // ROW_BLOCK)
     e_trace = torch.empty((n_sweeps, c), dtype=dt, device=dev)
@@ -272,7 +291,7 @@ def sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
             u5 = move_uniforms(seeds[s], n, c, dev, dt)
             if dump is not None:
                 dump.append(u5.permute(1, 0, 2))
-            g_all, u_all = box_muller(u5, sc["s2a"])
+            g_all, u_all = box_muller(u5, s2a)
         else:
             g_all, u_all = draws[0][s], draws[1][s]
         if zskip:
@@ -301,9 +320,9 @@ def sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
             um, fmx, fmy, fmz = um + uw, fmx + wx, fmy + wy, fmz + wz
 
             g, u_acc = g_all[nn], u_all[nn]
-            ddx = fmx * sc["a_t"] + g[:, 0]
-            ddy = fmy * sc["a_t"] + g[:, 1]
-            ddz = fmz * sc["a_t"] + g[:, 2]
+            ddx = fmx * a_t + g[:, 0]
+            ddy = fmy * a_t + g[:, 1]
+            ddz = fmz * a_t + g[:, 2]
             px = xi + ddx
             px = px - cfg.box_l * torch.round(px * (1.0 / cfg.box_l))
             py = yi + ddy
@@ -320,11 +339,11 @@ def sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
 
             dfx, dfy, dfz = fnx - fmx, fny - fmy, fnz - fmz
             dw_term = (dfx * dfx + dfy * dfy + dfz * dfz
-                       + 2.0 * (dfx * fmx + dfy * fmy + dfz * fmz)) * sc["a_4t"]
+                       + 2.0 * (dfx * fmx + dfy * fmy + dfz * fmz)) * a_4t
             log_ap = -(un - um
                        + 0.5 * (ddx * (fnx + fmx) + ddy * (fny + fmy)
                                 + ddz * (fnz + fmz))
-                       + dw_term) * sc["inv_t"]
+                       + dw_term) * inv_t
             # a NaN log_ap rejects, as with jnp.minimum on the TPU
             accept = (log_ap >= 0.0) | (u_acc < torch.exp(log_ap))
             gap = (torch.clamp(log_ap, max=0.0) - torch.log(u_acc)).abs()
@@ -395,7 +414,7 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     fn = lib.smc_sweep_launch
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    fn.argtypes = [P] * 16 + [I] * 6 + [D] * 10 + [P]
+    fn.argtypes = [P] * 17 + [I] * 7 + [D] * 6 + [P]
     fn.restype = ctypes.c_int
     _Build.lib = lib
     return lib
@@ -411,7 +430,7 @@ def _check(t: torch.Tensor, name: str, shape, dtype, device):
 
 
 def _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
-                      n_sweeps: int, a: float, zskip: bool, diag):
+                      n_sweeps: int, a, zskip: bool, diag, temperature):
     if cfg.reference_noise or cfg.pbc_z or not cfg.use_walls:
         raise NotImplementedError(
             "the sweep kernel implements walls + i.i.d. noise only")
@@ -421,10 +440,14 @@ def _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
     for name, t in (("x", x), ("y", y), ("z", z)):
         _check(t, name, (n_pad, c), f32, dev)
     _check(e, "e", (1, c), f32, dev)
+    if wa.dim() != 2 or wa.shape[0] not in (1, c):
+        raise ValueError(f"wa: need [1, MM_pad] or [{c}, MM_pad], got "
+                         f"{tuple(wa.shape)}")
     _check(wa, "wa", wa.shape, f32, dev)
     _check(wb, "wb", wa.shape, f32, dev)
     if wa.shape[-1] < cfg.m * cfg.m or n_pad < cfg.n:
         raise ValueError("wall rows or planes shorter than the config")
+    w_stride = wa.shape[1] if wa.shape[0] == c and c > 1 else 0
     offsets = offsets.to(device=dev, dtype=torch.int32).contiguous()
     seeds = seeds.to(device=dev, dtype=torch.int32).contiguous()
     _check(offsets, "offsets", (n_sweeps,), torch.int32, dev)
@@ -439,23 +462,28 @@ def _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
         visited = torch.empty((c,), dtype=torch.int64, device=dev)
     if diag is not None and diag.get("uniforms"):
         u_dump = torch.empty((n_sweeps, c, cfg.n, 5), dtype=f32, device=dev)
-    sc = _scales(cfg, float(a))
+    t = cfg.temperature if temperature is None else temperature
+    scales = chain_scales(a, t, c, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.smc_sweep_launch(
             x.data_ptr(), y.data_ptr(), z.data_ptr(), e.data_ptr(),
             wa.data_ptr(), wb.data_ptr(), offsets.data_ptr(), seeds.data_ptr(),
-            xo.data_ptr(), yo.data_ptr(), zo.data_ptr(), eo.data_ptr(),
-            e_tr.data_ptr(), a_tr.data_ptr(),
+            scales.data_ptr(), xo.data_ptr(), yo.data_ptr(), zo.data_ptr(),
+            eo.data_ptr(), e_tr.data_ptr(), a_tr.data_ptr(),
             visited.data_ptr() if visited is not None else None,
             u_dump.data_ptr() if u_dump is not None else None,
-            cfg.n, n_pad, c, n_sweeps, cfg.m, int(bool(zskip)),
+            cfg.n, n_pad, c, n_sweeps, cfg.m, int(bool(zskip)), w_stride,
             float(cfg.box_l), float(cfg.box_lz), float(cfg.lj_cutoff),
-            float(cfg.contact_dz), float(cfg.a0), float(cfg.b0),
-            sc["a_t"], sc["a_4t"], sc["s2a"], sc["inv_t"], stream)
+            float(cfg.contact_dz), float(cfg.a0), float(cfg.b0), stream)
     if err != 0:
         raise RuntimeError(f"smc_sweep_launch failed: cudaError {err}")
-    sweep_block.launches["zskip" if zskip else "dense"] += 1
+    launches = sweep_block.launches
+    launches["zskip" if zskip else "dense"] += 1
+    if torch.is_tensor(a) or torch.is_tensor(temperature):
+        launches["per_chain_at"] += 1
+    if w_stride:
+        launches["per_chain_w"] += 1
     if diag is not None:
         diag["visited"] = visited
         if u_dump is not None:
@@ -464,21 +492,28 @@ def _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
 
 
 def sweep_block(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
-                n_sweeps: int, a: float, zskip: bool = False,
-                diag: dict | None = None):
+                n_sweeps: int, a, zskip: bool = False,
+                diag: dict | None = None, temperature=None):
     """n_sweeps Smart-MC sweeps of every chain (columns of the planes).
 
-    CUDA tensors go through the CUDA kernel (and count a launch in
-    `sweep_block.launches[mode]`); CPU tensors through the plain version.
+    a, temperature: scalars or per-chain [C] (None = cfg.temperature);
+    wa/wb: shared rows [1, MM_pad] or per-chain tables [C, MM_pad].
+
+    CUDA tensors go through the CUDA kernel and count a launch in
+    `sweep_block.launches`: by mode ("dense" or "zskip"), and also as
+    "per_chain_at" when a or temperature is per-chain and "per_chain_w"
+    with per-chain wall tables. CPU tensors go through the plain version.
     zskip: rows must be z-sorted per chain for the skips to pay; results
     are bitwise those of zskip=False on the same row order.
 
     Returns (x, y, z, e [1, C], e_trace [S, C], acc_trace [S, C])."""
     if x.is_cuda:
         return _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg,
-                                 n_sweeps, a, zskip, diag)
+                                 n_sweeps, a, zskip, diag, temperature)
     return sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg,
-                             n_sweeps, a, zskip=zskip, diag=diag)
+                             n_sweeps, a, zskip=zskip, diag=diag,
+                             temperature=temperature)
 
 
-sweep_block.launches = {"dense": 0, "zskip": 0}
+sweep_block.launches = {"dense": 0, "zskip": 0, "per_chain_at": 0,
+                        "per_chain_w": 0}

@@ -40,6 +40,20 @@ def vmap_chains_bounded(fn, r: torch.Tensor, n: int,
     return torch.cat(parts)
 
 
+def wall_obs_chains(fn, r: torch.Tensor, w: torch.Tensor, n: int):
+    """Wall-dependent observable fn(r_batch, w_batch) over the chains of
+    r [C, N, 3] in bounded batches. `w` is the shared [M*M, 2] table or
+    per-chain tables [C, M*M, 2] (quenched wall disorder), sliced with
+    the chains."""
+    if w.dim() == 2:
+        return vmap_chains_bounded(lambda rb: fn(rb, w), r, n)
+    b = obs_chain_batch(n)
+    if r.shape[0] <= b:
+        return fn(r, w)
+    return torch.cat([fn(r[i:i + b], w[i:i + b])
+                      for i in range(0, r.shape[0], b)])
+
+
 # ----------------------------------------------------------------------
 # Voxel density & mobility (SMC.c:912-927)
 # ----------------------------------------------------------------------

@@ -144,6 +144,17 @@ def wall_site_positions(cfg: SMCConfig, dtype=None, device=None) -> torch.Tensor
     return s.to(dtype=dtype or cfg.torch_dtype, device=device)
 
 
+def _site_coeffs(W: torch.Tensor, dr2: torch.Tensor):
+    """Per-site (a, b) broadcastable against dr2 [C, ..., MM]: from the
+    shared table W [MM, 2], or from per-chain tables W [C, MM, 2]
+    (quenched wall disorder) with chain c's row against dr2[c]."""
+    a, b = W[..., 0].to(dr2.dtype), W[..., 1].to(dr2.dtype)
+    if W.dim() == 3:
+        shape = (W.shape[0],) + (1,) * (dr2.dim() - 2) + (W.shape[1],)
+        a, b = a.reshape(shape), b.reshape(shape)
+    return a, b
+
+
 def _wall_dz(rz: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
     """Signed distance to the nearest wall with the contact clamp
     (SMC.c:736-739)."""
@@ -159,7 +170,8 @@ def wall_energy_force_single(rpos: torch.Tensor, W: torch.Tensor,
                              cfg: SMCConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Wall energy of and force on particles at rpos [..., 3]: the uniform
     planar 12-6 term on the nearest-wall distance plus the M*M grid sites
-    with per-site (a, b) = W [M*M, 2] (SMC.c:729-813).
+    with per-site (a, b) = W [M*M, 2] (SMC.c:729-813), or per-chain tables
+    W [C, M*M, 2] against rpos [C, ..., 3].
     Returns (U [...], F [..., 3])."""
     rx, ry, rz = rpos[..., 0], rpos[..., 1], rpos[..., 2]
     dz = _wall_dz(rz, cfg)
@@ -179,7 +191,7 @@ def wall_energy_force_single(rpos: torch.Tensor, W: torch.Tensor,
     inv2 = 1.0 / safe
     inv6 = inv2 * inv2 * inv2
     inv12 = inv6 * inv6
-    a, b = W[:, 0].to(rpos.dtype), W[:, 1].to(rpos.dtype)
+    a, b = _site_coeffs(W, dr2)
     zero = torch.zeros_like(dr2)
     u = u + torch.where(mask, a * inv12 - b * inv6, zero).sum(-1)
     dv = torch.where(mask, (48.0 * a * inv12 - 24.0 * b * inv6) * inv2, zero)
@@ -200,15 +212,16 @@ def wall_virial_pressure(R: torch.Tensor, W: torch.Tensor, cfg: SMCConfig,
     """Wall virial pressure per chain (SMC.c:862-895), with the
     reference's dz = rz + L/2 bug fixed unless reproduce_ref_bug; no
     contact clamp, and the uniform-wall virial counted once per in-cutoff
-    site, as in the reference (see tpu_smc.potentials)."""
+    site, as in the reference (see tpu_smc.potentials). W: [M*M, 2] or
+    per-chain [C, M*M, 2]."""
     half = (cfg.box_l if reproduce_ref_bug else cfg.box_lz) / 2.0
     sites = wall_site_positions(cfg, R.dtype, R.device)
-    a, b = W[:, 0].to(R.dtype), W[:, 1].to(R.dtype)
     dz = R[..., 2] + half
     dz = (dz - cfg.box_lz * torch.round(dz / cfg.box_lz)).unsqueeze(-1)
     dx = _min_image(R[..., 0].unsqueeze(-1) - sites[:, 0], cfg.box_l)
     dy = _min_image(R[..., 1].unsqueeze(-1) - sites[:, 1], cfg.box_l)
     dr2 = dx * dx + dy * dy + dz * dz
+    a, b = _site_coeffs(W, dr2)
     mask = dr2 < cfg.cutoff2
     safe = torch.where(mask, dr2, torch.ones_like(dr2))
     inv6 = 1.0 / (safe * safe * safe)

@@ -1,0 +1,268 @@
+"""Parallel tempering (replica exchange) over the temperature ladder
+(counterpart of tpu_smc.pt).
+
+The C chains are laid out [n_t, chains_per_t], temperature-major like
+tsweep: chains_per_t independent ladders side by side. Every
+`exchange_interval` sweeps an exchange step proposes swaps between
+adjacent levels (i, i+1) of each ladder, even and odd pairings in turn,
+and accepts with
+
+    P = min(1, exp((beta_i - beta_j) (E_i - E_j)))
+
+on the chains' running potential energies. On accept the CONFIGURATION
+(positions r, energy E and the voxel tracker rbin) swaps slots; the
+temperature, mobility, seed words, counters and voxel accumulators stay
+with the slot. With per-chain walls the realization lives in the replica
+index, so a swap never crosses realizations.
+
+The sweeps of a cycle are one engine call; the exchange is a few small
+torch ops on the chains' device. Its uniforms and parity derive from the
+ABSOLUTE cycle index, so a run split into more calls gives the same
+result.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .config import RunParams, SMCConfig
+from .state import ChainState, fold_in, init_ensemble_state
+from .tsweep import TSweepResults, _ladder_block, _pressure, ladder_stats
+
+_EXCHANGE_SALT = 0x9C0FFEE
+
+
+def exchange_uniforms(key: torch.Tensor, n_t: int, chains_per_t: int,
+                      device, dtype) -> torch.Tensor:
+    """[n_t, chains_per_t] uniforms in (0, 1) of one exchange attempt:
+    Philox4x32-10 of (index, 0xE8C, 0, 0) under the attempt's seed words."""
+    from .kernels.sweep import philox4x32, unit_uniform
+
+    idx = torch.arange(n_t * chains_per_t, dtype=torch.int64, device=device)
+    z = torch.zeros_like(idx)
+    b = philox4x32(idx, z + 0xE8C, z, z, z + int(key[0]), z + int(key[1]))
+    return unit_uniform(b[0], dtype).reshape(n_t, chains_per_t)
+
+
+def exchange_step(state: ChainState, betas_t: torch.Tensor,
+                  chains_per_t: int, key: torch.Tensor | None, parity: int,
+                  uniforms: torch.Tensor | None = None):
+    """One replica-exchange attempt across the ladder.
+
+    `state` carries C = n_t * chains_per_t chains, temperature-major.
+    betas_t [n_t] is 1/T per level; parity 0/1 picks the even/odd
+    pairing. uniforms [n_t, chains_per_t] replaces the draws made from
+    `key` (tests inject the JAX package's).
+    Returns (state, accepts [n_t-1] int32, attempts [n_t-1] int32)."""
+    n_t = betas_t.shape[0]
+    dev = state.energy.device
+    if uniforms is None:
+        uniforms = exchange_uniforms(key, n_t, chains_per_t, dev,
+                                     state.energy.dtype)
+    u = uniforms.to(device=dev, dtype=state.energy.dtype)
+    e = state.energy.reshape(n_t, chains_per_t)
+    betas = betas_t.to(device=dev, dtype=state.energy.dtype)
+    idx = torch.arange(n_t, device=dev)
+    # level i is the LOW side of a proposed pair (i, i+1) when its index
+    # matches the parity and a partner above exists
+    is_lo = ((idx % 2) == (int(parity) % 2)) & (idx + 1 < n_t)
+    up = torch.clamp(idx + 1, max=n_t - 1)
+    delta = (betas - betas[up])[:, None] * (e - e[up])
+    accept_lo = is_lo[:, None] & (torch.log(u) < delta)
+    # a level swaps UP if it accepted as the low side, DOWN if the level
+    # below accepted; with an even/odd pairing these are disjoint
+    from_below = torch.cat([torch.zeros_like(accept_lo[:1]),
+                            accept_lo[:-1]])
+    col = idx[:, None].expand(n_t, chains_per_t)
+    partner = torch.where(accept_lo, col + 1,
+                          torch.where(from_below, col - 1, col))
+
+    def swap(x):
+        xl = x.reshape((n_t, chains_per_t) + x.shape[1:])
+        p = partner.reshape(partner.shape + (1,) * (xl.dim() - 2))
+        return torch.take_along_dim(xl, p.expand(xl.shape), dim=0) \
+            .reshape(x.shape)
+
+    new = state.replace(r=swap(state.r), energy=swap(state.energy),
+                        rbin=swap(state.rbin))
+    accepts = accept_lo.sum(dim=1)[:-1].to(torch.int32)
+    attempts = (is_lo.to(torch.int32) * chains_per_t)[:-1]
+    return new, accepts, attempts
+
+
+def pt_cycles(state: ChainState, w, cfg: SMCConfig, temps_c: torch.Tensor,
+              betas_t: torch.Tensor, a_scale: float, chains_per_t: int,
+              interval: int, n_cycles: int, cycle0: int, ekey: torch.Tensor,
+              sampler: str, collect_trace: bool = False, a_c=None):
+    """n_cycles x (interval sweeps as one engine call + one exchange
+    attempt). cycle0 is the absolute index of the first cycle: the
+    attempt's seed words fold it into `ekey` and its parity is its
+    parity, so cycles split over calls give the same result. Returns
+    (state, accepts [n_t-1] int64, attempts [n_t-1] int64, energy
+    traces [interval, C] per cycle when collect_trace)."""
+    n_t = betas_t.shape[0]
+    nacc = np.zeros((max(n_t - 1, 0),), np.int64)
+    natt = np.zeros_like(nacc)
+    traces = []
+    for k in range(n_cycles):
+        state, stats = _ladder_block(state, w, cfg, temps_c, a_scale,
+                                     interval, sampler,
+                                     collect_trace=collect_trace, a_c=a_c)
+        if collect_trace:
+            traces.append(stats.energy)
+        abs_k = cycle0 + k
+        state, acc, att = exchange_step(state, betas_t, chains_per_t,
+                                        fold_in(ekey, [abs_k])[0], abs_k % 2)
+        nacc += acc.cpu().numpy()
+        natt += att.cpu().numpy()
+    return state, nacc, natt, traces
+
+
+class PTResults(NamedTuple):
+    tsweep: TSweepResults           # per-T E/err/acceptance/cv
+    pair_t_lo: np.ndarray           # [n_t-1]
+    pair_t_hi: np.ndarray           # [n_t-1]
+    swap_acceptance: np.ndarray     # [n_t-1] accepted / attempted
+    swap_attempts: np.ndarray       # [n_t-1] production attempts per pair
+    exchange_interval: int          # the interval used ("auto": chosen)
+    # "auto": per-pair swap acceptance of the post-thermalization probe
+    probe_acceptance: np.ndarray | None = None
+
+
+def choose_exchange_interval(pair_acceptance, target_rate: float = 0.06,
+                             lo: int = 2, hi: int = 50) -> int:
+    """Exchange interval holding the accepted-swap rate per pair per
+    sweep near `target_rate` for the weakest pair:
+    clip(round(min(p) / target_rate), lo, hi), quantized log-nearest to
+    {2, 5, 10, 20, 50} (tpu_smc.pt.choose_exchange_interval's rule)."""
+    p = np.asarray(pair_acceptance, np.float64)
+    if p.size == 0:       # single-level "ladder": no pairs to exchange
+        return hi
+    raw = np.clip(float(p.min()) / target_rate, lo, hi)
+    menu = np.asarray([2, 5, 10, 20, 50], np.float64)
+    menu = menu[(menu >= lo) & (menu <= hi)]
+    return int(menu[np.argmin(np.abs(np.log(menu) - np.log(raw)))])
+
+
+def simulate_parallel_tempering(
+    cfg: SMCConfig,
+    params: RunParams,
+    temps,
+    key: torch.Tensor,
+    chains_per_t: int = 16,
+    exchange_interval: int | str = 10,
+    r0: np.ndarray | None = None,
+    w: np.ndarray | None = None,
+    sampler: str = "torch",
+    a_per_t=None,
+    device="cuda",
+) -> tuple[ChainState, PTResults]:
+    """The ladder with replica exchange every `exchange_interval` sweeps
+    ("auto": measure the swap acceptance on a 40-cycle probe after
+    thermalization at interval 10 and choose with
+    choose_exchange_interval). eqsteps / maxsteps round up to whole
+    cycles; swap statistics count production attempts only; per-T
+    statistics follow tsweep's. The mobility (a_per_t or gamma*T)
+    belongs to the temperature slot, like T."""
+    from .driver import therm_chunk
+
+    temps = np.asarray(temps, dtype=np.float64)
+    n_t = len(temps)
+    auto = exchange_interval == "auto"
+    if isinstance(exchange_interval, str) and not auto:
+        raise ValueError(f"exchange_interval must be an int or 'auto', "
+                         f"got {exchange_interval!r}")
+    interval = 10 if auto else max(1, int(exchange_interval))
+    c = n_t * chains_per_t
+    state, w_t = init_ensemble_state(cfg, key, c, r0=r0, w=w, device=device)
+    f64 = dict(dtype=torch.float64, device=device)
+    temps_c = torch.as_tensor(np.repeat(temps, chains_per_t), **f64)
+    betas_t = torch.as_tensor(1.0 / temps, dtype=cfg.torch_dtype,
+                              device=device)
+    a_c = (None if a_per_t is None else torch.as_tensor(
+        np.repeat(np.asarray(a_per_t, np.float64), chains_per_t), **f64))
+    ekey = fold_in(state.key[0].cpu(), [_EXCHANGE_SALT])[0]
+    sweep_budget = therm_chunk(cfg, sampler=sampler)
+
+    def run_phase(state, total_sweeps, a_scale, cycle0, collect=False,
+                  lapse=1):
+        """ceil(total_sweeps / interval) cycles in groups of
+        max(1, budget // interval), each group harvested (accept counts,
+        and when collecting the paired (P, E) sample at its end);
+        energies sampled at the absolute gather cadence."""
+        cycles = -(-total_sweeps // interval)
+        group = max(1, sweep_budget // interval)
+        acc = np.zeros((max(n_t - 1, 0),), np.int64)
+        att = np.zeros_like(acc)
+        moves = np.zeros((c,), np.int64)
+        samples, p_samples, e_at_p = [], [], []
+        done = sweep0 = 0
+        while done < cycles:
+            k = min(group, cycles - done)
+            state, a_blk, t_blk, traces = pt_cycles(
+                state, w_t, cfg, temps_c, betas_t, a_scale, chains_per_t,
+                interval, k, cycle0 + done, ekey, sampler,
+                collect_trace=collect, a_c=a_c)
+            acc += a_blk
+            att += t_blk
+            moves += state.accepted.cpu().numpy().astype(np.int64)
+            if collect:
+                e_blk = torch.cat(traces).cpu().numpy()
+                samples.append(e_blk[(lapse - 1 - sweep0) % lapse::lapse])
+                sweep0 += e_blk.shape[0]
+                p_samples.append(_pressure(cfg, state.r, w_t))
+                e_at_p.append(state.energy.cpu().numpy())
+            state = state.replace(accepted=torch.zeros_like(state.accepted))
+            done += k
+        return (state, acc, att, samples, moves, p_samples, e_at_p,
+                cycle0 + cycles)
+
+    # thermalization: A doubled (SMC.c:110, 125); exchanges run but are
+    # not counted
+    state, *_, cyc = run_phase(state, params.eqsteps, 2.0, 0)
+    probe_acc = None
+    if auto:
+        state, acc_p, att_p, *_, cyc = run_phase(state, 40 * interval, 1.0,
+                                                 cyc)
+        probe_acc = acc_p / np.maximum(att_p, 1)
+        interval = choose_exchange_interval(probe_acc)
+
+    lapse = max(1, params.gather_lapse)
+    t0 = time.perf_counter()
+    state, acc, att, samples, moves, p_s, e_p, _ = run_phase(
+        state, params.maxsteps, 1.0, cyc, collect=True, lapse=lapse)
+    prod_sweeps = -(-params.maxsteps // interval) * interval
+    prod_sps = prod_sweeps * c / max(time.perf_counter() - t0, 1e-9)
+
+    e_tr = np.concatenate(samples) if samples else np.zeros((0, c))
+    e_t = e_tr.reshape(len(e_tr), n_t, chains_per_t)
+    mean_e, err_e, acc_moves, cv = ladder_stats(e_t, moves, prod_sweeps,
+                                                temps, cfg)
+    shape_t = (-1, n_t, chains_per_t)
+    ts = TSweepResults(
+        temps=temps, mean_energy=mean_e, err_energy=err_e,
+        acceptance=acc_moves, cv=cv, energy_samples=e_t,
+        pressure_samples=np.stack(p_s).reshape(shape_t) if p_s else None,
+        energy_at_pressure=np.stack(e_p).reshape(shape_t) if e_p else None,
+        sweeps_per_second=prod_sps)
+    return state, PTResults(
+        tsweep=ts, pair_t_lo=temps[:-1], pair_t_hi=temps[1:],
+        swap_acceptance=acc / np.maximum(att, 1), swap_attempts=att,
+        exchange_interval=interval, probe_acceptance=probe_acc)
+
+
+def write_pt_csv(d, cfg: SMCConfig, res: PTResults):
+    from .io import _fname
+
+    p = _fname(d, "pt", cfg)
+    with open(p, "w") as f:
+        f.write("T_lo, T_hi, swap_acceptance, attempts\n")
+        for i in range(len(res.pair_t_lo)):
+            f.write(f"{res.pair_t_lo[i]:0.4f}, {res.pair_t_hi[i]:0.4f}, "
+                    f"{res.swap_acceptance[i]:0.6f}, "
+                    f"{res.swap_attempts[i]:d}\n")
+    return p

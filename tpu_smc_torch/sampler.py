@@ -14,9 +14,11 @@ wraps the proposal in x, y (SMC.c:315-316), and accepts with
     dW = (|Fn|^2 - |Fm|^2) * A/(4T)                    (SMC.c:326-327)
 
 The moves are sequential; every tensor carries a leading chain axis [C]
-and all chains share the visiting order. Randomness is injected: the
-caller passes the proposal noise (indexed by particle, like the
-reference's displ[3n]) and the acceptance uniforms (indexed by move).
+and all chains share the visiting order. A and T are scalars or one value
+per chain (temperature ladders, tsweep.py), and the wall table is shared
+[M*M, 2] or per chain [C, M*M, 2] (quenched disorder). Randomness is
+injected: the caller passes the proposal noise (indexed by particle, like
+the reference's displ[3n]) and the acceptance uniforms (indexed by move).
 """
 
 from __future__ import annotations
@@ -49,19 +51,27 @@ def _wrap_proposal(rp: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
 
 
 def sweep(r: torch.Tensor, energy: torch.Tensor, w: torch.Tensor,
-          cfg: SMCConfig, a: float, noise: torch.Tensor, unif: torch.Tensor,
-          offset: int, temperature: float | None = None):
+          cfg: SMCConfig, a, noise: torch.Tensor, unif: torch.Tensor,
+          offset: int, temperature=None):
     """One sweep of every chain.
 
     r [C, N, 3], energy [C]; noise [C, N, 3] is the proposal noise
     sqrt(2A) * xi by particle, unif [C, N] the acceptance uniforms by
-    move, offset the shared cyclic start (SMC.c:290).
+    move, offset the shared cyclic start (SMC.c:290). a, temperature:
+    scalars or [C] (None = cfg.temperature); w [M*M, 2] or [C, M*M, 2].
     Returns (r, energy, n_accepted [C])."""
     if cfg.reference_noise:
         raise NotImplementedError("reference_noise: not yet ported")
     n = cfg.n
-    t = float(cfg.temperature if temperature is None else temperature)
-    a = float(a)
+    t = cfg.temperature if temperature is None else temperature
+    if torch.is_tensor(a) or torch.is_tensor(t):
+        c = r.shape[0]
+        a, t = (torch.as_tensor(v, dtype=r.dtype, device=r.device).expand(c)
+                for v in (a, t))
+        a_t = (a / t)[:, None]
+    else:
+        a, t = float(a), float(t)
+        a_t = a / t
     r = r.clone()
     acc = torch.zeros(r.shape[0], dtype=torch.int64, device=r.device)
     zero = torch.zeros((), dtype=r.dtype, device=r.device)
@@ -71,7 +81,7 @@ def sweep(r: torch.Tensor, energy: torch.Tensor, w: torch.Tensor,
         um, fm = energy_force_single(r, i, ri, w, cfg)
         # acceptance uses the UNWRAPPED delta, energies the wrapped
         # position (SMC.c:307-316)
-        delta = fm * (a / t) + noise[:, i]
+        delta = fm * a_t + noise[:, i]
         rp = _wrap_proposal(ri + delta, cfg)
         un, fn = energy_force_single(r, i, rp, w, cfg)
         df = fn - fm
@@ -86,8 +96,8 @@ def sweep(r: torch.Tensor, energy: torch.Tensor, w: torch.Tensor,
 
 
 def sweep_state(state: ChainState, w: torch.Tensor, cfg: SMCConfig,
-                a: float, noise: torch.Tensor, unif: torch.Tensor,
-                offset: int, temperature: float | None = None):
+                a, noise: torch.Tensor, unif: torch.Tensor,
+                offset: int, temperature=None):
     """One sweep on a ChainState. Returns (state, SweepStats row)."""
     r, e, acc = sweep(state.r, state.energy, w, cfg, a, noise, unif, offset,
                       temperature=temperature)
@@ -112,10 +122,10 @@ def recompute_energy(state: ChainState, w: torch.Tensor,
                      cfg: SMCConfig) -> ChainState:
     """Replace the tracked energy by an exact recompute (the reference
     never does; float32 drift needs it, SURVEY §7.4.5)."""
-    from .observables import vmap_chains_bounded
+    from .observables import wall_obs_chains
 
-    e = vmap_chains_bounded(lambda rb: total_energy(rb, w, cfg), state.r,
-                            cfg.n)
+    e = wall_obs_chains(lambda rb, wb: total_energy(rb, wb, cfg), state.r, w,
+                        cfg.n)
     return state.replace(energy=e.to(state.energy.dtype))
 
 

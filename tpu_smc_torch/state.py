@@ -108,12 +108,41 @@ def batch_chain_state(state: ChainState, n_chains: int,
         mobility=rep(state.mobility))
 
 
+def per_chain_wall_energy(r: torch.Tensor, w: torch.Tensor,
+                          cfg: SMCConfig) -> torch.Tensor:
+    """Total energy [C] of every chain of r [C, N, 3] under its own wall
+    table w [C, M*M, 2] (quenched disorder: chains of different
+    realizations start at different wall energies), in bounded chain
+    batches."""
+    from .observables import wall_obs_chains
+    from .potentials import total_energy
+
+    return wall_obs_chains(lambda rb, wb: total_energy(rb, wb, cfg), r, w,
+                           cfg.n)
+
+
 def init_ensemble_state(cfg: SMCConfig, key: torch.Tensor, n_chains: int,
                         r0: np.ndarray | None = None,
                         w: np.ndarray | None = None,
                         device="cuda") -> tuple[ChainState, torch.Tensor]:
     """`n_chains` chains from one common start configuration (every MPI
-    rank of the reference starts from the common R0, SMC.c:43-45)."""
+    rank of the reference starts from the common R0, SMC.c:43-45).
+
+    w: the shared [M*M, 2] wall table (default: the reference's), or
+    per-chain tables [C, M*M, 2]; with per-chain tables each chain's
+    initial energy is computed under its own wall, and the returned wall
+    tensor is the [C, M*M, 2] table."""
+    if w is not None and np.ndim(w) == 3:
+        if np.shape(w)[0] != n_chains:
+            raise ValueError(f"per-chain wall tables ({np.shape(w)[0]}) != "
+                             f"chains ({n_chains})")
+        state, _ = init_chain_state(cfg, key, r0=r0, w=np.asarray(w)[0],
+                                    device=device)
+        state = batch_chain_state(state, n_chains)
+        w_t = torch.as_tensor(np.asarray(w), dtype=cfg.torch_dtype,
+                              device=device)
+        return state.replace(energy=per_chain_wall_energy(state.r, w_t, cfg)
+                             .to(state.energy.dtype)), w_t
     state, w_t = init_chain_state(cfg, key, r0=r0, w=w, device=device)
     return batch_chain_state(state, n_chains), w_t
 

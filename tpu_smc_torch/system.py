@@ -85,6 +85,17 @@ def build_walls(cfg: SMCConfig, seed: int = 42
     return w, x0, ym
 
 
+def build_wall_ensemble(cfg: SMCConfig, k: int, base_seed: int = 42
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """K quenched wall-disorder realizations drawn with seeds base_seed ..
+    base_seed + K - 1 through build_walls, so realization 0 with the
+    default seed is the reference wall bit for bit (the reference freezes
+    its wall at srand(42), SMC.c:477). Returns (W [K, M*M, 2],
+    x0 [K, M*M], ym [K, M*M]) in float64."""
+    ws, x0s, yms = zip(*(build_walls(cfg, base_seed + i) for i in range(k)))
+    return np.stack(ws), np.stack(x0s), np.stack(yms)
+
+
 def bounds_check(r: np.ndarray, cfg: SMCConfig, lz_margin: float = 0.1) -> Tuple[int, int]:
     """Count particles outside the x/y box or beyond the walls
     (boundsCheck, SMC.c:529-543; called with Lz-0.1 at SMC.c:191).
