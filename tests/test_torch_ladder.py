@@ -213,26 +213,38 @@ def test_wall_ensemble_and_per_chain_energy_match_jax():
 
 def test_tsweep_statistics_match_jax():
     """simulate_temperature_sweep on the port's plain engine and on
-    tpu_smc's XLA engine, N = 32, 2 temperatures x 8 chains from the
-    same lattice: per-T mean E within 3 combined replica error bars, and
-    acceptance within 0.02 (8 chains x 30 sweeps x 32 moves per level:
-    a binomial SE of ~0.003 at 0.95, widened for chain correlation)."""
-    temps = [1.0, 1.4]
+    tpu_smc's XLA engine, N = 32, 2 temperatures x 384 chains from the
+    same condensed slab on the lower wall, where potential energy and
+    acceptance both depend on T (T = 0.6: U ~ -46, acceptance ~0.21;
+    T = 1.2: U ~ -26, ~0.57), so a chain run at the wrong temperature
+    fails both checks: per-T mean E within 3 combined replica error
+    bars, and acceptance within 0.02. The acceptance of one such run
+    spreads by at most 0.0045 (port, 8 seeds) and 0.0032 (tpu_smc, 3
+    seeds) over seeds (scripts/torch_stat_spread.py), so 0.02 is 3.6
+    combined standard deviations; the binomial SE (0.0008) misses the
+    chain-to-chain spread of a cluster's fate."""
+    temps = [0.6, 1.2]
     params = RunParams(eqsteps=10, maxsteps=30, numdata=6)
+    r0 = _start(1, 7)[0]
     from tpu_smc.tsweep import simulate_temperature_sweep as jsweep
 
     jc = JConfig.for_n(N)
-    _, jr = jsweep(jc, params, temps, jax.random.key(3), chains_per_t=8)
+    _, jr = jsweep(jc, params, temps, jax.random.key(3), chains_per_t=384,
+                   r0=r0)
     tc = TConfig.for_n(N)
     _, tr = tts.simulate_temperature_sweep(tc, params, temps, seed_words(3),
-                                           chains_per_t=8, sampler="torch",
-                                           device="cpu")
-    assert tr.energy_samples.shape == jr.energy_samples.shape == (6, 2, 8)
+                                           chains_per_t=384, r0=r0,
+                                           sampler="torch", device="cpu")
+    assert tr.energy_samples.shape == jr.energy_samples.shape == (6, 2, 384)
     assert tr.pressure_samples.shape == jr.pressure_samples.shape
     se = np.hypot(tr.err_energy, jr.err_energy)
     assert (np.abs(tr.mean_energy - jr.mean_energy) < 3 * se).all(), \
         (tr.mean_energy, jr.mean_energy, se)
     np.testing.assert_allclose(tr.acceptance, jr.acceptance, atol=0.02)
+    # the levels lie far apart on both measures
+    u = tr.mean_energy - 1.5 * N * np.asarray(temps)
+    assert u[1] - u[0] > 10 * se.max() and \
+        tr.acceptance[1] - tr.acceptance[0] > 0.2, (u, tr.acceptance)
     assert np.isfinite(tr.cv).all() and (tr.cv > 0).all()
 
 

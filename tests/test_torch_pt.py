@@ -222,8 +222,8 @@ def test_tune_mobility_search_matches_jax(monkeypatch):
         return state._replace(accepted=jnp.full((c,), int(round(acc)),
                                                 jnp.int32))
 
-    def tsweeps(state, w, cfg, a, n_sweeps, uniform_at=None, **kw):
-        acc = _acc_model(uniform_at[0], 1.0, k, n) * k * n
+    def tsweeps(state, w, cfg, a, n_sweeps, **kw):
+        acc = _acc_model(a, 1.0, k, n) * k * n
         return state.replace(accepted=torch.full(
             (c,), int(round(acc)), dtype=torch.int64)), None
 

@@ -17,9 +17,8 @@ sweep's words. Trajectories therefore do not depend on how a run is
 split into calls, and the plain engine makes exactly the kernel's draws.
 
 Every engine takes the mobility as the scalar `a` (temperature
-cfg.temperature), as one (A, T) for all chains (`uniform_at`, the tuned
-mobility), or as per-chain rows `a_per_chain` / `t_per_chain` [C] (both
-or neither: a temperature ladder); and the wall table shared [M*M, 2] or
+cfg.temperature) or as per-chain rows `a_per_chain` / `t_per_chain` [C]
+(both or neither: a temperature ladder); and the wall table shared [M*M, 2] or
 per chain [C, M*M, 2] (quenched disorder). Rows and tables are indexed
 by chain, so the zsorted engine's particle sorts never touch them.
 """
@@ -55,21 +54,19 @@ def _per_sweep_randomness(state: ChainState, cfg: SMCConfig, seed,
     return words, offsets
 
 
-def _chain_at(a, cfg: SMCConfig, a_per_chain, t_per_chain, uniform_at):
-    """(A, T) of a call: per-chain rows, the uniform pair, or (a, cfg.T)."""
+def _chain_at(a, cfg: SMCConfig, a_per_chain, t_per_chain):
+    """(A, T) of a call: per-chain rows, or (a, cfg.T)."""
     if (a_per_chain is None) != (t_per_chain is None):
         raise ValueError("a_per_chain and t_per_chain: both or neither")
     if a_per_chain is not None:
         return a_per_chain, t_per_chain
-    if uniform_at is not None:
-        return float(uniform_at[0]), float(uniform_at[1])
     return float(a), cfg.temperature
 
 
 def ensemble_sweeps(state: ChainState, w: torch.Tensor, cfg: SMCConfig,
                     a: float, n_sweeps: int, collect_trace: bool = False,
                     stream_seed=None, draws=None, a_per_chain=None,
-                    t_per_chain=None, uniform_at=None):
+                    t_per_chain=None):
     """n_sweeps sweeps of every chain on the plain PyTorch engine.
 
     draws: None = the kernel's Philox draws of each sweep; or injected
@@ -80,7 +77,7 @@ def ensemble_sweeps(state: ChainState, w: torch.Tensor, cfg: SMCConfig,
                                                n_sweeps)
     else:
         offsets = draws[2]
-    a, t = _chain_at(a, cfg, a_per_chain, t_per_chain, uniform_at)
+    a, t = _chain_at(a, cfg, a_per_chain, t_per_chain)
     c, dev, dt = state.n_chains, state.r.device, state.r.dtype
     s2a = ks.chain_scales(a, t, c, dev, dt)[2]
     e_tr, a_tr = [], []
@@ -126,12 +123,11 @@ def _finish(state: ChainState, r: torch.Tensor, e, e_trace, a_trace,
 
 def ensemble_sweeps_dense(state: ChainState, w: torch.Tensor,
                           cfg: SMCConfig, a: float, n_sweeps: int,
-                          seed=None, a_per_chain=None, t_per_chain=None,
-                          uniform_at=None):
+                          seed=None, a_per_chain=None, t_per_chain=None):
     """n_sweeps sweeps of every chain in ONE launch of the whole-sweep
     kernel (counterpart of ensemble_sweeps_pallas). The state stays in
     real units, so the result does not depend on call boundaries."""
-    a, t = _chain_at(a, cfg, a_per_chain, t_per_chain, uniform_at)
+    a, t = _chain_at(a, cfg, a_per_chain, t_per_chain)
     words, offsets = _per_sweep_randomness(state, cfg, seed, n_sweeps)
     x, y, z, e, wa, wb = _kernel_inputs(state, w, cfg)
     x, y, z, e, e_tr, a_tr = ks.sweep_block(
@@ -152,8 +148,7 @@ def zsort_cadence(n: int) -> int:
 def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
                             cfg: SMCConfig, a: float, n_sweeps: int,
                             seed=None, sweeps_per_sort: int | None = None,
-                            a_per_chain=None, t_per_chain=None,
-                            uniform_at=None):
+                            a_per_chain=None, t_per_chain=None):
     """n_sweeps sweeps through the kernel with exact z-block skipping.
 
     Every `sweeps_per_sort` sweeps (plus one shorter chunk for a
@@ -164,7 +159,7 @@ def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
     and the positions CSV keep particle identity."""
     if n_sweeps < 1:
         raise ValueError("n_sweeps must be >= 1")
-    a, t = _chain_at(a, cfg, a_per_chain, t_per_chain, uniform_at)
+    a, t = _chain_at(a, cfg, a_per_chain, t_per_chain)
     n, c = cfg.n, state.n_chains
     sps = max(1, int(sweeps_per_sort or zsort_cadence(n)))
     words, offsets = _per_sweep_randomness(state, cfg, seed, n_sweeps)

@@ -11,10 +11,9 @@ sweeps only advance the chains, like extra thermalization).
 measured at once on one [n_t x chains_per_t] ensemble.
 
 On the kernel engines every probe goes through the dense kernel with the
-mobility as per-chain data rows (`uniform_at` / `a_per_chain`), as in the
-reference; on the GPU a run-time A costs no rebuild. The searches
-themselves (`search_mobility`, `search_mobility_ladder`) run on a
-`measure(a) -> acceptance` function.
+mobility as run-time data (the launch's scale rows), so a new A costs no
+rebuild. The searches themselves (`search_mobility`,
+`search_mobility_ladder`) run on a `measure(a) -> acceptance` function.
 """
 
 from __future__ import annotations
@@ -129,8 +128,7 @@ def tune_mobility(cfg: SMCConfig, state: ChainState, w: torch.Tensor,
                   tol: float = 0.02, burn_in_blocks: int = 2,
                   seed: int | None = None):
     """Tune one A for every chain of `state` (leading chain axis) to the
-    target acceptance. The kernel engines probe through the dense kernel
-    with uniform (A, T) rows. Returns (advanced state, TuneResult): the
+    target acceptance. The kernel engines probe through the dense kernel. Returns (advanced state, TuneResult): the
     tuning sweeps double as burn-in."""
     _check_target(target)
     from . import ensemble as ens
@@ -142,13 +140,11 @@ def tune_mobility(cfg: SMCConfig, state: ChainState, w: torch.Tensor,
         nonlocal state
         state = state.replace(accepted=torch.zeros_like(state.accepted))
         if sampler in ("dense", "zsorted"):
-            state, _ = ens.ensemble_sweeps_dense(state, w, cfg, 0.0, k,
-                                                 seed=seed,
-                                                 uniform_at=(a_val, t))
+            state, _ = ens.ensemble_sweeps_dense(state, w, cfg, a_val, k,
+                                                 seed=seed)
         else:
-            state, _ = ens.ensemble_sweeps(state, w, cfg, 0.0, k,
-                                           stream_seed=seed,
-                                           uniform_at=(a_val, t))
+            state, _ = ens.ensemble_sweeps(state, w, cfg, a_val, k,
+                                           stream_seed=seed)
         moves = state.accepted.cpu().numpy().astype(np.int64)
         return float(moves.mean()) / (k * cfg.n)
 
