@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""On-card check of tpu_smc_torch: builds the CUDA kernel, holds it against
-its plain PyTorch version in every mode, and drives the CLI at full width:
+"""On-card check of tpu_smc_torch: builds the CUDA kernels, holds them against
+their plain PyTorch versions in every mode, and drives the CLI at full width:
 the NVT chain ensemble (N = 1024 x 512 and N = 108 x 512 chains), the
 temperature ladder with parallel tempering, tuning and MBAR (N = 1024,
 8 x 64 chains), the quenched-disorder ladder (N = 108, 4 x 128 chains, 4
-walls) and the disordered ensemble (N = 108 x 512, 8 walls).
+walls), the disordered ensemble (N = 108 x 512, 8 walls), and the large-N
+confined ensemble on the streamed kernel (N = 32768 x 128 chains, through
+simulate_ensemble and through the CLI).
 
     python3 chip_smoke.py
 
@@ -23,6 +25,10 @@ Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
      E against a per-chain-wall recompute); uniform rows bitwise the
      scalar call, identical per-chain wall tables bitwise the shared row,
      and a [w0.., w1.., w2.., w3..] ensemble bitwise the shared-row runs;
+     then the streamed kernel (K3) bitwise the resident z-skip kernel on
+     the same sorted rows at N = 4096 and 16384 x 128 and at N = 4096 x
+     128 with per-chain (2A, T) and 4 walls, and K3 against its plain
+     version at N = 1024 x 64 as above;
   3. the main path: `tpu_smc_torch.cli.main` at N = 1024 x 512 chains
      (auto -> zsorted, z-skip launches) and N = 108 x 512 (auto -> dense),
      each reproducing the mean energy and acceptance recorded for it
@@ -30,19 +36,26 @@ Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
      mobility and MBAR, (b) the N = 108 disorder ladder with per-
      realization MBAR, (d) an N = 108 parallel-tempering ladder run near
      equilibrium and (c) the N = 108 disordered ensemble; launch counts
-     reset before and read after each run, the plain version barred;
+     reset before and read after each run, the plain versions barred;
      per-T results finite and rising with T, swap acceptance in (0, 1],
      MBAR at the ladder's temperatures within 3 combined SE of the
      sampled means on (b) and (d); (a), too short to reach equilibrium,
      holds its per-T mean E and its MBAR - sampled offsets within 3
      combined SE of tpu_smc's run of the same ladder (REF_A); tpu_smc's
-     CSV names and headers;
+     CSV names and headers; then the large-N runs on the streamed kernel:
+     simulate_ensemble at tpu_smc's density-matched N = 32768 box x 128
+     chains (finite, carried vs exact energy within 1e-4 relative at
+     every resync, CNA run, E/N and acceptance beside tpu_smc's, peak
+     memory, the gather loop's time split) and the CLI at N = 32768 x 128
+     in the default box (the CSV set, the streamed engine line);
   4. at the main path's shapes (N = 108 x 512 dense, N = 1024 x 512
      z-skip): kernel vs plain as in phase 2, the plain time and the
      bound, for the uniform form and for per-chain (A, T) and per-chain
      walls (N = 108 x 512); kernel times of those and of per-chain (A, T)
      z-skip (N = 1024 x 512) taken in turns within the call; dense mode
-     at N = 1024 x 512 beside z-skip; the dense and zsorted engines at
+     at N = 1024 x 512 beside z-skip; K3's time and bound at N = 32768 x
+     128 and K3 beside K2 in turns at N = 16384 x 128 (its plain version
+     is held against it in phase 2); the dense and zsorted engines at
      N = 512 and 1024 x 512, behind auto routing, and the zsorted engine
      at sort cadences 8 and 16 (N = 1024 x 512).
 
@@ -145,25 +158,28 @@ def card_line() -> str:
 # ----------------------------------------------------------------------
 
 def kernel_inputs(n: int, c: int, device, seed: int = 11, sweeps: int = 2,
-                  sort: bool = False, walls: int = 0):
-    """Planes of an FCC-started ensemble, advanced one sweep on the dense
-    engine so the chains differ, plus the per-sweep draws of `sweeps`.
-    walls = K > 0: per-chain wall tables of K realizations, each on a
-    contiguous block of c / K chains (the energies under their own walls);
-    the returned w is then the [c, M*M, 2] table."""
+                  sort: bool = False, walls: int = 0, cfg=None):
+    """Planes of an FCC-started ensemble (default box, or `cfg`), advanced
+    one sweep on the dense engine (the zsorted one where the resident
+    kernel does not fit) so the chains differ, plus the per-sweep draws
+    of `sweeps`. walls = K > 0: per-chain wall tables of K realizations,
+    each on a contiguous block of c / K chains (the energies under their
+    own walls); the returned w is then the [c, M*M, 2] table."""
     from tpu_smc_torch import ensemble as en
     from tpu_smc_torch.config import SMCConfig
     from tpu_smc_torch.kernels import sweep as ks
     from tpu_smc_torch.state import init_ensemble_state, seed_words
     from tpu_smc_torch.system import build_wall_ensemble
 
-    cfg = SMCConfig.for_n(n)
+    cfg = SMCConfig.for_n(n) if cfg is None else cfg
     w_np = (np.repeat(build_wall_ensemble(cfg, walls)[0], c // walls, axis=0)
             if walls else None)
     state, w = init_ensemble_state(cfg, seed_words(seed), c, w=w_np,
                                    device=device)
-    state, _ = en.ensemble_sweeps_dense(state, w, cfg, cfg.proposal_a, 1,
-                                        seed=seed)
+    engine = (en.ensemble_sweeps_dense
+              if ks.resident_fits(ks.padded_rows(n), device)
+              else en.ensemble_sweeps_zsorted)
+    state, _ = engine(state, w, cfg, cfg.proposal_a, 1, seed=seed)
     words, offsets = en._per_sweep_randomness(state, cfg, seed + 1, sweeps)
     x, y, z, e, wa, wb = en._kernel_inputs(state, w, cfg)
     if sort:
@@ -182,24 +198,28 @@ def ladder_rows(cfg, c: int, device, a_scale: float = 1.0):
     return a_scale * cfg.gamma * t, t
 
 
-def compare(cfg, w, args, ks, zskip: bool, label: str, a=None, t=None):
+def compare(cfg, w, args, ks, zskip: bool, label: str, a=None, t=None,
+            stream: bool = False):
     """Kernel vs plain (exact Philox) on the same inputs, with mobility
     and temperature a / t (default the config's; scalars or per-chain
-    rows). Returns the kernel's outputs, the largest position error over
-    chains whose trajectories agree, the plain version's wall ms
-    (diagnostics included) and the kernel's visited pair rows [C]."""
+    rows); stream: the streamed kernel and its plain version. Returns
+    the kernel's outputs, the largest position error over chains whose
+    trajectories agree, the plain version's wall ms (diagnostics
+    included) and the kernel's visited pair rows [C]."""
     from tpu_smc_torch.potentials import total_energy
 
     sweeps = args[-1].shape[0]
     a = cfg.proposal_a if a is None else a
+    if stream:
+        kernel, plain, kw = ks.sweep_block_stream, ks.sweep_block_stream_plain, {}
+    else:
+        kernel, plain, kw = ks.sweep_block, ks.sweep_block_plain, {"zskip": zskip}
     dk = {"uniforms": True}
-    outk = ks.sweep_block(*args, cfg, sweeps, a, zskip=zskip, diag=dk,
-                          temperature=t)
+    outk = kernel(*args, cfg, sweeps, a, diag=dk, temperature=t, **kw)
     dp = {"uniforms": True, "tie_margin": TIE_MARGIN}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outp = ks.sweep_block_plain(*args, cfg, sweeps, a, zskip=zskip, diag=dp,
-                                temperature=t)
+    outp = plain(*args, cfg, sweeps, a, diag=dp, temperature=t, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     uk, up = dk["uniforms"], dp["uniforms"]
@@ -314,6 +334,43 @@ def phase_ladder_modes(device):
               "runs (all bitwise)", flush=True)
 
 
+def phase_stream(device):
+    """The streamed kernel K3 against the resident z-skip kernel K2 on the
+    same sorted rows, every output and the visited rows bitwise: at
+    N = 4096 and 16384 x 128 chains, and at N = 4096 x 128 with per-chain
+    (2A, T) of 8 levels and 4 wall realizations; then K3 against its
+    plain version at N = 1024 x 64 as in phase 2. Returns that
+    comparison's maximum |dx| and plain ms."""
+    cases = ((4096, 128, 0, False), (16384, 128, 0, False),
+             (4096, 128, 4, True))
+    for n, c, walls, at in cases:
+        cfg, w, args, ks = kernel_inputs(n, c, device, sort=True, walls=walls)
+        a, t = (ladder_rows(cfg, c, device, a_scale=2.0) if at
+                else (cfg.proposal_a, None))
+        dr, ds = {}, {}
+        resident = ks.sweep_block(*args, cfg, 2, a, zskip=True, diag=dr,
+                                  temperature=t)
+        stream = ks.sweep_block_stream(*args, cfg, 2, a, diag=ds,
+                                       temperature=t)
+        torch.cuda.synchronize()
+        label = (f"K3 vs K2 N={n} C={c}"
+                 + (" per-chain (2A, T) + 4 walls" if at else ""))
+        check(bitwise(resident, stream) and torch.equal(dr["visited"],
+                                                        ds["visited"]),
+              f"{label}: not bitwise equal")
+        acc = float(stream[5].double().mean()) / (2 * n)
+        check(acc > 0, f"{label}: no move accepted")
+        print(f"  {label}: bitwise equal (positions, energies, traces, "
+              f"visited rows {float(ds['visited'].double().mean()) / (2 * 2 * n):.0f}"
+              f" per pass), acceptance {acc:.4f}", flush=True)
+    cfg, w, args, ks = kernel_inputs(1024, 64, device, sort=True)
+    cmp = compare(cfg, w, args, ks, True, "K3 vs plain N=1024 C=64",
+                  stream=True)
+    print(f"  K3's plain version N=1024 C=64, 2 sweeps: {cmp['plain_ms']:.1f}"
+          " ms", flush=True)
+    return cmp["max_err"], cmp["plain_ms"]
+
+
 # ----------------------------------------------------------------------
 # Phase 3: the main path through the CLI
 # ----------------------------------------------------------------------
@@ -337,20 +394,48 @@ class Tee(io.TextIOBase):
         self.out.flush()
 
 
-def run_main(argv):
-    """cli.main(argv) with the launch counts set to 0 just before it and
-    read just after, the kernel's plain version made to fail if called,
-    and simulate_ensemble timed when the run calls it. Returns (standard
-    output, launch counts, wall s, simulate_ensemble times)."""
-    from tpu_smc_torch import cli
-    from tpu_smc_torch import driver_ensemble as de
+@contextlib.contextmanager
+def patched(module, **fns):
+    """Module attributes replaced for the duration of the block."""
+    saved = {k: getattr(module, k) for k in fns}
+    for k, v in fns.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
+@contextlib.contextmanager
+def main_path():
+    """A main-path run: the launch counts set to 0 just before it and
+    copied into the yielded dict just after, the kernels' plain versions
+    made to fail if called."""
     from tpu_smc_torch.kernels import sweep as ks
 
-    plain, simulate = ks.sweep_block_plain, de.simulate_ensemble
-    sim = {}
-
     def refuse(*args, **kw):
-        raise Failure("the plain version ran on the main path")
+        raise Failure("a plain version ran on the main path")
+
+    for k in ks.sweep_block.launches:
+        ks.sweep_block.launches[k] = 0
+    counts = {}
+    with patched(ks, sweep_block_plain=refuse,
+                 sweep_block_stream_plain=refuse):
+        yield counts
+        torch.cuda.synchronize()
+    counts.update(ks.sweep_block.launches)
+
+
+def run_main(argv):
+    """cli.main(argv) as a main-path run, simulate_ensemble timed when
+    the run calls it. Returns (standard output, launch counts, wall s,
+    simulate_ensemble times)."""
+    from tpu_smc_torch import cli
+    from tpu_smc_torch import driver_ensemble as de
+
+    simulate = de.simulate_ensemble
+    sim = {}
 
     def timed_simulate(*args, **kw):
         sim["t0"] = time.perf_counter()
@@ -361,21 +446,27 @@ def run_main(argv):
         return out
 
     tee = Tee(sys.stdout)
-    for k in ks.sweep_block.launches:
-        ks.sweep_block.launches[k] = 0
-    ks.sweep_block_plain, de.simulate_ensemble = refuse, timed_simulate
     t0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stdout(tee):
-            rc = cli.main(argv)
-        torch.cuda.synchronize()
-    finally:
-        ks.sweep_block_plain, de.simulate_ensemble = plain, simulate
+    with main_path() as launches, \
+            patched(de, simulate_ensemble=timed_simulate), \
+            contextlib.redirect_stdout(tee):
+        rc = cli.main(argv)
     dt = time.perf_counter() - t0
-    launches = dict(ks.sweep_block.launches)
     check(rc == 0, f"cli.main{argv} returned {rc}")
     sim["start"] = t0
     return tee.buf.getvalue(), launches, dt, sim
+
+
+def print_split(n: int, mx: int, chains: int, dt: float, sim: dict):
+    """Where a CLI run's wall time went, around simulate_ensemble."""
+    loop = mx * chains / sim["sps"]
+    print(f"  N={n} wall time: {sim['t0'] - sim['start']:.3f} s before "
+          f"simulate_ensemble (walls, state), "
+          f"{sim['t1'] - sim['t0'] - loop:.3f} s in it outside the gather "
+          f"loop (thermalization, post-processing), {loop:.3f} s gather "
+          f"loop (incl. per-window positions CSV), "
+          f"{sim['start'] + dt - sim['t1']:.3f} s after it (per-chain CSVs)",
+          flush=True)
 
 
 def summary_value(out: str, label: str) -> str:
@@ -418,18 +509,11 @@ def drive_cli(n: int, chains: int, eq: int, mx: int, num: int, card: str,
           f"N={n}: mean energy {mean_e}, acceptance {acc}; recorded "
           f"{expect[0]}, {expect[1]}")
     rate = (eq + mx) * chains / dt
-    loop = mx * chains / sim["sps"]
     print(f"  N={n} x {chains} chains: {dt:.1f} s, mean E {mean_e}, "
           f"acceptance {acc} (bitwise the recorded run), {rate:,.0f} "
           f"chain-sweeps/s end to end incl. observables and CSVs ({card})",
           flush=True)
-    print(f"  N={n} wall time: {sim['t0'] - sim['start']:.3f} s before "
-          f"simulate_ensemble (walls, state), "
-          f"{sim['t1'] - sim['t0'] - loop:.3f} s in it outside the gather "
-          f"loop (thermalization, post-processing), {loop:.3f} s gather "
-          f"loop (incl. per-window positions CSV), "
-          f"{sim['start'] + dt - sim['t1']:.3f} s after it (per-chain CSVs)",
-          flush=True)
+    print_split(n, mx, chains, dt, sim)
     return launches
 
 
@@ -553,6 +637,156 @@ def drive_disorder_ensemble(n: int, chains: int, k: int, card: str):
     return launches, dt
 
 
+# tpu_smc's large-N run (scripts/validate_stream.py:105-115, its record
+# docs/EVIDENCE_STREAM.json "n32768_rho_matched", a TPU v5 lite chip):
+# the x/y box scaled to the N = 1024 density, 16 + 32 sweeps at cadence 8
+TPU_LARGE_N = {"e_per_n": -0.0625, "acceptance": 0.8474,
+               "tracked_vs_exact_rel": 3.439566398911803e-05}
+LARGE_N_DRIFT = 1e-4   # carried vs exact energy, relative, at every resync
+
+
+def large_n_config():
+    from tpu_smc_torch.config import SMCConfig
+
+    n = 32768
+    return SMCConfig(n=n, box_l=math.sqrt(n / (5.7e-3 * 240.0)),
+                     box_lz=240.0, dtype="float32", lca_time=3)
+
+
+def drive_large_n(device, card: str):
+    """simulate_ensemble at tpu_smc's large-N width: the density-matched
+    N = 32768 box x 128 chains, 16 warm-up + 48 production sweeps at
+    sort cadence 8 (3 gathers of 16, CNA at the third), as a main-path
+    run. Gates: every per-gather value finite, carried vs exact energy
+    within LARGE_N_DRIFT at every resync, the streamed kernel launched
+    (and no other), CNA run. Prints E/N and acceptance beside tpu_smc's,
+    peak device memory, and where the wall time went, the gather loop's
+    observables split out. Returns (launch counts, the split)."""
+    from tpu_smc_torch import driver_ensemble as de
+    from tpu_smc_torch.config import RunParams
+    from tpu_smc_torch.driver import ObservableOptions
+    from tpu_smc_torch.state import init_ensemble_state, seed_words
+
+    cfg, c = large_n_config(), 128
+    params = RunParams(16, 48, 3)
+    spent = {k: 0.0 for k in ("sweeps", "recompute", "pressure", "voxels",
+                              "cna")}
+    loop_spent = dict(spent)
+    calls = {"cna": 0}
+    drift = []
+    in_loop = [False]
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            spent[name] += dt
+            if in_loop[0]:
+                loop_spent[name] += dt
+            calls[name] = calls.get(name, 0) + 1
+            return out
+        return run
+
+    def resync(state, w, cfg_):
+        new = recompute(state, w, cfg_)
+        exact = new.energy.double()
+        rel = (state.energy.double() - exact).abs() / exact.abs().clamp(min=1.0)
+        drift.append(float(rel.max()))
+        return new
+
+    def gather(*args, **kw):
+        in_loop[0] = True
+        try:
+            return gather_step(*args, **kw)
+        finally:
+            in_loop[0] = False
+
+    recompute, gather_step = de.recompute_energy, de._gather_step_batched
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, w = init_ensemble_state(cfg, seed_words(1), c, device=device)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    with main_path() as launches, patched(
+            de, _advance=timed("sweeps", de._advance),
+            recompute_energy=timed("recompute", resync),
+            wall_obs_chains=timed("pressure", de.wall_obs_chains),
+            density_mobility_update=timed("voxels",
+                                          de.density_mobility_update),
+            cluster_histograms_chains=timed("cna",
+                                            de.cluster_histograms_chains),
+            _gather_step_batched=gather):
+        t1 = time.perf_counter()
+        state, agg = de.simulate_ensemble(
+            cfg, params, state, w,
+            ObservableOptions(sampler="zsorted", stream_seed=3))
+    t_sim = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loop = params.maxsteps * c / agg.sweeps_per_second
+    finite = all(np.isfinite(r.pressure_trace).all()
+                 and np.isfinite(r.energy_trace_full).all()
+                 for r in agg.chains) and bool(torch.isfinite(state.r).all())
+    check(finite, "large N: a per-gather value is not finite")
+    check(launches["stream"] > 0 and launches["zskip"] == launches["dense"]
+          == 0, f"large N: launches {launches}: the streamed kernel only")
+    check(calls["cna"] >= 1, "large N: CNA did not run")
+    check(max(drift) <= LARGE_N_DRIFT,
+          f"large N: carried vs exact energy {max(drift):.3g} relative")
+    e_n = float(state.energy.double().mean()) / cfg.n
+    obs = sum(v for k, v in loop_spent.items() if k != "sweeps")
+    print(f"  N=32768 x {c} density-matched box (L = {cfg.box_l:.3f}, "
+          f"Lz = 240): {t_init + t_sim:.1f} s; E/N {e_n:.4f} (tpu_smc "
+          f"{TPU_LARGE_N['e_per_n']}), acceptance {agg.acceptance_ratio:.4f} "
+          f"(tpu_smc {TPU_LARGE_N['acceptance']}; its run: 16 + 32 sweeps on "
+          f"a TPU v5 lite chip), carried vs exact energy max "
+          f"{max(drift):.3g} relative over {len(drift)} resyncs (tpu_smc "
+          f"{TPU_LARGE_N['tracked_vs_exact_rel']:.3g}), launches {launches}, "
+          f"peak device memory {peak:.2f} GiB ({card})", flush=True)
+    print(f"  N=32768 wall time: {t_init:.3f} s state init (energy of the "
+          f"lattice), {t_sim - loop:.3f} s thermalization + post-processing, "
+          f"{loop:.3f} s gather loop = {loop_spent['sweeps']:.3f} s sweeps + "
+          f"{obs:.3f} s observables (recompute {loop_spent['recompute']:.3f}, "
+          f"pressure {loop_spent['pressure']:.3f}, voxels "
+          f"{loop_spent['voxels']:.3f}, CNA {loop_spent['cna']:.3f} s for "
+          f"{calls['cna']} pass); {params.maxsteps * c / loop:.2f} chain-"
+          f"sweeps/s over the loop, {params.maxsteps * c / loop_spent['sweeps']:.2f}"
+          f" over its sweeps; thermalization sweeps "
+          f"{spent['sweeps'] - loop_spent['sweeps']:.3f} s ({card})",
+          flush=True)
+    return launches
+
+
+def drive_cli_large(card: str):
+    """`python -m tpu_smc_torch 8 16 2 1.1 --n 32768 --chains 128 --seed 5
+    --lca-time 1` in the reference's default 33 x 33 x 240 box (dense:
+    tpu_smc measured acceptance 0 there, so acceptance is not gated): the
+    9-file set, finite pooled means, the streamed engine line, streamed
+    launches only."""
+    from tpu_smc_torch.config import SMCConfig
+
+    n, c = 32768, 128
+    with tempfile.TemporaryDirectory() as tmp:
+        out, launches, dt, sim = run_main(
+            ["8", "16", "2", "1.1", "--n", str(n), "--chains", str(c),
+             "--seed", "5", "--lca-time", "1", "--data-dir", tmp])
+        cfg = SMCConfig.for_n(n)
+        check_ensemble_files(Path(tmp) / cfg.run_name(), cfg, c, 2)
+    check("Ensemble sweep engine: zsorted (streamed)" in out,
+          "N=32768 CLI: no streamed engine line")
+    check(launches["stream"] > 0 and launches["zskip"] == launches["dense"]
+          == 0, f"N=32768 CLI launches {launches}")
+    mean_e = float(summary_value(out, "Mean energy:"))
+    check(math.isfinite(mean_e), f"N=32768 CLI mean energy {mean_e}")
+    print(f"  CLI N={n} x {c} (default box): {dt:.1f} s, mean E {mean_e}, "
+          f"acceptance {summary_value(out, 'Average acceptance ratio:')}, "
+          f"launches {launches} ({card})", flush=True)
+    print_split(n, 16, c, dt, sim)
+    return launches
+
+
 # ----------------------------------------------------------------------
 # Phase 4: timing
 # ----------------------------------------------------------------------
@@ -606,6 +840,50 @@ def kernel_case(n: int, c: int, zskip: bool, device, sweeps: int = 2,
                         bound_ms=max(t_bytes, t_ops),
                         bound_by=("bytes" if t_bytes > t_ops
                                   else "operations"))
+
+
+def stream_case(device, card: str):
+    """K3 at the large-N main path's shape (the density-matched N = 32768
+    box x 128 chains): the bound of a 2-sweep call from its visited rows
+    and its ms per 2-sweep call; and K3 against K2 in turns at N = 16384
+    x 128, where both fit. (Its plain version takes ~5 minutes for one
+    sweep at this shape, so phase 2 holds K3 against it at N = 1024 x 64
+    and bitwise against K2 up to N = 16384 x 128.) Returns the
+    kernels-line fields it measures."""
+    cfg = large_n_config()
+    c, sweeps = 128, 2
+    cfg, _, args, ks = kernel_inputs(cfg.n, c, device, sweeps=sweeps,
+                                     sort=True, cfg=cfg)
+    dk = {}
+    ks.sweep_block_stream(*args, cfg, sweeps, cfg.proposal_a, diag=dk)
+    visited = float(dk["visited"].double().sum())
+    n_pad = args[0].shape[0]
+    wall_floats = args[4].numel() + args[5].numel()
+    nbytes = 4 * (2 * (3 * n_pad * c + c) + wall_floats + 4 * c
+                  + 3 * sweeps + 2 * sweeps * c)
+    flops = FLOPS_PER_ROW * visited + FLOPS_PER_MOVE * sweeps * cfg.n * c
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    streamed = 12 * visited / PEAK_BYTES * 1e3
+    ms = cuda_ms(lambda: ks.sweep_block_stream(*args, cfg, sweeps,
+                                               cfg.proposal_a), reps=3)
+    print(f"  sweep_stream N={cfg.n} x {c}, {sweeps} sweeps: kernel {ms:.3f} "
+          f"ms ({sweeps * c / ms * 1e3:.1f} chain-sweeps/s), bound "
+          f"{max(t_bytes, t_ops):.4f} ms ({'bytes' if t_bytes > t_ops else 'operations'}; "
+          f"inputs read once), its envelope rows streamed at the HBM rate "
+          f"{streamed:.3f} ms, visited rows per pass "
+          f"{visited / (2 * sweeps * cfg.n * c):.0f} ({card})", flush=True)
+    cfg2, _, args2, _ = kernel_inputs(16384, c, device, sweeps=1, sort=True)
+    turns = interleaved_ms({
+        "K2": lambda: ks.sweep_block(*args2, cfg2, 1, cfg2.proposal_a,
+                                     zskip=True),
+        "K3": lambda: ks.sweep_block_stream(*args2, cfg2, 1,
+                                            cfg2.proposal_a)},
+        rounds=3, reps=2)
+    print(f"  N=16384 x {c}, 1 sweep, in turns: K2 (resident z-skip) "
+          f"{turns['K2']:.3f} ms, K3 (streamed) {turns['K3']:.3f} ms "
+          f"({turns['K3'] / turns['K2'] - 1:+.1%}) ({card})", flush=True)
+    return dict(ms=ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes > t_ops else "operations")
 
 
 def interleaved_ms(launches: dict, rounds: int = 3, reps: int = 10) -> dict:
@@ -681,10 +959,15 @@ def main() -> int:
     phase_line("kernel vs plain, ladder modes", t0)
 
     t0 = time.perf_counter()
+    stream_err, stream_plain_ms = phase_stream(device)
+    phase_line("streamed kernel vs resident and plain", t0)
+
+    t0 = time.perf_counter()
     launches = {}
     launches["zskip"] = drive_cli(1024, 512, 64, 192, 3, card,
                                   ("1590.673720", "0.789075"))
-    check(launches["zskip"]["zskip"] > 0 and launches["zskip"]["dense"] == 0,
+    check(launches["zskip"]["zskip"] > 0 and launches["zskip"]["dense"]
+          == launches["zskip"]["stream"] == 0,
           f"N=1024 main path launches {launches['zskip']}")
     launches["dense"] = drive_cli(108, 512, 200, 600, 6, card,
                                   ("176.874728", "0.979679"))
@@ -732,6 +1015,11 @@ def main() -> int:
     phase_line("main path, ladders and disorder", t0)
 
     t0 = time.perf_counter()
+    large = drive_large_n(device, card)
+    large_cli = drive_cli_large(card)
+    phase_line("main path, large N (streamed)", t0)
+
+    t0 = time.perf_counter()
     cases = (
         ("sweep_dense", 108, False, {}, "tpu_smc/kernels/sweep_pallas.py:992",
          launches["dense"]["dense"]),
@@ -753,7 +1041,14 @@ def main() -> int:
     runs["sweep_zskip_per_chain_at"], zat = kernel_case(
         1024, 512, True, device, at=True, plain=False)
     ms = interleaved_ms(runs)
-    for row, (_, n, *_) in zip(rows, cases):
+    rows.append({"name": "sweep_stream", "route": "cuda",
+                 "source": "tpu_smc_torch/kernels/csrc/sweep.cu",
+                 "replaces": "tpu_smc/kernels/sweep_pallas.py:1153",
+                 "launches": large["stream"] + large_cli["stream"],
+                 # against its plain version at N = 1024 x 64 (phase 2)
+                 "max_abs_err": stream_err, "plain_ms": stream_plain_ms,
+                 **stream_case(device, card), "library_ms": None})
+    for row, (_, n, *_) in zip(rows[:len(cases)], cases):
         row["ms"] = ms[row["name"]]
         print(f"  {row['name']} N={n} x 512, 2 sweeps: kernel "
               f"{row['ms']:.3f} ms, plain {row['plain_ms']:.1f} ms, bound "

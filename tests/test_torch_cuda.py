@@ -1,5 +1,7 @@
-"""The CUDA whole-sweep kernel on the card: against its plain version with
-identical Philox draws, z-skip on/off bitwise, and the wrapper's checks.
+"""The CUDA whole-sweep kernels on the card: against their plain version
+with identical Philox draws, z-skip on/off bitwise, the streamed kernel
+(K3) bitwise the resident one, the capacity routing, and the wrapper's
+checks.
 
 Needs an NVIDIA GPU and nvcc (the kernel has no CPU mode); skips
 elsewhere. Imports no JAX, so it runs on a machine without it:
@@ -140,3 +142,54 @@ def test_per_chain_walls_vs_split_runs(cuda):
                             cfg.proposal_a)
     for u, v in zip(out, shared):
         assert torch.equal(u, v)
+
+
+def test_stream_kernel_bitwise_resident(cuda):
+    """K3 against the resident z-skip kernel on the same sorted rows at
+    N = 4096 x 128: every output bitwise, both visiting the same rows."""
+    cfg, args = _inputs(4096, 128, cuda, True)
+    before = dict(ks.sweep_block.launches)
+    dr, ds = {}, {}
+    resident = ks.sweep_block(*args, cfg, 2, cfg.proposal_a, zskip=True,
+                              diag=dr)
+    stream = ks.sweep_block_stream(*args, cfg, 2, cfg.proposal_a, diag=ds)
+    torch.cuda.synchronize()
+    for u, v in zip(resident, stream):
+        assert torch.equal(u, v)
+    assert torch.equal(dr["visited"], ds["visited"])
+    assert ks.sweep_block.launches["stream"] == before["stream"] + 1
+    assert int(stream[5].sum()) > 0
+
+
+def test_stream_engine_vs_resident_engine(cuda):
+    """ensemble_sweeps_zsorted forced onto the streamed kernel equals its
+    resident route bitwise (sort chunks, a remainder chunk, identity
+    carry) at N = 4096 x 128."""
+    cfg = SMCConfig.for_n(4096)
+    state, w = init_ensemble_state(cfg, seed_words(3), 128, device=cuda)
+    kw = dict(seed=4, sweeps_per_sort=2)
+    res, tr1 = ten.ensemble_sweeps_zsorted(state, w, cfg, cfg.proposal_a, 3,
+                                           hbm_stream=False, **kw)
+    st, tr2 = ten.ensemble_sweeps_zsorted(state, w, cfg, cfg.proposal_a, 3,
+                                          hbm_stream=True, **kw)
+    for u, v in ((res.r, st.r), (res.energy, st.energy),
+                 (tr1.energy, tr2.energy), (tr1.accepted, tr2.accepted)):
+        assert torch.equal(u, v)
+
+
+def test_resident_refuses_beyond_capacity(cuda):
+    """The resident kernel's capacity is read from the device; beyond it
+    sweep_block raises and names the streamed kernel, and the zsorted
+    engine routes there by itself."""
+    res_rows, stream_rows = ks.capacity(cuda)
+    assert 16384 <= res_rows < 32768 < stream_rows
+    assert ks.resident_fits(16384, cuda) and not ks.resident_fits(32768, cuda)
+    cfg = SMCConfig.for_n(32768)
+    state, w = init_ensemble_state(cfg, seed_words(1), 2, device=cuda)
+    x, y, z, e, wa, wb = ten._kernel_inputs(state, w, cfg)
+    words, offsets = ten._per_sweep_randomness(state, cfg, 1, 1)
+    with pytest.raises(ValueError, match="streamed"):
+        ks.sweep_block(x, y, z, e, wa, wb, offsets, words, cfg, 1,
+                       cfg.proposal_a, zskip=True)
+    with pytest.raises(ValueError, match="streamed"):
+        ten.ensemble_sweeps_dense(state, w, cfg, cfg.proposal_a, 1, seed=1)

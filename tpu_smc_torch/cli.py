@@ -122,11 +122,31 @@ def _resolve_sampler(requested: str, cfg, device: str) -> str:
     if requested in ("dense", "zsorted") and cfg.dtype != "float32":
         raise SystemExit(f"--sampler {requested} runs float32; use "
                          "--sampler torch for --dtype float64")
+    if requested == "dense" and device == "cuda" and not _resident(cfg):
+        raise SystemExit(f"--sampler dense: N = {cfg.n} exceeds the resident "
+                         "kernel's shared-memory capacity on this card; use "
+                         "--sampler zsorted (the streamed kernel)")
     if requested != "auto":
         return requested
     if device != "cuda" or cfg.dtype != "float32" or cfg.reference_noise:
         return "torch"
     return "zsorted" if cfg.n >= 1024 and not cfg.pbc_z else "dense"
+
+
+def _resident(cfg) -> bool:
+    """Whether the resident kernel takes this N on the CUDA device."""
+    from .kernels import sweep as ks
+
+    return ks.resident_fits(ks.padded_rows(cfg.n))
+
+
+def _engine_label(sampler: str, cfg, device: str) -> str:
+    """The engine as printed: zsorted beyond the resident kernel's
+    capacity runs the streamed kernel (ensemble_sweeps_zsorted's auto
+    routing)."""
+    if sampler == "zsorted" and device == "cuda" and not _resident(cfg):
+        return "zsorted (streamed)"
+    return sampler
 
 
 def main(argv=None) -> int:
@@ -259,7 +279,7 @@ def _run_ensemble(args, cfg, params, d, seed_state, w, sampler: str,
             pos_writers[ci].append(r[ci])
         print(f"\rWindow {widx + 1} done...", end="", flush=True)
 
-    print(f"Ensemble sweep engine: {sampler}")
+    print(f"Ensemble sweep engine: {_engine_label(sampler, cfg, args.device)}")
     opts = ObservableOptions(collect_sweep_trace=not args.no_trace,
                              sampler=sampler, stream_seed=seed)
     if args.target_acceptance:

@@ -8,7 +8,9 @@ Three engines advance every chain of a ChainState by n sweeps:
     (kernels/sweep.py), one launch per call;
   * `ensemble_sweeps_zsorted` — the same kernel with exact z-block
     skipping over rows z-sorted per chain every `zsort_cadence(n)` sweeps,
-    particle identity carried through the sorts.
+    particle identity carried through the sorts; beyond the resident
+    kernel's shared-memory capacity it runs the streamed kernel (K3),
+    bitwise the same on the same rows.
 
 All three draw from the same counter-based stream: per-sweep seed words
 and cyclic offsets folded from a base key and the ABSOLUTE sweep counter
@@ -126,7 +128,9 @@ def ensemble_sweeps_dense(state: ChainState, w: torch.Tensor,
                           seed=None, a_per_chain=None, t_per_chain=None):
     """n_sweeps sweeps of every chain in ONE launch of the whole-sweep
     kernel (counterpart of ensemble_sweeps_pallas). The state stays in
-    real units, so the result does not depend on call boundaries."""
+    real units, so the result does not depend on call boundaries. On a
+    CUDA device beyond the resident kernel's capacity it raises, naming
+    the streamed engine (ensemble_sweeps_zsorted)."""
     a, t = _chain_at(a, cfg, a_per_chain, t_per_chain)
     words, offsets = _per_sweep_randomness(state, cfg, seed, n_sweeps)
     x, y, z, e, wa, wb = _kernel_inputs(state, w, cfg)
@@ -148,7 +152,8 @@ def zsort_cadence(n: int) -> int:
 def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
                             cfg: SMCConfig, a: float, n_sweeps: int,
                             seed=None, sweeps_per_sort: int | None = None,
-                            a_per_chain=None, t_per_chain=None):
+                            a_per_chain=None, t_per_chain=None,
+                            hbm_stream: bool | None = None):
     """n_sweeps sweeps through the kernel with exact z-block skipping.
 
     Every `sweeps_per_sort` sweeps (plus one shorter chunk for a
@@ -156,7 +161,13 @@ def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
     runs one launch over the sorted planes. idx[j, c] = particle id of
     row j of chain c rides through the sorts, and positions are scattered
     back to particle order at the end, so density/mobility bookkeeping
-    and the positions CSV keep particle identity."""
+    and the positions CSV keep particle identity.
+
+    hbm_stream: run the streamed kernel (planes in device memory) instead
+    of the resident one; None = exactly when the resident kernel does
+    not fit (`kernels.sweep.resident_fits`). The two are bitwise equal on
+    the same rows, so the switch changes capacity and speed, not
+    results."""
     if n_sweeps < 1:
         raise ValueError("n_sweeps must be >= 1")
     a, t = _chain_at(a, cfg, a_per_chain, t_per_chain)
@@ -164,6 +175,8 @@ def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
     sps = max(1, int(sweeps_per_sort or zsort_cadence(n)))
     words, offsets = _per_sweep_randomness(state, cfg, seed, n_sweeps)
     x, y, z, e, wa, wb = _kernel_inputs(state, w, cfg)
+    if hbm_stream is None:
+        hbm_stream = not ks.resident_fits(x.shape[0], x.device)
     idx = torch.arange(n, device=x.device)[:, None].expand(n, c)
     e_pieces, a_pieces = [], []
     k0 = 0
@@ -173,10 +186,11 @@ def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
         x, y, z = (torch.cat([torch.take_along_dim(p[:n], perm, dim=0),
                               p[n:]]) for p in (x, y, z))
         idx = torch.take_along_dim(idx, perm, dim=0)
-        x, y, z, e, e_tr, a_tr = ks.sweep_block(
-            x, y, z, e, wa, wb, offsets[k0:k0 + length],
-            words[k0:k0 + length], cfg, length, a, zskip=True,
-            temperature=t)
+        args = (x, y, z, e, wa, wb, offsets[k0:k0 + length],
+                words[k0:k0 + length], cfg, length, a)
+        x, y, z, e, e_tr, a_tr = (
+            ks.sweep_block_stream(*args, temperature=t) if hbm_stream
+            else ks.sweep_block(*args, zskip=True, temperature=t))
         e_pieces.append(e_tr)
         a_pieces.append(a_tr)
         k0 += length

@@ -1,11 +1,15 @@
-"""Whole-sweep Smart-MC kernel (CUDA, csrc/sweep.cu): build, binding, its
-plain PyTorch version, and the plane adapters.
+"""Whole-sweep Smart-MC kernels (CUDA, csrc/sweep.cu): build, binding,
+their plain PyTorch versions, the plane adapters and the capacity query.
 
 Counterpart of tpu_smc/kernels/sweep_pallas.py `pallas_sweep_block` in its
 dense and zskip modes, with per-chain (A, T) (`per_chain_at`) and per-chain
-wall coefficients (`per_chain_w`). `sweep_block` launches the CUDA kernel
-for CUDA tensors and runs `sweep_block_plain` for CPU tensors; nothing else
-selects between them.
+wall coefficients (`per_chain_w`), and of its hbm_stream mode
+(`_pallas_sweep_block_stream`). `sweep_block` launches the resident kernel
+(planes in shared memory, N_pad up to `capacity(device)[0]`) and
+`sweep_block_stream` the streamed kernel K3 (planes in device memory,
+chain-major for the call) for CUDA tensors; for CPU tensors they run
+`sweep_block_plain` and `sweep_block_stream_plain`. Nothing else selects
+between kernel and plain version.
 
 The kernel is built at first use with plain `nvcc` into a shared library
 with a C interface (tpu_smc_torch/_build/, keyed by the source's hash) and
@@ -44,6 +48,11 @@ _MASK32 = 0xFFFFFFFF
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def padded_rows(n: int) -> int:
+    """N_pad: the planes' rows for n particles (a multiple of 8)."""
+    return _round_up(n, 8)
 
 
 # ----------------------------------------------------------------------
@@ -120,7 +129,7 @@ def box_muller(u: torch.Tensor, s2a):
 def to_planes(r: torch.Tensor, cfg: SMCConfig):
     """[C, N, 3] -> three [N_pad, C] float32 planes, pad rows at 1e15."""
     c, n, _ = r.shape
-    n_pad = _round_up(n, 8)
+    n_pad = padded_rows(n)
     planes = r.permute(2, 1, 0).to(torch.float32)
     pad = torch.full((3, n_pad - n, c), PARK, dtype=torch.float32,
                      device=r.device)
@@ -166,9 +175,24 @@ def chain_scales(a, t, c: int, device, dtype=torch.float32) -> torch.Tensor:
     return rows.to(dtype).contiguous()
 
 
+def _lane_sums(t: torch.Tensor) -> torch.Tensor:
+    """[K, R, C] terms of R rows starting at a block boundary -> [K, C]:
+    each lane (row mod 128) summed in ascending block order, then the
+    lanes, as the kernel's threads add their rows. Blocks of exact zeros
+    before, between or after the others change no sum, so a pass over
+    the block envelope alone equals a masked pass over every row."""
+    k, r, c = t.shape
+    pad = -r % ROW_BLOCK
+    if pad:
+        t = torch.cat([t, t.new_zeros((k, pad, c))], dim=1)
+    lanes = t.reshape(k, -1, ROW_BLOCK, c).cumsum(1)[:, -1]
+    return lanes.sum(1)
+
+
 def _pair_pass(qx, qy, qz, x, y, z, rows, cfg: SMCConfig):
-    """LJ energy and force sums [C] of queries [C] against planes
-    [N_pad, C]; `rows` [N_pad, C] bool restricts the rows (None = all)."""
+    """LJ energy and force sums [C] of queries [C] against rows [R, C] of
+    the planes (R from a block boundary); `rows` [R, C] bool restricts
+    them (None = all)."""
     inv_l = 1.0 / cfg.box_l
     dx = qx - x
     dx = dx - cfg.box_l * torch.round(dx * inv_l)
@@ -185,8 +209,8 @@ def _pair_pass(qx, qy, qz, x, y, z, rows, cfg: SMCConfig):
     inv12 = inv6 * inv6
     ut = inv12 - inv6
     dv = (inv12 + ut) * inv2
-    return (4.0 * ut.sum(0), 24.0 * (dv * dx).sum(0),
-            24.0 * (dv * dy).sum(0), 24.0 * (dv * dz).sum(0))
+    s = _lane_sums(torch.stack([ut, dv * dx, dv * dy, dv * dz]))
+    return 4.0 * s[0], 24.0 * s[1], 24.0 * s[2], 24.0 * s[3]
 
 
 def _wall_terms(qx, qy, qz, wa, wb, cfg: SMCConfig):
@@ -230,33 +254,50 @@ def _wall_terms(qx, qy, qz, wa, wb, cfg: SMCConfig):
     return 4.0 * us, fx, fy, fz0 + fzs * dz
 
 
-def _envelope_rows(sbmin, sbmax, lo, hi, n_pad: int):
-    """Rows [N_pad, C] inside each chain's block envelope [b_lo, b_hi)
-    over [lo, hi], and the number of such rows per chain."""
+def _envelope(sbmin, sbmax, lo, hi):
+    """Each chain's block envelope [b_lo, b_hi) over [lo, hi] ([C] each;
+    empty (nb, 0) when no block's live bounds reach it)."""
     nb = sbmin.shape[0]
     b = torch.arange(nb, device=sbmin.device)[:, None]
     need = (sbmin <= hi) & (sbmax >= lo)
-    b_lo = torch.where(need, b, nb).amin(0)
-    b_hi = torch.where(need, b + 1, 0).amax(0)
-    j = torch.arange(n_pad, device=sbmin.device)[:, None]
-    rows = (j >= b_lo * ROW_BLOCK) & (j < b_hi * ROW_BLOCK)
-    return rows, rows.sum(0)
+    return (torch.where(need, b, nb).amin(0),
+            torch.where(need, b + 1, 0).amax(0))
+
+
+def _envelope_pass(qx, qy, qz, x, y, z, i: int, b_lo, b_hi, cfg: SMCConfig):
+    """The streamed kernel's pass: only rows of the blocks [min b_lo,
+    max b_hi) are read, each chain's own envelope and the row id (not
+    parking) select its terms. Returns the four sums and the rows of its
+    own envelope [C]."""
+    n_pad = x.shape[0]
+    lo = int(b_lo.min()) * ROW_BLOCK
+    hi = min(int(b_hi.max()) * ROW_BLOCK, n_pad)
+    seen = torch.clamp(torch.minimum(b_hi * ROW_BLOCK, torch.full_like(
+        b_hi, n_pad)) - b_lo * ROW_BLOCK, min=0)
+    if hi <= lo:
+        zero = torch.zeros_like(qx)
+        return (zero, zero, zero, zero), seen
+    j = torch.arange(lo, hi, device=x.device)[:, None]
+    rows = (j >= b_lo * ROW_BLOCK) & (j < b_hi * ROW_BLOCK) & (j != i)
+    return _pair_pass(qx, qy, qz, x[lo:hi], y[lo:hi], z[lo:hi], rows,
+                      cfg), seen
 
 
 def sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
                       n_sweeps: int, a, zskip: bool = False,
                       draws=None, diag: dict | None = None,
                       temperature=None):
-    """Plain PyTorch version of the kernel: same arguments, results and
-    semantics, in the dtype of the planes (float32 for the kernel's
-    inputs; float64 for parity with tpu_smc.sampler.sweep).
+    """Plain PyTorch version of the resident kernel: same arguments,
+    results and semantics, in the dtype of the planes (float32 for the
+    kernel's inputs; float64 for parity with tpu_smc.sampler.sweep).
 
     a, temperature: scalars or per-chain [C] (None = cfg.temperature);
     wa/wb: the shared [1, MM_pad] rows or per-chain [C, MM_pad] tables.
 
     The moving row is parked at 1e15 during its move, pads sit at 1e15,
     the acceptance uses the unwrapped displacement, and zskip restricts
-    each pass to the block envelope the kernel visits.
+    each pass to the block envelope the kernel visits. Pair sums add each
+    lane's rows in ascending block order, then the lanes (`_lane_sums`).
 
     draws: None = the kernel's own Philox stream, bit for bit (exact
     mode); or injected (g [S, N, C, 3] proposal noise already scaled by
@@ -268,6 +309,26 @@ def sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
     uniforms [S, C, N, 5] in exact mode.
 
     Returns (x, y, z, e [1, C], e_trace [S, C], acc_trace [S, C] int32)."""
+    return _sweep_plain(x, y, z, e, wa, wb, offsets, seeds, cfg, n_sweeps,
+                        a, "zskip" if zskip else "dense", draws, diag,
+                        temperature)
+
+
+def sweep_block_stream_plain(x, y, z, e, wa, wb, offsets, seeds,
+                             cfg: SMCConfig, n_sweeps: int, a, draws=None,
+                             diag: dict | None = None, temperature=None):
+    """Plain PyTorch version of the streamed kernel (K3), with
+    sweep_block_plain's arguments and results (z-skip always on). Like
+    K3 it reads, per pass, only the rows of the block envelope (`_envelope_
+    pass`) and excludes the moving row by its row id instead of parking
+    it; on the same rows it is bitwise sweep_block_plain(zskip=True)."""
+    return _sweep_plain(x, y, z, e, wa, wb, offsets, seeds, cfg, n_sweeps,
+                        a, "stream", draws, diag, temperature)
+
+
+def _sweep_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
+                 n_sweeps: int, a, mode: str, draws, diag, temperature):
+    """The plain sweep loop; mode "dense", "zskip" or "stream"."""
     if cfg.reference_noise or cfg.pbc_z or not cfg.use_walls:
         raise NotImplementedError(
             "the sweep kernel implements walls + i.i.d. noise only")
@@ -285,6 +346,20 @@ def sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
     near_ties = torch.zeros((c,), dtype=torch.int64, device=dev)
     tie_margin = float(diag.get("tie_margin", 0.0)) if diag else 0.0
     dump = [] if diag is not None and diag.get("uniforms") else None
+    rows_j = torch.arange(n_pad, device=dev)[:, None]
+
+    def pass_sums(qx, qy, qz, i):
+        """Pair sums of the queries against the planes and rows visited."""
+        if mode == "stream":
+            b_lo, b_hi = _envelope(sbmin, sbmax, qz - zcut, qz + zcut)
+            return _envelope_pass(qx, qy, qz, x, y, z, i, b_lo, b_hi, cfg)
+        rows = None
+        if mode == "zskip":
+            b_lo, b_hi = _envelope(sbmin, sbmax, qz - zcut, qz + zcut)
+            rows = (rows_j >= b_lo * ROW_BLOCK) & (rows_j < b_hi * ROW_BLOCK)
+        cnt = n_pad if rows is None else rows.sum(0)
+        return _pair_pass(qx, qy, qz, x, y, z, rows, cfg), cnt
+
     for s in range(n_sweeps):
         off = int(offsets[s])
         if draws is None:
@@ -294,7 +369,7 @@ def sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
             g_all, u_all = box_muller(u5, s2a)
         else:
             g_all, u_all = draws[0][s], draws[1][s]
-        if zskip:
+        if mode != "dense":
             # exact bounds of the real rows per block at sweep start
             zp = torch.cat([z, z.new_full((nb * ROW_BLOCK - n_pad, c), PARK)])
             zp = zp.reshape(nb, ROW_BLOCK, c)
@@ -305,17 +380,12 @@ def sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
         for nn in range(n):
             i = (nn + off) % n
             xi, yi, zi = x[i].clone(), y[i].clone(), z[i].clone()
-            x[i] = PARK
-            y[i] = PARK
-            z[i] = PARK
-            rows = None
-            if zskip:
-                rows, cnt = _envelope_rows(sbmin, sbmax, zi - zcut,
-                                           zi + zcut, n_pad)
-            else:
-                cnt = n_pad
+            if mode != "stream":
+                x[i] = PARK
+                y[i] = PARK
+                z[i] = PARK
+            (um, fmx, fmy, fmz), cnt = pass_sums(xi, yi, zi, i)
             visited += cnt
-            um, fmx, fmy, fmz = _pair_pass(xi, yi, zi, x, y, z, rows, cfg)
             uw, wx, wy, wz = _wall_terms(xi, yi, zi, wa, wb, cfg)
             um, fmx, fmy, fmz = um + uw, fmx + wx, fmy + wy, fmz + wz
 
@@ -329,11 +399,8 @@ def sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
             py = py - cfg.box_l * torch.round(py * (1.0 / cfg.box_l))
             pz = zi + ddz
 
-            if zskip:
-                rows, cnt = _envelope_rows(sbmin, sbmax, pz - zcut,
-                                           pz + zcut, n_pad)
+            (un, fnx, fny, fnz), cnt = pass_sums(px, py, pz, i)
             visited += cnt
-            un, fnx, fny, fnz = _pair_pass(px, py, pz, x, y, z, rows, cfg)
             uw, wx, wy, wz = _wall_terms(px, py, pz, wa, wb, cfg)
             un, fnx, fny, fnz = un + uw, fnx + wx, fny + wy, fnz + wz
 
@@ -353,7 +420,7 @@ def sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
             x[i] = torch.where(accept, px, xi)
             y[i] = torch.where(accept, py, yi)
             z[i] = torch.where(accept, pz, zi)
-            if zskip:
+            if mode != "dense":
                 ib = i // ROW_BLOCK
                 sbmin[ib] = torch.minimum(sbmin[ib], pz)
                 sbmax[ib] = torch.maximum(sbmax[ib], pz)
@@ -375,10 +442,12 @@ def sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
 # ----------------------------------------------------------------------
 
 class _Build:
-    """The compiled kernel library, built once per process."""
+    """The compiled kernel library, built once per process, and the
+    capacities it reports per device index."""
     lib = None
     log = ""
     seconds = 0.0
+    capacity: dict = {}
 
 
 def _nvcc() -> str:
@@ -412,12 +481,50 @@ def build() -> ctypes.CDLL:
         os.replace(tmp, so)
     _Build.seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
-    fn = lib.smc_sweep_launch
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    fn.argtypes = [P] * 17 + [I] * 7 + [D] * 6 + [P]
-    fn.restype = ctypes.c_int
+    lib.smc_sweep_launch.argtypes = [P] * 17 + [I] * 7 + [D] * 6 + [P]
+    lib.smc_sweep_launch.restype = I
+    lib.smc_sweep_stream_launch.argtypes = [P] * 14 + [I] * 6 + [D] * 6 + [P]
+    lib.smc_sweep_stream_launch.restype = I
+    lib.smc_sweep_capacity.argtypes = [I] + [ctypes.POINTER(
+        ctypes.c_longlong)] * 2
+    lib.smc_sweep_capacity.restype = I
     _Build.lib = lib
     return lib
+
+
+def capacity(device) -> tuple[int, int]:
+    """(resident, streamed): the largest N_pad each kernel takes on the
+    CUDA `device`. The resident kernel holds three planes in shared
+    memory (the device's opt-in limit per block, cudaDevAttrMaxShared
+    MemoryPerBlockOptin, beside the kernel's static shared memory) and
+    at most MAX_BLOCKS = 256 blocks of 128 rows; the streamed kernel
+    holds only two floats of block bounds per 128 rows."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _Build.capacity:
+        res, stream = ctypes.c_longlong(), ctypes.c_longlong()
+        err = build().smc_sweep_capacity(idx, ctypes.byref(res),
+                                         ctypes.byref(stream))
+        if err != 0:
+            raise RuntimeError(f"smc_sweep_capacity failed: cudaError {err}")
+        _Build.capacity[idx] = (res.value, stream.value)
+    return _Build.capacity[idx]
+
+
+def resident_fits(n_pad: int, device=None) -> bool:
+    """Whether the resident kernel takes N_pad rows on `device` (default:
+    the current CUDA device). The plain versions that CPU tensors run
+    have no such limit."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    return device.type != "cuda" or n_pad <= capacity(device)[0]
+
+
+def chain_major(x, y, z):
+    """[N_pad, C] planes <-> chain-major [C, N_pad] planes (the streamed
+    kernel's layout, where a 128-row block of one chain is contiguous);
+    the adapter is its own inverse."""
+    return tuple(p.T.contiguous() for p in (x, y, z))
 
 
 def _check(t: torch.Tensor, name: str, shape, dtype, device):
@@ -429,8 +536,11 @@ def _check(t: torch.Tensor, name: str, shape, dtype, device):
             f"{'' if t.is_contiguous() else ' (not contiguous)'}")
 
 
-def _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
-                      n_sweeps: int, a, zskip: bool, diag, temperature):
+def _cuda_call(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
+               n_sweeps: int, a, diag, temperature):
+    """Checked inputs and fresh outputs of one launch of either kernel:
+    (offsets, seeds, scales, w_stride, e_out, e_trace, acc_trace,
+    visited, u_dump), the last two None unless `diag` asks."""
     if cfg.reference_noise or cfg.pbc_z or not cfg.use_walls:
         raise NotImplementedError(
             "the sweep kernel implements walls + i.i.d. noise only")
@@ -452,34 +562,27 @@ def _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
     seeds = seeds.to(device=dev, dtype=torch.int32).contiguous()
     _check(offsets, "offsets", (n_sweeps,), torch.int32, dev)
     _check(seeds, "seeds", (n_sweeps, 2), torch.int32, dev)
-    lib = build()
-    xo, yo, zo = (torch.empty_like(x) for _ in range(3))
-    eo = torch.empty_like(e)
-    e_tr = torch.empty((n_sweeps, c), dtype=f32, device=dev)
-    a_tr = torch.empty((n_sweeps, c), dtype=torch.int32, device=dev)
     visited = u_dump = None
     if diag is not None:
         visited = torch.empty((c,), dtype=torch.int64, device=dev)
     if diag is not None and diag.get("uniforms"):
         u_dump = torch.empty((n_sweeps, c, cfg.n, 5), dtype=f32, device=dev)
     t = cfg.temperature if temperature is None else temperature
-    scales = chain_scales(a, t, c, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.smc_sweep_launch(
-            x.data_ptr(), y.data_ptr(), z.data_ptr(), e.data_ptr(),
-            wa.data_ptr(), wb.data_ptr(), offsets.data_ptr(), seeds.data_ptr(),
-            scales.data_ptr(), xo.data_ptr(), yo.data_ptr(), zo.data_ptr(),
-            eo.data_ptr(), e_tr.data_ptr(), a_tr.data_ptr(),
-            visited.data_ptr() if visited is not None else None,
-            u_dump.data_ptr() if u_dump is not None else None,
-            cfg.n, n_pad, c, n_sweeps, cfg.m, int(bool(zskip)), w_stride,
-            float(cfg.box_l), float(cfg.box_lz), float(cfg.lj_cutoff),
-            float(cfg.contact_dz), float(cfg.a0), float(cfg.b0), stream)
-    if err != 0:
-        raise RuntimeError(f"smc_sweep_launch failed: cudaError {err}")
+    return (offsets, seeds, chain_scales(a, t, c, dev), w_stride,
+            torch.empty_like(e),
+            torch.empty((n_sweeps, c), dtype=f32, device=dev),
+            torch.empty((n_sweeps, c), dtype=torch.int32, device=dev),
+            visited, u_dump)
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _count(kind: str, a, temperature, w_stride: int, diag, visited, u_dump):
+    """Count a launch by kind and mode; hand the diagnostics over."""
     launches = sweep_block.launches
-    launches["zskip" if zskip else "dense"] += 1
+    launches[kind] += 1
     if torch.is_tensor(a) or torch.is_tensor(temperature):
         launches["per_chain_at"] += 1
     if w_stride:
@@ -488,21 +591,88 @@ def _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
         diag["visited"] = visited
         if u_dump is not None:
             diag["uniforms"] = u_dump
+
+
+def _geometry(cfg: SMCConfig):
+    return (float(cfg.box_l), float(cfg.box_lz), float(cfg.lj_cutoff),
+            float(cfg.contact_dz), float(cfg.a0), float(cfg.b0))
+
+
+def _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
+                      n_sweeps: int, a, zskip: bool, diag, temperature):
+    n_pad, c = x.shape
+    dev = x.device
+    (offsets, seeds, scales, w_stride, eo, e_tr, a_tr, visited,
+     u_dump) = _cuda_call(x, y, z, e, wa, wb, offsets, seeds, cfg, n_sweeps,
+                          a, diag, temperature)
+    if not resident_fits(n_pad, dev):
+        raise ValueError(
+            f"N_pad = {n_pad} rows exceed the resident sweep kernel's "
+            f"capacity on {torch.cuda.get_device_name(dev)} "
+            f"({capacity(dev)[0]} rows: three planes in shared memory, at "
+            "most 256 blocks); run the streamed kernel instead "
+            "(sweep_block_stream, or ensemble_sweeps_zsorted, which "
+            "routes there by itself)")
+    lib = build()
+    xo, yo, zo = (torch.empty_like(x) for _ in range(3))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.smc_sweep_launch(
+            x.data_ptr(), y.data_ptr(), z.data_ptr(), e.data_ptr(),
+            wa.data_ptr(), wb.data_ptr(), offsets.data_ptr(), seeds.data_ptr(),
+            scales.data_ptr(), xo.data_ptr(), yo.data_ptr(), zo.data_ptr(),
+            eo.data_ptr(), e_tr.data_ptr(), a_tr.data_ptr(), _ptr(visited),
+            _ptr(u_dump), cfg.n, n_pad, c, n_sweeps, cfg.m, int(bool(zskip)),
+            w_stride, *_geometry(cfg), stream)
+    if err != 0:
+        raise RuntimeError(f"smc_sweep_launch failed: cudaError {err}")
+    _count("zskip" if zskip else "dense", a, temperature, w_stride, diag,
+           visited, u_dump)
     return xo, yo, zo, eo, e_tr, a_tr
+
+
+def _sweep_block_stream_cuda(x, y, z, e, wa, wb, offsets, seeds,
+                             cfg: SMCConfig, n_sweeps: int, a, diag,
+                             temperature):
+    n_pad, c = x.shape
+    dev = x.device
+    (offsets, seeds, scales, w_stride, eo, e_tr, a_tr, visited,
+     u_dump) = _cuda_call(x, y, z, e, wa, wb, offsets, seeds, cfg, n_sweeps,
+                          a, diag, temperature)
+    if n_pad > capacity(dev)[1]:
+        raise ValueError(f"N_pad = {n_pad} rows exceed the streamed sweep "
+                         f"kernel's capacity ({capacity(dev)[1]} rows)")
+    lib = build()
+    xc, yc, zc = chain_major(x, y, z)        # updated in place by the kernel
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.smc_sweep_stream_launch(
+            xc.data_ptr(), yc.data_ptr(), zc.data_ptr(), e.data_ptr(),
+            wa.data_ptr(), wb.data_ptr(), offsets.data_ptr(), seeds.data_ptr(),
+            scales.data_ptr(), eo.data_ptr(), e_tr.data_ptr(), a_tr.data_ptr(),
+            _ptr(visited), _ptr(u_dump), cfg.n, n_pad, c, n_sweeps, cfg.m,
+            w_stride, *_geometry(cfg), stream)
+    if err != 0:
+        raise RuntimeError(f"smc_sweep_stream_launch failed: cudaError {err}")
+    _count("stream", a, temperature, w_stride, diag, visited, u_dump)
+    return (*chain_major(xc, yc, zc), eo, e_tr, a_tr)
 
 
 def sweep_block(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
                 n_sweeps: int, a, zskip: bool = False,
                 diag: dict | None = None, temperature=None):
-    """n_sweeps Smart-MC sweeps of every chain (columns of the planes).
+    """n_sweeps Smart-MC sweeps of every chain (columns of the planes) on
+    the resident kernel.
 
     a, temperature: scalars or per-chain [C] (None = cfg.temperature);
     wa/wb: shared rows [1, MM_pad] or per-chain tables [C, MM_pad].
 
     CUDA tensors go through the CUDA kernel and count a launch in
-    `sweep_block.launches`: by mode ("dense" or "zskip"), and also as
-    "per_chain_at" when a or temperature is per-chain and "per_chain_w"
-    with per-chain wall tables. CPU tensors go through the plain version.
+    `sweep_block.launches`: by kernel ("dense", "zskip", or "stream" for
+    sweep_block_stream), and also as "per_chain_at" when a or
+    temperature is per-chain and "per_chain_w" with per-chain wall
+    tables. N_pad beyond `capacity(device)[0]` raises, naming the
+    streamed kernel. CPU tensors go through the plain version.
     zskip: rows must be z-sorted per chain for the skips to pay; results
     are bitwise those of zskip=False on the same row order.
 
@@ -515,5 +685,21 @@ def sweep_block(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
                              temperature=temperature)
 
 
-sweep_block.launches = {"dense": 0, "zskip": 0, "per_chain_at": 0,
-                        "per_chain_w": 0}
+def sweep_block_stream(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
+                       n_sweeps: int, a, diag: dict | None = None,
+                       temperature=None):
+    """sweep_block(zskip=True) on the streamed kernel (K3): the planes
+    stay in device memory (chain-major for the call), so N is bounded by
+    device memory, not shared memory. Same arguments and results; on the
+    same rows bitwise the resident z-skip kernel. CUDA tensors count a
+    "stream" launch; CPU tensors go through sweep_block_stream_plain."""
+    if x.is_cuda:
+        return _sweep_block_stream_cuda(x, y, z, e, wa, wb, offsets, seeds,
+                                        cfg, n_sweeps, a, diag, temperature)
+    return sweep_block_stream_plain(x, y, z, e, wa, wb, offsets, seeds, cfg,
+                                    n_sweeps, a, diag=diag,
+                                    temperature=temperature)
+
+
+sweep_block.launches = {"dense": 0, "zskip": 0, "stream": 0,
+                        "per_chain_at": 0, "per_chain_w": 0}

@@ -5,7 +5,10 @@ density/mobility (SMC.c:912-927), common neighbour analysis
 autocorrelation and variance statistics (SMC.c:1055-1142).
 
 Device observables take positions [C, N, 3]; O(N^2) ones run over chain
-batches (`vmap_chains_bounded`) so their pair temporaries stay bounded.
+batches (`vmap_chains_bounded`) and row chunks so that their pair
+temporaries stay within a fixed element budget at any N; CNA runs on
+padded neighbour lists, O(P K^2 log K) per chain for P bonded pairs of
+at most K neighbours each.
 The statistics are numpy on host traces.
 """
 
@@ -18,12 +21,16 @@ import numpy as np
 import torch
 
 from .config import SMCConfig
+from . import potentials
+from .potentials import pair_row_chunk
 
 
 def obs_chain_batch(n: int) -> int:
-    """Chains per batch bounding [B, N, N] pair temporaries to ~1 GB
-    (2^28 float32 each): 256 at N = 1024."""
-    return max(1, (1 << 28) // max(n * n, 1))
+    """Chains per batch of an all-pairs observable: B * N * N within
+    PAIR_BUDGET (64 chains at N = 1024), at least one chain, whose pair
+    sums then run over row chunks (potentials.pair_row_chunk), so that
+    B * rows * N stays within the same budget at any N."""
+    return max(1, potentials.PAIR_BUDGET // max(n * n, 1))
 
 
 def vmap_chains_bounded(fn, r: torch.Tensor, n: int,
@@ -125,40 +132,93 @@ def pair_indices(n: int) -> Tuple[np.ndarray, np.ndarray]:
     return l, i
 
 
-def _adjacency(r: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
-    """[..., N, N] bond matrix: within lca_cutoff, x/y min-image, z
-    unwrapped (SMC.c:987-992), diagonal removed."""
-    n = r.shape[-2]
-    d = r.unsqueeze(-2) - r.unsqueeze(-3)
-    dx = d[..., 0] - cfg.box_l * torch.round(d[..., 0] / cfg.box_l)
-    dy = d[..., 1] - cfg.box_l * torch.round(d[..., 1] / cfg.box_l)
-    dz = d[..., 2]
-    if cfg.pbc_z:
-        dz = dz - cfg.box_lz * torch.round(dz / cfg.box_lz)
-    dr2 = dx * dx + dy * dy + dz * dz
-    eye = torch.eye(n, dtype=torch.bool, device=r.device)
-    return (dr2 < cfg.lca_cutoff * cfg.lca_cutoff) & ~eye
+def neighbour_lists(r: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
+    """Padded neighbour lists [N, K] of one chain r [N, 3]: row l holds,
+    in ascending order, the particles bonded to l (within lca_cutoff,
+    x/y min-image, z unwrapped as SMC.c:987-992; l itself excluded),
+    padded with N; K = the largest degree. Built over row chunks of
+    pair_row_chunk(1, N) rows, never an [N, N] tensor."""
+    n = r.shape[0]
+    cut2 = cfg.lca_cutoff * cfg.lca_cutoff
+    step = pair_row_chunk(1, n)
+    cols = torch.arange(n, device=r.device)
+    li, lj = [], []
+    for r0 in range(0, n, step):
+        r1 = min(n, r0 + step)
+
+        def comp(k):
+            d = r[r0:r1, k].unsqueeze(-1) - r[:, k]
+            if k < 2:
+                return d - cfg.box_l * torch.round(d / cfg.box_l)
+            if cfg.pbc_z:
+                return d - cfg.box_lz * torch.round(d / cfg.box_lz)
+            return d
+
+        dx = comp(0)
+        dr2 = dx * dx
+        del dx
+        dy = comp(1)
+        dr2 = dr2 + dy * dy
+        del dy
+        dz = comp(2)
+        dr2 = dr2 + dz * dz
+        del dz
+        bond = (dr2 < cut2) & (cols[r0:r1, None] != cols)
+        a, b = bond.nonzero(as_tuple=True)
+        li.append(a + r0)
+        lj.append(b)
+    li, lj = torch.cat(li), torch.cat(lj)       # row-major: sorted by (l, j)
+    deg = torch.bincount(li, minlength=n)
+    k = int(deg.max()) if n else 0
+    slot = torch.arange(li.numel(), device=r.device) - (
+        torch.cumsum(deg, 0) - deg)[li]
+    nbr = torch.full((n, k), n, dtype=torch.int64, device=r.device)
+    nbr[li, slot] = lj
+    return nbr
 
 
-def _pair_counts(adj_f: torch.Tensor, lrow: torch.Tensor, icol: torch.Tensor):
-    """num2, num3 of pairs (lrow, icol) of one chain's 0/1 adjacency:
-    num2 = common neighbours, num3 = 1/2 cn^T A cn (matmuls; counts are
-    exact integers in float32)."""
-    cn = adj_f[lrow] * adj_f[icol]                        # [P, N]
-    num2 = cn.sum(-1)
-    num3 = 0.5 * (torch.matmul(cn, adj_f) * cn).sum(-1)
-    return num2.to(torch.int64), num3.to(torch.int64)
+def _member(v: torch.Tensor, seq: torch.Tensor) -> torch.Tensor:
+    """v [..., V] in seq [..., K] (ascending), elementwise over v."""
+    if seq.shape[-1] == 0:
+        return torch.zeros_like(v, dtype=torch.bool)
+    v = v.contiguous()
+    pos = torch.searchsorted(seq.contiguous(), v)
+    return seq.gather(-1, pos.clamp(max=seq.shape[-1] - 1)) == v
+
+
+def _pair_counts(nbr: torch.Tensor, lrow: torch.Tensor, icol: torch.Tensor):
+    """num2, num3 of pairs (lrow, icol) from one chain's neighbour lists
+    [N, K]: the common neighbours are list l's entries found in list i;
+    num3 counts each bond among them twice (j in list k, k in list j)
+    and halves. Pairs run in batches of PAIR_BUDGET // K^2."""
+    n, k = nbr.shape
+    step = max(1, potentials.PAIR_BUDGET // max(k * k, 1))
+    num2, num3 = [], []
+    for p0 in range(0, lrow.shape[0], step):
+        nl = nbr[lrow[p0:p0 + step]]                           # [P, K]
+        common = _member(nl, nbr[icol[p0:p0 + step]]) & (nl < n)
+        cn = torch.where(common, nl, n)
+        rows = nbr[cn.clamp(max=max(n - 1, 0))]                 # [P, K, K]
+        bonds = _member(cn[:, None, :].expand(-1, k, -1), rows)
+        bonds &= common[:, None, :] & common[:, :, None]
+        num2.append(common.sum(-1))
+        num3.append(bonds.sum((1, 2)) // 2)
+    if not num2:
+        empty = torch.zeros((0,), dtype=torch.int64, device=nbr.device)
+        return empty, empty
+    return torch.cat(num2), torch.cat(num3)
 
 
 def cluster_analysis(r: torch.Tensor, cfg: SMCConfig) -> ClusterCounts:
     """CNA of one chain r [N, 3] over all unique pairs, the corrected
     analysis tpu_smc.observables.cluster_analysis documents: num1 = pair
     bonded, num2 = particles bonded to both, num3 = bonds among them."""
-    adj = _adjacency(r, cfg)
-    lrow, icol = (torch.as_tensor(a, device=r.device)
+    nbr = neighbour_lists(r, cfg)
+    lrow, icol = (torch.as_tensor(a, device=r.device, dtype=torch.int64)
                   for a in pair_indices(r.shape[0]))
-    num2, num3 = _pair_counts(adj.to(torch.float32), lrow, icol)
-    return ClusterCounts(adj[lrow, icol], num2, num3)
+    num1 = _member(icol[:, None], nbr[lrow])[:, 0]
+    num2, num3 = _pair_counts(nbr, lrow, icol)
+    return ClusterCounts(num1, num2, num3)
 
 
 def cluster_histograms(counts: ClusterCounts, nbins: int = 7):
@@ -178,17 +238,17 @@ def cluster_histograms_chains(r: torch.Tensor, cfg: SMCConfig,
     """(l1 [C], l2 [C, nbins], l3 [C, nbins]) of every chain of r
     [C, N, 3]: cluster_histograms(cluster_analysis(r[c])) per chain,
     evaluated on the bonded pairs only (the only pairs the histograms
-    count), so the common-neighbour matmul is [P_bonded, N] x [N, N]."""
-    c = r.shape[0]
+    count), from each chain's neighbour lists."""
+    c, n = r.shape[0], r.shape[1]
     l1 = torch.zeros((c,), dtype=torch.int64, device=r.device)
     l2 = torch.zeros((c, nbins), dtype=torch.int64, device=r.device)
     l3 = torch.zeros((c, nbins), dtype=torch.int64, device=r.device)
     for ci in range(c):
-        adj = _adjacency(r[ci], cfg)
-        lrow, icol = torch.nonzero(torch.tril(adj, diagonal=-1),
-                                   as_tuple=True)
-        num2, num3 = _pair_counts(adj.to(torch.float32), lrow, icol)
-        l1[ci] = lrow.shape[0]
+        nbr = neighbour_lists(r[ci], cfg)
+        lrow = torch.arange(n, device=r.device)[:, None].expand_as(nbr)
+        bonded = nbr < lrow                        # each pair once, i < l
+        num2, num3 = _pair_counts(nbr, lrow[bonded], nbr[bonded])
+        l1[ci] = num2.shape[0]
         l2[ci] = torch.bincount(num2.clamp(0, nbins - 1), minlength=nbins)
         l3[ci] = torch.bincount(num3.clamp(0, nbins - 1), minlength=nbins)
     return l1, l2, l3

@@ -83,13 +83,26 @@ def pair_energy_force_single(R: torch.Tensor, i, ri: torch.Tensor,
     return _lj_terms(d, dr2, mask, cfg)
 
 
-def _pair_dr2(R: torch.Tensor, cfg: SMCConfig):
-    """All-pairs squared distances [C, N, N] and the in-cutoff mask with
-    the diagonal removed (no [C, N, N, 3] displacement tensor)."""
+# Elements of one [B, rows, N] pair temporary (256 MB in float32): the
+# all-pairs sums run over row chunks of this size, so no [N, N] tensor
+# per chain exists at any N.
+PAIR_BUDGET = 1 << 26
+
+
+def pair_row_chunk(b: int, n: int) -> int:
+    """Rows per chunk of an all-pairs pass over b chains of n particles:
+    b * rows * n stays within PAIR_BUDGET (one row at least)."""
+    return max(1, PAIR_BUDGET // max(b * n, 1))
+
+
+def _pair_dr2_rows(R: torch.Tensor, r0: int, r1: int, cfg: SMCConfig):
+    """Squared distances [..., r1 - r0, N] of particles r0..r1-1 to all
+    particles and the in-cutoff mask without the self pairs (no
+    [..., rows, N, 3] displacement tensor)."""
     n = R.shape[-2]
 
     def comp(k, period):
-        dk = R[..., :, k].unsqueeze(-1) - R[..., :, k].unsqueeze(-2)
+        dk = R[..., r0:r1, k].unsqueeze(-1) - R[..., :, k].unsqueeze(-2)
         return _min_image(dk, period) if period else dk
 
     dx = comp(0, cfg.box_l)
@@ -101,32 +114,45 @@ def _pair_dr2(R: torch.Tensor, cfg: SMCConfig):
     dz = comp(2, cfg.box_lz if cfg.pbc_z else None)
     dr2 += dz * dz
     del dz
-    eye = torch.eye(n, dtype=torch.bool, device=R.device)
-    return dr2, (dr2 < cfg.cutoff2) & ~eye
+    rows = torch.arange(r0, r1, device=R.device)[:, None]
+    cols = torch.arange(n, device=R.device)[None, :]
+    return dr2, (dr2 < cfg.cutoff2) & (rows != cols)
+
+
+def _pair_sum(R: torch.Tensor, cfg: SMCConfig, term) -> torch.Tensor:
+    """Sum over ordered pairs i != j within the cutoff of term(inv6,
+    mask) [..., rows, N] per chain, row chunk by row chunk: each row's
+    sum over j, then the rows."""
+    n = R.shape[-2]
+    rows = pair_row_chunk(max(1, R[..., 0, 0].numel()), n)
+    total = R.new_zeros(R.shape[:-2])
+    for r0 in range(0, n, rows):
+        dr2, mask = _pair_dr2_rows(R, r0, min(n, r0 + rows), cfg)
+        safe = torch.where(mask, dr2, torch.ones_like(dr2))
+        inv6 = 1.0 / (safe * safe * safe)
+        total = total + term(inv6, mask).sum(-1).sum(-1)
+    return total
 
 
 def pair_energy_total(R: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
     """Total pair energy per chain, all unique pairs (SMC.c:626-646)."""
-    dr2, mask = _pair_dr2(R, cfg)
-    safe = torch.where(mask, dr2, torch.ones_like(dr2))
-    inv6 = 1.0 / (safe * safe * safe)
-    u = torch.where(mask, inv6 * inv6 - inv6, torch.zeros_like(dr2))
-    u = 4.0 * u.sum(-1)
+    shift = 0.0
     if cfg.lj_shift:
         rc6 = cfg.cutoff2 ** 3
-        u = u - 4.0 * (1.0 / (rc6 * rc6) - 1.0 / rc6) * mask.to(u.dtype).sum(-1)
-    return 0.5 * u.sum(-1)
+        shift = 1.0 / (rc6 * rc6) - 1.0 / rc6
+
+    def term(inv6, mask):
+        u = torch.where(mask, inv6 * inv6 - inv6, torch.zeros_like(inv6))
+        return 4.0 * (u - shift * mask.to(u.dtype)) if shift else 4.0 * u
+
+    return 0.5 * _pair_sum(R, cfg, term)
 
 
 def pair_virial_pressure(R: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
     """Virial pair pressure -sum(24 r^-6 - 48 r^-12)/(3 L^2 Lz) per chain
     (SMC.c:696-720)."""
-    dr2, mask = _pair_dr2(R, cfg)
-    safe = torch.where(mask, dr2, torch.ones_like(dr2))
-    inv6 = 1.0 / (safe * safe * safe)
-    p = torch.where(mask, 24.0 * inv6 - 48.0 * inv6 * inv6,
-                    torch.zeros_like(dr2))
-    p = 0.5 * p.sum(-1).sum(-1)
+    p = 0.5 * _pair_sum(R, cfg, lambda inv6, mask: torch.where(
+        mask, 24.0 * inv6 - 48.0 * inv6 * inv6, torch.zeros_like(inv6)))
     return -p / (3.0 * cfg.box_l * cfg.box_l * cfg.box_lz)
 
 
