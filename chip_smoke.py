@@ -53,9 +53,10 @@ Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
      bound, for the uniform form and for per-chain (A, T) and per-chain
      walls (N = 108 x 512); kernel times of those and of per-chain (A, T)
      z-skip (N = 1024 x 512) taken in turns within the call; dense mode
-     at N = 1024 x 512 beside z-skip; K3's time and bound at N = 32768 x
-     128 and K3 beside K2 in turns at N = 16384 x 128 (its plain version
-     is held against it in phase 2); the dense and zsorted engines at
+     at N = 1024 x 512 beside z-skip; K3 against its plain version as in
+     phase 2, its time, the plain time and the bound at the large-N main
+     path's N = 32768 x 128, one sweep, and K3 beside K2 in turns at
+     N = 16384 x 128; the dense and zsorted engines at
      N = 512 and 1024 x 512, behind auto routing, and the zsorted engine
      at sort cadences 8 and 16 (N = 1024 x 512).
 
@@ -176,9 +177,8 @@ def kernel_inputs(n: int, c: int, device, seed: int = 11, sweeps: int = 2,
             if walls else None)
     state, w = init_ensemble_state(cfg, seed_words(seed), c, w=w_np,
                                    device=device)
-    engine = (en.ensemble_sweeps_dense
-              if ks.resident_fits(ks.padded_rows(n), device)
-              else en.ensemble_sweeps_zsorted)
+    engine = (en.ensemble_sweeps_zsorted if en.zsorted_streams(n, device)
+              else en.ensemble_sweeps_dense)
     state, _ = engine(state, w, cfg, cfg.proposal_a, 1, seed=seed)
     words, offsets = en._per_sweep_randomness(state, cfg, seed + 1, sweeps)
     x, y, z, e, wa, wb = en._kernel_inputs(state, w, cfg)
@@ -339,8 +339,8 @@ def phase_stream(device):
     same sorted rows, every output and the visited rows bitwise: at
     N = 4096 and 16384 x 128 chains, and at N = 4096 x 128 with per-chain
     (2A, T) of 8 levels and 4 wall realizations; then K3 against its
-    plain version at N = 1024 x 64 as in phase 2. Returns that
-    comparison's maximum |dx| and plain ms."""
+    plain version at N = 1024 x 64 as in phase 2 (phase 4 holds it
+    against its plain version at the main path's N = 32768 x 128)."""
     cases = ((4096, 128, 0, False), (16384, 128, 0, False),
              (4096, 128, 4, True))
     for n, c, walls, at in cases:
@@ -364,11 +364,7 @@ def phase_stream(device):
               f"visited rows {float(ds['visited'].double().mean()) / (2 * 2 * n):.0f}"
               f" per pass), acceptance {acc:.4f}", flush=True)
     cfg, w, args, ks = kernel_inputs(1024, 64, device, sort=True)
-    cmp = compare(cfg, w, args, ks, True, "K3 vs plain N=1024 C=64",
-                  stream=True)
-    print(f"  K3's plain version N=1024 C=64, 2 sweeps: {cmp['plain_ms']:.1f}"
-          " ms", flush=True)
-    return cmp["max_err"], cmp["plain_ms"]
+    compare(cfg, w, args, ks, True, "K3 vs plain N=1024 C=64", stream=True)
 
 
 # ----------------------------------------------------------------------
@@ -844,19 +840,18 @@ def kernel_case(n: int, c: int, zskip: bool, device, sweeps: int = 2,
 
 def stream_case(device, card: str):
     """K3 at the large-N main path's shape (the density-matched N = 32768
-    box x 128 chains): the bound of a 2-sweep call from its visited rows
-    and its ms per 2-sweep call; and K3 against K2 in turns at N = 16384
-    x 128, where both fit. (Its plain version takes ~5 minutes for one
-    sweep at this shape, so phase 2 holds K3 against it at N = 1024 x 64
-    and bitwise against K2 up to N = 16384 x 128.) Returns the
-    kernels-line fields it measures."""
+    box x 128 chains), one sweep per call: against its plain version as
+    in phase 2 (every lane then walks 8 blocks of the envelope scan), the
+    plain version's ms, the bound from the visited rows and the kernel's
+    ms; and K3 against K2 in turns at N = 16384 x 128, where both fit.
+    Returns the kernels-line fields it measures."""
     cfg = large_n_config()
-    c, sweeps = 128, 2
-    cfg, _, args, ks = kernel_inputs(cfg.n, c, device, sweeps=sweeps,
+    c, sweeps = 128, 1
+    cfg, w, args, ks = kernel_inputs(cfg.n, c, device, sweeps=sweeps,
                                      sort=True, cfg=cfg)
-    dk = {}
-    ks.sweep_block_stream(*args, cfg, sweeps, cfg.proposal_a, diag=dk)
-    visited = float(dk["visited"].double().sum())
+    cmp = compare(cfg, w, args, ks, True, f"K3 vs plain N={cfg.n} C={c}",
+                  stream=True)
+    visited = float(cmp["visited"].double().sum())
     n_pad = args[0].shape[0]
     wall_floats = args[4].numel() + args[5].numel()
     nbytes = 4 * (2 * (3 * n_pad * c + c) + wall_floats + 4 * c
@@ -866,8 +861,9 @@ def stream_case(device, card: str):
     streamed = 12 * visited / PEAK_BYTES * 1e3
     ms = cuda_ms(lambda: ks.sweep_block_stream(*args, cfg, sweeps,
                                                cfg.proposal_a), reps=3)
-    print(f"  sweep_stream N={cfg.n} x {c}, {sweeps} sweeps: kernel {ms:.3f} "
-          f"ms ({sweeps * c / ms * 1e3:.1f} chain-sweeps/s), bound "
+    print(f"  sweep_stream N={cfg.n} x {c}, {sweeps} sweep: kernel {ms:.3f} "
+          f"ms ({sweeps * c / ms * 1e3:.1f} chain-sweeps/s), plain "
+          f"{cmp['plain_ms']:.1f} ms, bound "
           f"{max(t_bytes, t_ops):.4f} ms ({'bytes' if t_bytes > t_ops else 'operations'}; "
           f"inputs read once), its envelope rows streamed at the HBM rate "
           f"{streamed:.3f} ms, visited rows per pass "
@@ -882,7 +878,8 @@ def stream_case(device, card: str):
     print(f"  N=16384 x {c}, 1 sweep, in turns: K2 (resident z-skip) "
           f"{turns['K2']:.3f} ms, K3 (streamed) {turns['K3']:.3f} ms "
           f"({turns['K3'] / turns['K2'] - 1:+.1%}) ({card})", flush=True)
-    return dict(ms=ms, bound_ms=max(t_bytes, t_ops),
+    return dict(max_abs_err=cmp["max_err"], ms=ms,
+                plain_ms=cmp["plain_ms"], bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes > t_ops else "operations")
 
 
@@ -959,7 +956,7 @@ def main() -> int:
     phase_line("kernel vs plain, ladder modes", t0)
 
     t0 = time.perf_counter()
-    stream_err, stream_plain_ms = phase_stream(device)
+    phase_stream(device)
     phase_line("streamed kernel vs resident and plain", t0)
 
     t0 = time.perf_counter()
@@ -1045,8 +1042,6 @@ def main() -> int:
                  "source": "tpu_smc_torch/kernels/csrc/sweep.cu",
                  "replaces": "tpu_smc/kernels/sweep_pallas.py:1153",
                  "launches": large["stream"] + large_cli["stream"],
-                 # against its plain version at N = 1024 x 64 (phase 2)
-                 "max_abs_err": stream_err, "plain_ms": stream_plain_ms,
                  **stream_case(device, card), "library_ms": None})
     for row, (_, n, *_) in zip(rows[:len(cases)], cases):
         row["ms"] = ms[row["name"]]

@@ -304,11 +304,12 @@ def test_positions_rows_byte_identical(tmp_path):
 def test_cli_routes_large_n_to_the_streamed_engine(monkeypatch):
     """Beyond the resident kernel's capacity the CLI prints the streamed
     engine for zsorted and refuses --sampler dense by naming it; within
-    it nothing changes (capacity set to 1024 rows here)."""
+    it nothing changes (capacity set to 1024 rows on a CUDA device here;
+    none on the CPU, as in resident_fits)."""
     from tpu_smc_torch import cli as tcli
 
-    monkeypatch.setattr(ks, "resident_fits",
-                        lambda n_pad, device=None: n_pad <= 1024)
+    monkeypatch.setattr(ks, "resident_fits", lambda n_pad, device=None: (
+        torch.device(device or "cuda").type != "cuda" or n_pad <= 1024))
     big, small = TConfig.for_n(2048), TConfig.for_n(1024)
     assert tcli._resolve_sampler("auto", big, "cuda") == "zsorted"
     assert tcli._engine_label("zsorted", big, "cuda") == "zsorted (streamed)"

@@ -122,7 +122,9 @@ def _resolve_sampler(requested: str, cfg, device: str) -> str:
     if requested in ("dense", "zsorted") and cfg.dtype != "float32":
         raise SystemExit(f"--sampler {requested} runs float32; use "
                          "--sampler torch for --dtype float64")
-    if requested == "dense" and device == "cuda" and not _resident(cfg):
+    from . import ensemble as en
+
+    if requested == "dense" and en.zsorted_streams(cfg.n, device):
         raise SystemExit(f"--sampler dense: N = {cfg.n} exceeds the resident "
                          "kernel's shared-memory capacity on this card; use "
                          "--sampler zsorted (the streamed kernel)")
@@ -133,18 +135,12 @@ def _resolve_sampler(requested: str, cfg, device: str) -> str:
     return "zsorted" if cfg.n >= 1024 and not cfg.pbc_z else "dense"
 
 
-def _resident(cfg) -> bool:
-    """Whether the resident kernel takes this N on the CUDA device."""
-    from .kernels import sweep as ks
-
-    return ks.resident_fits(ks.padded_rows(cfg.n))
-
-
 def _engine_label(sampler: str, cfg, device: str) -> str:
-    """The engine as printed: zsorted beyond the resident kernel's
-    capacity runs the streamed kernel (ensemble_sweeps_zsorted's auto
-    routing)."""
-    if sampler == "zsorted" and device == "cuda" and not _resident(cfg):
+    """The engine as printed: zsorted runs the streamed kernel where
+    `ensemble.zsorted_streams` says so."""
+    from . import ensemble as en
+
+    if sampler == "zsorted" and en.zsorted_streams(cfg.n, device):
         return "zsorted (streamed)"
     return sampler
 

@@ -149,6 +149,13 @@ def zsort_cadence(n: int) -> int:
     return 16 if n <= 1024 else 8
 
 
+def zsorted_streams(n: int, device) -> bool:
+    """Whether ensemble_sweeps_zsorted runs the streamed kernel by default
+    for n particles on `device`: exactly when the resident kernel does
+    not fit (`kernels.sweep.resident_fits`; never on the CPU)."""
+    return not ks.resident_fits(ks.padded_rows(n), device)
+
+
 def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
                             cfg: SMCConfig, a: float, n_sweeps: int,
                             seed=None, sweeps_per_sort: int | None = None,
@@ -164,10 +171,9 @@ def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
     and the positions CSV keep particle identity.
 
     hbm_stream: run the streamed kernel (planes in device memory) instead
-    of the resident one; None = exactly when the resident kernel does
-    not fit (`kernels.sweep.resident_fits`). The two are bitwise equal on
-    the same rows, so the switch changes capacity and speed, not
-    results."""
+    of the resident one; None = `zsorted_streams(n, device)`. The two
+    are bitwise equal on the same rows, so the switch changes capacity
+    and speed, not results."""
     if n_sweeps < 1:
         raise ValueError("n_sweeps must be >= 1")
     a, t = _chain_at(a, cfg, a_per_chain, t_per_chain)
@@ -176,7 +182,7 @@ def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
     words, offsets = _per_sweep_randomness(state, cfg, seed, n_sweeps)
     x, y, z, e, wa, wb = _kernel_inputs(state, w, cfg)
     if hbm_stream is None:
-        hbm_stream = not ks.resident_fits(x.shape[0], x.device)
+        hbm_stream = zsorted_streams(n, x.device)
     idx = torch.arange(n, device=x.device)[:, None].expand(n, c)
     e_pieces, a_pieces = [], []
     k0 = 0

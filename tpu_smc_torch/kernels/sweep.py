@@ -229,28 +229,32 @@ def _wall_terms(qx, qy, qz, wa, wb, cfg: SMCConfig):
     iz12 = iz6 * iz6
     us = cfg.a0 * iz12 - cfg.b0 * iz6
     fz0 = (48.0 * cfg.a0 * iz12 - 24.0 * cfg.b0 * iz6) * iz2 * dz
+    # every site's terms at once [MM, C], then added site by site
+    mm = cfg.m * cfg.m
+    site = torch.arange(mm, device=qx.device)
+    dw = box_l / cfg.m
+    dxm = qx - (site // cfg.m).to(qx.dtype)[:, None] * dw
+    dxm = dxm - box_l * torch.round(dxm * inv_l)
+    dym = qy - (site % cfg.m).to(qx.dtype)[:, None] * dw
+    dym = dym - box_l * torch.round(dym * inv_l)
+    dr2 = dxm * dxm + dym * dym + dz2
+    m = dr2 < cfg.cutoff2
+    inv2 = 1.0 / torch.clamp(dr2, min=1e-12)
+    inv6 = inv2 * inv2 * inv2
+    inv12 = inv6 * inv6
+    a, b = wa[:, :mm].T, wb[:, :mm].T     # shared [MM, 1] or per-chain [MM, C]
+    zero = torch.zeros_like(dr2)
+    u_s = torch.where(m, a * inv12 - b * inv6, zero)
+    dv = torch.where(m, (48.0 * a * inv12 - 24.0 * b * inv6) * inv2, zero)
+    fx_s, fy_s = dv * dxm, dv * dym
     fx = torch.zeros_like(qx)
     fy = torch.zeros_like(qx)
     fzs = torch.zeros_like(qx)
-    dw = box_l / cfg.m
-    one = torch.ones((), dtype=qx.dtype, device=qx.device)
-    for s in range(cfg.m * cfg.m):
-        dxm = qx - (s // cfg.m) * one * dw
-        dxm = dxm - box_l * torch.round(dxm * inv_l)
-        dym = qy - (s % cfg.m) * one * dw
-        dym = dym - box_l * torch.round(dym * inv_l)
-        dr2 = dxm * dxm + dym * dym + dz2
-        m = dr2 < cfg.cutoff2
-        inv2 = 1.0 / torch.clamp(dr2, min=1e-12)
-        inv6 = inv2 * inv2 * inv2
-        inv12 = inv6 * inv6
-        a, b = wa[:, s], wb[:, s]         # shared [1] or per-chain [C]
-        zero = torch.zeros_like(dr2)
-        us = us + torch.where(m, a * inv12 - b * inv6, zero)
-        dv = torch.where(m, (48.0 * a * inv12 - 24.0 * b * inv6) * inv2, zero)
-        fx = fx + dv * dxm
-        fy = fy + dv * dym
-        fzs = fzs + dv
+    for s in range(mm):
+        us = us + u_s[s]
+        fx = fx + fx_s[s]
+        fy = fy + fy_s[s]
+        fzs = fzs + dv[s]
     return 4.0 * us, fx, fy, fz0 + fzs * dz
 
 
@@ -270,8 +274,8 @@ def _envelope_pass(qx, qy, qz, x, y, z, i: int, b_lo, b_hi, cfg: SMCConfig):
     parking) select its terms. Returns the four sums and the rows of its
     own envelope [C]."""
     n_pad = x.shape[0]
-    lo = int(b_lo.min()) * ROW_BLOCK
-    hi = min(int(b_hi.max()) * ROW_BLOCK, n_pad)
+    lo, hi = torch.stack([b_lo.min(), b_hi.max()]).tolist()
+    lo, hi = lo * ROW_BLOCK, min(hi * ROW_BLOCK, n_pad)
     seen = torch.clamp(torch.minimum(b_hi * ROW_BLOCK, torch.full_like(
         b_hi, n_pad)) - b_lo * ROW_BLOCK, min=0)
     if hi <= lo:
