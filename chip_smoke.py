@@ -4,9 +4,11 @@ their plain PyTorch versions in every mode, and drives the CLI at full width:
 the NVT chain ensemble (N = 1024 x 512 and N = 108 x 512 chains), the
 temperature ladder with parallel tempering, tuning and MBAR (N = 1024,
 8 x 64 chains), the quenched-disorder ladder (N = 108, 4 x 128 chains, 4
-walls), the disordered ensemble (N = 108 x 512, 8 walls), and the large-N
+walls), the disordered ensemble (N = 108 x 512, 8 walls), the large-N
 confined ensemble on the streamed kernel (N = 32768 x 128 chains, through
-simulate_ensemble and through the CLI).
+simulate_ensemble and through the CLI), the bulk fluid (N = 4000 x 128
+and N = 32 x 512 through the CLI), the bug-compatible reference-noise
+ensemble (N = 108 x 512) and a 10 x 10 wall grid (N = 108 x 512).
 
     python3 chip_smoke.py
 
@@ -28,7 +30,13 @@ Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
      then the streamed kernel (K3) bitwise the resident z-skip kernel on
      the same sorted rows at N = 4096 and 16384 x 128 and at N = 4096 x
      128 with per-chain (2A, T) and 4 walls, and K3 against its plain
-     version at N = 1024 x 64 as above;
+     version at N = 1024 x 64 as above; then the bulk mode K1-pbc at
+     N = 12 x 64 (4 pad rows) and N = 256 x 64 (also with per-chain
+     (A, T), and uniform rows bitwise the scalar call), the reference-
+     noise mode K1-rn at N = 108 x 64, K5 against reference_noise_plane
+     (within 1e-6) with the pair moments on a [3 * 4096, 256] plane, K1
+     at M = 10 (100 wall sites) at N = 108 x 512 and K3 at M = 10 at
+     N = 108 x 64, each against its plain version as above;
   3. the main path: `tpu_smc_torch.cli.main` at N = 1024 x 512 chains
      (auto -> zsorted, z-skip launches) and N = 108 x 512 (auto -> dense),
      each reproducing the mean energy and acceptance recorded for it
@@ -47,7 +55,16 @@ Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
      chains (finite, carried vs exact energy within 1e-4 relative at
      every resync, CNA run, E/N and acceptance beside tpu_smc's, peak
      memory, the gather loop's time split) and the CLI at N = 32768 x 128
-     in the default box (the CSV set, the streamed engine line);
+     in the default box (the CSV set, the streamed engine line); then
+     the bulk CLI at N = 4000 x 128 (dense K1-pbc launches only, carried
+     vs exact energy within 1e-4 relative at every resync, acceptance in
+     (0, 1), the CSV set, the wall-time split), the bulk CLI at N = 32 x
+     512 (mean E and acceptance within 3 combined SE of tpu_smc's CPU run,
+     REF_BULK), simulate_ensemble at N = 108 x 512 with reference noise
+     beside i.i.d. noise at the same seed (both mean energies and the
+     offset reported; the run's own noise of 64 sweeps dumped through K5,
+     each plane within 1e-6 of reference_noise_plane, holds the pair
+     moments), and the CLI with --m 10 at N = 108 x 512;
   4. at the main path's shapes (N = 108 x 512 dense, N = 1024 x 512
      z-skip): kernel vs plain as in phase 2, the plain time and the
      bound, for the uniform form and for per-chain (A, T) and per-chain
@@ -58,7 +75,10 @@ Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
      path's N = 32768 x 128, one sweep, and K3 beside K2 in turns at
      N = 16384 x 128; the dense and zsorted engines at
      N = 512 and 1024 x 512, behind auto routing, and the zsorted engine
-     at sort cadences 8 and 16 (N = 1024 x 512).
+     at sort cadences 8 and 16 (N = 1024 x 512); K1-pbc at N = 4000 x
+     128 and K1-rn at N = 108 x 512 against their plain versions and
+     timed in the same turns as K1, and K5 on one plane of the reference-
+     noise run ([328, 512]).
 
 Each phase prints its elapsed seconds; any failure exits non-zero before
 the result lines. The last two lines are the kernel table (JSON) and
@@ -89,11 +109,27 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 # FP32 operations of one pair-row visit in csrc/sweep.cu `pair_rows`
 # (min image 2 x 4, dz 1, dr2 5, compare/select 3, reciprocal 1,
-# powers 3, u/dv terms 3, four accumulations 7), and the fixed work of a
-# move (two wall evaluations of 9 sites + the planar term, Box-Muller,
-# proposal and acceptance), counting an FMA as 2.
+# powers 3, u/dv terms 3, four accumulations 7), + 4 for the z minimum
+# image under pbc_z; counting an FMA as 2, Philox's and the row-id
+# masks' integer work not counted.
 FLOPS_PER_ROW = 31
-FLOPS_PER_MOVE = 540
+FLOPS_PER_ROW_PBC = 35
+
+
+def move_flops(cfg) -> int:
+    """FP32 operations of a move outside its pair passes: proposal and
+    acceptance with the i.i.d. Box-Muller (50) or the reference's two
+    noise pairs (61), + 4 for the proposal's z wrap under pbc_z, and,
+    with walls, two evaluations of the planar term (20) and the M*M
+    sites (25 each): 540 at M = 3."""
+    ops = (61 if cfg.reference_noise else 50) + (4 if cfg.pbc_z else 0)
+    if cfg.use_walls:
+        ops += 2 * (20 + 25 * cfg.m * cfg.m)
+    return ops
+
+
+def row_flops(cfg) -> int:
+    return FLOPS_PER_ROW_PBC if cfg.pbc_z else FLOPS_PER_ROW
 
 POS_TOL = 1e-2         # |dx| between kernel and plain on agreeing chains
 E_ATOL, E_RTOL = 5e-2, 1e-4   # energies, kernel vs plain and vs recompute
@@ -159,13 +195,14 @@ def card_line() -> str:
 # ----------------------------------------------------------------------
 
 def kernel_inputs(n: int, c: int, device, seed: int = 11, sweeps: int = 2,
-                  sort: bool = False, walls: int = 0, cfg=None):
-    """Planes of an FCC-started ensemble (default box, or `cfg`), advanced
-    one sweep on the dense engine (the zsorted one where the resident
-    kernel does not fit) so the chains differ, plus the per-sweep draws
-    of `sweeps`. walls = K > 0: per-chain wall tables of K realizations,
-    each on a contiguous block of c / K chains (the energies under their
-    own walls); the returned w is then the [c, M*M, 2] table."""
+                  sort: bool = False, walls: int = 0, cfg=None, r0=None):
+    """Planes of an FCC-started ensemble (default box, or `cfg`; or the
+    start r0 [n, 3]), advanced one sweep on the dense engine (the zsorted
+    one where the resident kernel does not fit) so the chains differ,
+    plus the per-sweep draws of `sweeps`. walls = K > 0: per-chain wall
+    tables of K realizations, each on a contiguous block of c / K chains
+    (the energies under their own walls); the returned w is then the
+    [c, M*M, 2] table."""
     from tpu_smc_torch import ensemble as en
     from tpu_smc_torch.config import SMCConfig
     from tpu_smc_torch.kernels import sweep as ks
@@ -175,9 +212,9 @@ def kernel_inputs(n: int, c: int, device, seed: int = 11, sweeps: int = 2,
     cfg = SMCConfig.for_n(n) if cfg is None else cfg
     w_np = (np.repeat(build_wall_ensemble(cfg, walls)[0], c // walls, axis=0)
             if walls else None)
-    state, w = init_ensemble_state(cfg, seed_words(seed), c, w=w_np,
+    state, w = init_ensemble_state(cfg, seed_words(seed), c, r0=r0, w=w_np,
                                    device=device)
-    engine = (en.ensemble_sweeps_zsorted if en.zsorted_streams(n, device)
+    engine = (en.ensemble_sweeps_zsorted if en.zsorted_streams(cfg, device)
               else en.ensemble_sweeps_dense)
     state, _ = engine(state, w, cfg, cfg.proposal_a, 1, seed=seed)
     words, offsets = en._per_sweep_randomness(state, cfg, seed + 1, sweeps)
@@ -367,6 +404,93 @@ def phase_stream(device):
     compare(cfg, w, args, ks, True, "K3 vs plain N=1024 C=64", stream=True)
 
 
+def bulk_config(n: int):
+    """The bulk fluid of the full-width bulk run: rho 0.5, T = 1.5,
+    A = 0.015 (gamma 0.01), cutoff 2.5."""
+    from tpu_smc_torch.config import SMCConfig
+
+    return SMCConfig.bulk(n=n, temperature=1.5, rho=0.5, gamma=0.01,
+                          lj_cutoff=2.5)
+
+
+NOISE_S = 0.3          # sqrt(2A) of the K5 moment check
+# the reference recipe's pair moments in units of s^3 (tpu_smc/tests/
+# test_pallas.py's TPU check; +-0.02) and std/s (+-0.01)
+NOISE_M21, NOISE_M12, NOISE_TOL = -0.498, 0.274, 0.02
+
+
+def noise_moments(d: torch.Tensor, s: float):
+    """E[d0^2 d1] / s^3, E[d0 d1^2] / s^3 and std / s of noise planes
+    [..., rows, C] whose rows 2k, 2k + 1 are pair k."""
+    d = d.double().reshape(-1, 2, d.shape[-1])
+    d0, d1 = d[:, 0], d[:, 1]
+    return (float((d0 * d0 * d1).mean()) / s ** 3,
+            float((d0 * d1 * d1).mean()) / s ** 3, float(d.std()) / s)
+
+
+def check_moments(d: torch.Tensor, s: float, label: str):
+    m21, m12, sd = noise_moments(d, s)
+    print(f"  {label}: E[d0^2 d1] {m21:+.4f} s^3 (reference {NOISE_M21}), "
+          f"E[d0 d1^2] {m12:+.4f} s^3 (reference {NOISE_M12}), std/s "
+          f"{sd:.4f}", flush=True)
+    check(abs(m21 - NOISE_M21) < NOISE_TOL and abs(m12 - NOISE_M12)
+          < NOISE_TOL and abs(sd - 1.0) < 0.01,
+          f"{label}: noise moments {m21}, {m12}, {sd}")
+
+
+def phase_new_modes(device):
+    """K1-pbc, K1-rn, K5 and the M = 10 wall grid against their plain
+    versions: K1-pbc at N = 12 x 64 (4 pad rows, random start) and at
+    N = 256 x 64 (the bulk lattice, rho 0.5), there also with per-chain
+    (A, T) of 8 levels and uniform rows bitwise the scalar call; K1-rn at
+    N = 108 x 64; K5 against reference_noise_plane on a [3 * 4096, 256]
+    plane, with the pair moments; K1 (dense) at M = 10 at the M = 10 CLI
+    run's N = 108 x 512 and K3 (streamed, sorted rows) at N = 108 x 64."""
+    from tpu_smc_torch.config import SMCConfig
+    from tpu_smc_torch.kernels import sweep as ks
+
+    cfg12 = SMCConfig(n=12, box_l=10.0, box_lz=10.0, use_walls=False,
+                      pbc_z=True, lj_cutoff=3.0)
+    r0 = np.random.default_rng(5).uniform(-4.5, 4.5, (12, 3))
+    cfg, w, args, ks = kernel_inputs(12, 64, device, cfg=cfg12, r0=r0)
+    compare(cfg, w, args, ks, False, "pbc N=12 C=64 (4 pad rows)")
+    cfg, w, args, ks = kernel_inputs(256, 64, device, cfg=bulk_config(256))
+    out = compare(cfg, w, args, ks, False, "pbc N=256 C=64")["out"]
+    check(bool((out[2][:cfg.n].abs() <= cfg.box_lz / 2).all()),
+          "pbc N=256: a z outside the periodic box")
+    a_c, t_c = ladder_rows(cfg, 64, device)
+    compare(cfg, w, args, ks, False, "pbc N=256 C=64 per-chain (A, T) "
+            "8 levels", a=a_c, t=t_c)
+    full = lambda v: torch.full((64,), v, dtype=torch.float64, device=device)
+    rows = ks.sweep_block(*args, cfg, 2, full(cfg.proposal_a),
+                          temperature=full(cfg.temperature))
+    check(bitwise(ks.sweep_block(*args, cfg, 2, cfg.proposal_a), rows),
+          "pbc N=256: uniform (A, T) rows are not bitwise the scalar call")
+
+    cfg = SMCConfig.for_n(108, reference_noise=True)
+    cfg, w, args, ks = kernel_inputs(108, 64, device, cfg=cfg)
+    compare(cfg, w, args, ks, False, "refnoise N=108 C=64")
+
+    words = (12345, 678)
+    d = ks.debug_reference_noise(words, 4096, 256, NOISE_S, device)
+    p = ks.reference_noise_plane(words, 4096, 256, NOISE_S, device)
+    torch.cuda.synchronize()
+    k5_err = float((d - p).abs().max())
+    check(d.shape == (12288, 256) and k5_err <= 1e-6,
+          f"K5: {tuple(d.shape)}, max |kernel - plain| {k5_err:.3g}")
+    print(f"  K5 [12288, 256]: max |kernel - plain| {k5_err:.3g} "
+          f"({'bitwise' if torch.equal(d, p) else 'within 1e-6'})",
+          flush=True)
+    check_moments(d, NOISE_S, "K5 [12288, 256] plane")
+
+    cfg, w, args, ks = kernel_inputs(108, 512, device,
+                                     cfg=SMCConfig.for_n(108, m=10))
+    compare(cfg, w, args, ks, False, "dense M=10 N=108 C=512")
+    cfg10 = SMCConfig(n=108, m=10, box_l=10.0, box_lz=24.0)
+    cfg, w, args, ks = kernel_inputs(108, 64, device, cfg=cfg10, sort=True)
+    compare(cfg, w, args, ks, True, "K3 M=10 N=108 C=64", stream=True)
+
+
 # ----------------------------------------------------------------------
 # Phase 3: the main path through the CLI
 # ----------------------------------------------------------------------
@@ -439,6 +563,7 @@ def run_main(argv):
         torch.cuda.synchronize()
         sim["t1"] = time.perf_counter()
         sim["sps"] = out[1].sweeps_per_second
+        sim["agg"] = out[1]
         return out
 
     tee = Tee(sys.stdout)
@@ -641,6 +766,24 @@ TPU_LARGE_N = {"e_per_n": -0.0625, "acceptance": 0.8474,
 LARGE_N_DRIFT = 1e-4   # carried vs exact energy, relative, at every resync
 
 
+def resync_drift():
+    """A stand-in for driver_ensemble.recompute_energy that records, at
+    every resync, the largest |carried - exact| / max(|exact|, 1) over
+    the chains, and the list it fills."""
+    from tpu_smc_torch import driver_ensemble as de
+
+    recompute, drift = de.recompute_energy, []
+
+    def resync(state, w, cfg):
+        new = recompute(state, w, cfg)
+        exact = new.energy.double()
+        rel = (state.energy.double() - exact).abs() / exact.abs().clamp(min=1.0)
+        drift.append(float(rel.max()))
+        return new
+
+    return resync, drift
+
+
 def large_n_config():
     from tpu_smc_torch.config import SMCConfig
 
@@ -669,7 +812,7 @@ def drive_large_n(device, card: str):
                               "cna")}
     loop_spent = dict(spent)
     calls = {"cna": 0}
-    drift = []
+    resync, drift = resync_drift()
     in_loop = [False]
 
     def timed(name, fn):
@@ -686,13 +829,6 @@ def drive_large_n(device, card: str):
             return out
         return run
 
-    def resync(state, w, cfg_):
-        new = recompute(state, w, cfg_)
-        exact = new.energy.double()
-        rel = (state.energy.double() - exact).abs() / exact.abs().clamp(min=1.0)
-        drift.append(float(rel.max()))
-        return new
-
     def gather(*args, **kw):
         in_loop[0] = True
         try:
@@ -700,7 +836,7 @@ def drive_large_n(device, card: str):
         finally:
             in_loop[0] = False
 
-    recompute, gather_step = de.recompute_energy, de._gather_step_batched
+    gather_step = de._gather_step_batched
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state, w = init_ensemble_state(cfg, seed_words(1), c, device=device)
@@ -755,6 +891,186 @@ def drive_large_n(device, card: str):
     return launches
 
 
+def chain_stats(agg):
+    """Mean E, its SE, mean acceptance, its SE, over the chains of an
+    EnsembleResults (the SE from the spread of the chain means)."""
+    e = np.asarray([ch.mean_energy for ch in agg.chains])
+    acc = np.asarray([ch.acceptance_ratio for ch in agg.chains])
+    k = len(e)
+    return (float(e.mean()), float(e.std(ddof=1) / np.sqrt(k)),
+            float(acc.mean()), float(acc.std(ddof=1) / np.sqrt(k)))
+
+
+def drive_bulk_full(card: str):
+    """The bulk CLI at full width: `python -m tpu_smc_torch 16 48 3 1.5
+    --bulk --n 4000 --rho 0.5 --lj-cutoff 2.5 --gamma 0.01 --chains 128
+    --seed 5 --lca-time 3` (N = 4 x 10^3 fills the FCC lattice: L = 20).
+    Gates: the dense engine line and dense bulk launches only, carried vs
+    exact energy within LARGE_N_DRIFT relative at every resync,
+    acceptance in (0, 1), the CSV set with finite pooled means. Prints
+    where the wall time went. Returns the launch counts."""
+    from tpu_smc_torch import driver_ensemble as de
+
+    n, c = 4000, 128
+    resync, drift = resync_drift()
+    with tempfile.TemporaryDirectory() as tmp, patched(
+            de, recompute_energy=resync):
+        out, launches, dt, sim = run_main(
+            ["16", "48", "3", "1.5", "--bulk", "--n", str(n), "--rho", "0.5",
+             "--lj-cutoff", "2.5", "--gamma", "0.01", "--chains", str(c),
+             "--seed", "5", "--lca-time", "3", "--data-dir", tmp])
+        cfg = bulk_config(n)
+        check_ensemble_files(Path(tmp) / cfg.run_name(), cfg, c, 3)
+    check("Ensemble sweep engine: dense" in out, "bulk CLI: no dense line")
+    check(launches["dense"] > 0 and launches["pbc_z"] == launches["dense"]
+          == launches["no_walls"] and launches["zskip"] == launches["stream"]
+          == 0, f"bulk CLI launches {launches}")
+    check(len(drift) >= 4 and max(drift) <= LARGE_N_DRIFT,
+          f"bulk CLI: carried vs exact energy {drift} relative")
+    acc = float(summary_value(out, "Average acceptance ratio:"))
+    mean_e = float(summary_value(out, "Mean energy:"))
+    check(0.0 < acc < 1.0 and math.isfinite(mean_e),
+          f"bulk CLI: acceptance {acc}, mean E {mean_e}")
+    print(f"  bulk CLI N={n} x {c} (L = {cfg.box_l:.3f}, rho 0.5, rc 2.5): "
+          f"{dt:.1f} s, mean E {mean_e}, acceptance {acc}, carried vs "
+          f"exact energy max {max(drift):.3g} relative over {len(drift)} "
+          f"resyncs, launches {launches} ({card})", flush=True)
+    print_split(n, 48, c, dt, sim)
+    return launches
+
+
+# tpu_smc's CPU run of `python -m tpu_smc 200 800 8 1.5 --bulk --n 32
+# --rho 0.1 --gamma 0.013333 --chains 64 --seed 7` (XLA engine, float32):
+# `PYTHONPATH=. python tests/test_torch_bulk.py`, mean E and acceptance
+# over the chains with their SE from the chain spread
+REF_BULK = {"E": 49.94991594552994, "E_err": 0.1029273613723217,
+            "acc": 0.8041113281250001, "acc_err": 0.0010348520348878293}
+
+
+def drive_bulk_vs_jax(card: str):
+    """`python -m tpu_smc_torch 200 800 8 1.5 --bulk --n 32 --rho 0.1
+    --gamma 0.013333 --chains 512 --seed 7` (A = 0.02, tests/
+    test_bulk_parity.py's state) on the dense kernel: mean E and
+    acceptance within 3 combined SE of tpu_smc's run (REF_BULK).
+    Returns the launch counts."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out, launches, dt, sim = run_main(
+            ["200", "800", "8", "1.5", "--bulk", "--n", "32", "--rho", "0.1",
+             "--gamma", "0.013333", "--chains", "512", "--seed", "7",
+             "--data-dir", tmp])
+    check("Ensemble sweep engine: dense" in out and launches["pbc_z"] > 0
+          and launches["pbc_z"] == launches["dense"],
+          f"bulk N=32: engine or launches {launches}")
+    e, e_se, acc, acc_se = chain_stats(sim["agg"])
+    z_e = (e - REF_BULK["E"]) / math.hypot(e_se, REF_BULK["E_err"])
+    z_a = (acc - REF_BULK["acc"]) / math.hypot(acc_se, REF_BULK["acc_err"])
+    print(f"  bulk N=32 x 512: {dt:.1f} s, mean E {e:.4f} +- {e_se:.4f}, "
+          f"acceptance {acc:.5f} +- {acc_se:.5f}; tpu_smc (64 chains, CPU) "
+          f"{REF_BULK['E']:.4f} +- {REF_BULK['E_err']:.4f}, "
+          f"{REF_BULK['acc']:.5f} +- {REF_BULK['acc_err']:.5f}: "
+          f"{z_e:+.2f} and {z_a:+.2f} combined SE, launches {launches} "
+          f"({card})", flush=True)
+    check_later(abs(z_e) <= 3.0 and abs(z_a) <= 3.0,
+                f"bulk N=32: mean E {z_e:+.2f} or acceptance {z_a:+.2f} "
+                "combined SE from tpu_smc's run")
+    return launches
+
+
+def drive_refnoise(device, card: str):
+    """simulate_ensemble at N = 108 x 512 on the dense engine with
+    reference_noise=True and, at the same seed, with i.i.d. noise (200 +
+    600 sweeps, 6 gathers): both mean energies and the reference mode's
+    offset (tpu_smc measured about +0.6 %, tpu_smc/config.py:113-119;
+    reported, not gated). Then the reference run's own noise, the pairs
+    the kernel drew in its first 64 production sweeps, dumped through K5
+    from the same seed words: each plane against reference_noise_plane
+    of the same words (within 1e-6), and the pair moments. Gates: finite,
+    reference-noise launches in the one run, carried vs exact energy
+    within LARGE_N_DRIFT. Returns the launch counts of the reference run
+    and K5's main-path case: (its words, n, c, s2a, max |kernel -
+    plain|)."""
+    from tpu_smc_torch import driver_ensemble as de
+    from tpu_smc_torch import ensemble as en
+    from tpu_smc_torch.config import RunParams, SMCConfig
+    from tpu_smc_torch.driver import ObservableOptions
+    from tpu_smc_torch.kernels import sweep as ks
+    from tpu_smc_torch.state import init_ensemble_state, seed_words
+
+    params, c, seed = RunParams(200, 600, 6), 512, 2024
+    res = {}
+    for rn in (True, False):
+        cfg = SMCConfig.for_n(108, reference_noise=rn)
+        state, w = init_ensemble_state(cfg, seed_words(seed), c,
+                                       device=device)
+        resync, drift = resync_drift()
+        t0 = time.perf_counter()
+        with main_path() as launches, patched(de, recompute_energy=resync):
+            end, agg = de.simulate_ensemble(
+                cfg, params, state, w,
+                ObservableOptions(sampler="dense", stream_seed=seed))
+            if rn:
+                # the run's production sweeps 200..263: their seed words
+                start = end.replace(sweeps=torch.full_like(
+                    end.sweeps, params.eqsteps))
+                words, _ = en._per_sweep_randomness(start, cfg, seed, 64)
+                s2a = math.sqrt(2.0 * cfg.proposal_a)
+                planes = torch.stack([ks.debug_reference_noise(
+                    wd, cfg.n, c, s2a, device) for wd in words])
+        dt = time.perf_counter() - t0
+        finite = all(np.isfinite(r.energy_trace_full).all()
+                     for r in agg.chains)
+        check(finite and max(drift) <= LARGE_N_DRIFT,
+              f"reference noise {rn}: finite {finite}, drift {drift}")
+        check(launches["dense"] > 0 and launches["reference_noise"] == (
+            launches["dense"] if rn else 0), f"reference noise {rn}: "
+            f"launches {launches}")
+        res[rn] = (agg, launches, dt)
+    plain = torch.stack([ks.reference_noise_plane(wd, cfg.n, c, s2a, device)
+                         for wd in words])
+    k5_err = float((planes - plain).abs().max())
+    check(k5_err <= 1e-6, f"K5 at the run's [{planes.shape[1]}, {c}]: max "
+          f"|kernel - plain| {k5_err:.3g}")
+    print(f"  K5, the run's 64 planes [{planes.shape[1]}, {c}]: max |kernel "
+          f"- reference_noise_plane| {k5_err:.3g} "
+          f"({'bitwise' if torch.equal(planes, plain) else 'within 1e-6'})",
+          flush=True)
+    e_rn, se_rn, a_rn, _ = chain_stats(res[True][0])
+    e_iid, se_iid, a_iid, _ = chain_stats(res[False][0])
+    print(f"  N=108 x {c}, 200 + 600 sweeps: reference noise mean E "
+          f"{e_rn:.4f} +- {se_rn:.4f} (acceptance {a_rn:.5f}, "
+          f"{res[True][2]:.1f} s), i.i.d. {e_iid:.4f} +- {se_iid:.4f} "
+          f"(acceptance {a_iid:.5f}, {res[False][2]:.1f} s): offset "
+          f"{(e_rn / e_iid - 1) * 100:+.3f} % ({(e_rn - e_iid) / math.hypot(se_rn, se_iid):+.2f} "
+          f"combined SE; tpu_smc measured about +0.6 %), launches "
+          f"{res[True][1]} ({card})", flush=True)
+    check_moments(planes, s2a, "the reference run's noise, sweeps 200-263 "
+                  f"({planes.shape[0]} x {tuple(planes.shape[1:])} via K5)")
+    return res[True][1], (tuple(int(v) for v in words[0]), cfg.n, c, s2a,
+                          k5_err)
+
+
+def drive_m10(card: str):
+    """`python -m tpu_smc_torch 8 16 2 1.1 --m 10 --chains 512` (N = 108,
+    a 10 x 10 wall grid): the dense kernel, the CSV set, a finite mean E.
+    Returns the launch counts."""
+    from tpu_smc_torch.config import SMCConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out, launches, dt, _ = run_main(
+            ["8", "16", "2", "1.1", "--m", "10", "--chains", "512", "--seed",
+             "2024", "--data-dir", tmp])
+        cfg = SMCConfig.for_n(108, m=10)
+        check_ensemble_files(Path(tmp) / cfg.run_name(), cfg, 512, 2)
+    mean_e = float(summary_value(out, "Mean energy:"))
+    check("Ensemble sweep engine: dense" in out and launches["dense"] > 0
+          and math.isfinite(mean_e), f"M=10 CLI: launches {launches}, "
+          f"mean E {mean_e}")
+    print(f"  CLI M=10 N=108 x 512: {dt:.1f} s, mean E {mean_e}, acceptance "
+          f"{summary_value(out, 'Average acceptance ratio:')}, launches "
+          f"{launches} ({card})", flush=True)
+    return launches
+
+
 def drive_cli_large(card: str):
     """`python -m tpu_smc_torch 8 16 2 1.1 --n 32768 --chains 128 --seed 5
     --lca-time 1` in the reference's default 33 x 33 x 240 box (dense:
@@ -801,16 +1117,19 @@ def cuda_ms(fn, reps: int = 3) -> float:
 
 
 def kernel_case(n: int, c: int, zskip: bool, device, sweeps: int = 2,
-                at: bool = False, walls: int = 0, plain: bool = True):
+                at: bool = False, walls: int = 0, plain: bool = True,
+                cfg=None):
     """At the main path's shape (n, c): kernel vs plain on the same inputs
     (phase 2's comparison; skipped when not `plain`), the plain version's
     ms and the bound of this run's work, and a launch of the kernel on
     these inputs to time. at: per-chain (A, T) rows of an 8-level ladder;
-    walls: per-chain wall tables of that many realizations."""
+    walls: per-chain wall tables of that many realizations; cfg: the
+    configuration (default: the default box for n)."""
     cfg, w, args, ks = kernel_inputs(n, c, device, sweeps=sweeps,
-                                     sort=zskip, walls=walls)
+                                     sort=zskip, walls=walls, cfg=cfg)
     a, t = ladder_rows(cfg, c, device) if at else (cfg.proposal_a, None)
-    mode = "zskip" if zskip else "dense"
+    mode = ("zskip" if zskip else "dense") + (" pbc" if cfg.pbc_z else "") \
+        + (" refnoise" if cfg.reference_noise else "")
     label = (f"{mode} N={n} C={c}" + (" per-chain (A, T)" if at else "")
              + (f" walls of {walls}" if walls else ""))
     dk = {}
@@ -826,8 +1145,8 @@ def kernel_case(n: int, c: int, zskip: bool, device, sweeps: int = 2,
     # and seed words, traces
     nbytes = 4 * (2 * (3 * n_pad * c + c) + wall_floats + 4 * c
                   + 3 * sweeps + 2 * sweeps * c)
-    flops = (FLOPS_PER_ROW * float(visited.double().sum())
-             + FLOPS_PER_MOVE * sweeps * n * c)
+    flops = (row_flops(cfg) * float(visited.double().sum())
+             + move_flops(cfg) * sweeps * n * c)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
     launch = lambda: ks.sweep_block(*args, cfg, sweeps, a, zskip=zskip,
                                     temperature=t)
@@ -856,7 +1175,7 @@ def stream_case(device, card: str):
     wall_floats = args[4].numel() + args[5].numel()
     nbytes = 4 * (2 * (3 * n_pad * c + c) + wall_floats + 4 * c
                   + 3 * sweeps + 2 * sweeps * c)
-    flops = FLOPS_PER_ROW * visited + FLOPS_PER_MOVE * sweeps * cfg.n * c
+    flops = row_flops(cfg) * visited + move_flops(cfg) * sweeps * cfg.n * c
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
     streamed = 12 * visited / PEAK_BYTES * 1e3
     ms = cuda_ms(lambda: ks.sweep_block_stream(*args, cfg, sweeps,
@@ -880,6 +1199,37 @@ def stream_case(device, card: str):
           f"({turns['K3'] / turns['K2'] - 1:+.1%}) ({card})", flush=True)
     return dict(max_abs_err=cmp["max_err"], ms=ms,
                 plain_ms=cmp["plain_ms"], bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes > t_ops else "operations")
+
+
+# FP32 operations of one reference-noise pair: two of log1p, scale by
+# -2, sqrt, scale by s, 2 pi u, cos or sin, product, and two uniforms'
+# conversions (Philox's integer work not counted)
+FLOPS_PER_PAIR = 18
+
+
+def noise_case(device, words, n: int, c: int, s2a: float, err: float,
+               card: str):
+    """K5 at the main path's shape (one plane of the reference-noise run,
+    [noise_rows(n), c], its first seed words and scale; err: its max
+    |kernel - plain| there): its ms, the plain version's
+    (reference_noise_plane on the card), and the bound of writing the
+    plane. Returns the kernels-line fields."""
+    from tpu_smc_torch.kernels import sweep as ks
+
+    rows = ks.noise_rows(n)
+    ms = cuda_ms(lambda: ks.debug_reference_noise(words, n, c, s2a, device),
+                 reps=20)
+    plain_ms = cuda_ms(lambda: ks.reference_noise_plane(words, n, c, s2a,
+                                                        device), reps=3)
+    t_bytes = 4 * rows * c / PEAK_BYTES * 1e3
+    t_ops = FLOPS_PER_PAIR * rows // 2 * c / PEAK_F32 * 1e3
+    print(f"  debug_reference_noise [{rows}, {c}]: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+          f"({'bytes' if t_bytes > t_ops else 'operations'}), max |kernel - "
+          f"plain| {err:.3g} ({card})", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes > t_ops else "operations")
 
 
@@ -945,6 +1295,11 @@ def main() -> int:
     for line in ks._Build.log.splitlines():
         if "registers" in line or "smem" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
+    caps = {m: ks.capacity(device, m * m) for m in (3, 10)}
+    print("capacity (N_pad rows, resident / streamed): "
+          + ", ".join(f"M = {m}: {r} / {st}" for m, (r, st) in caps.items())
+          + f", no walls: {ks.capacity(device)[0]} / {ks.capacity(device)[1]}",
+          flush=True)
     phase_line("setup", t0)
 
     t0 = time.perf_counter()
@@ -958,6 +1313,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_stream(device)
     phase_line("streamed kernel vs resident and plain", t0)
+
+    t0 = time.perf_counter()
+    phase_new_modes(device)
+    phase_line("kernel vs plain, bulk, reference noise, K5, M = 10", t0)
 
     t0 = time.perf_counter()
     launches = {}
@@ -1017,6 +1376,13 @@ def main() -> int:
     phase_line("main path, large N (streamed)", t0)
 
     t0 = time.perf_counter()
+    lbulk = drive_bulk_full(card)
+    lbulk32 = drive_bulk_vs_jax(card)
+    lrn, k5_case = drive_refnoise(device, card)
+    lm10 = drive_m10(card)
+    phase_line("main path, bulk, reference noise, M = 10", t0)
+
+    t0 = time.perf_counter()
     cases = (
         ("sweep_dense", 108, False, {}, "tpu_smc/kernels/sweep_pallas.py:992",
          launches["dense"]["dense"]),
@@ -1037,6 +1403,21 @@ def main() -> int:
                      "library_ms": None})
     runs["sweep_zskip_per_chain_at"], zat = kernel_case(
         1024, 512, True, device, at=True, plain=False)
+    from tpu_smc_torch.config import SMCConfig
+
+    new = (("sweep_pbc", 4000, 128, bulk_config(4000),
+            "tpu_smc/kernels/sweep_pallas.py:157",
+            lbulk["pbc_z"] + lbulk32["pbc_z"]),
+           ("sweep_refnoise", 108, 512,
+            SMCConfig.for_n(108, reference_noise=True),
+            "tpu_smc/kernels/sweep_pallas.py:57", lrn["reference_noise"]))
+    new_rows = []
+    for name, n, c, cfg, replaces, count in new:
+        runs[name], t = kernel_case(n, c, False, device, cfg=cfg)
+        new_rows.append({"name": name, "route": "cuda",
+                         "source": "tpu_smc_torch/kernels/csrc/sweep.cu",
+                         "replaces": replaces, "launches": count, **t,
+                         "library_ms": None})
     ms = interleaved_ms(runs)
     rows.append({"name": "sweep_stream", "route": "cuda",
                  "source": "tpu_smc_torch/kernels/csrc/sweep.cu",
@@ -1049,6 +1430,20 @@ def main() -> int:
               f"{row['ms']:.3f} ms, plain {row['plain_ms']:.1f} ms, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}), max |dx| "
               f"{row['max_abs_err']:.3g} ({card})", flush=True)
+    for row, (_, n, c, *_) in zip(new_rows, new):
+        row["ms"] = ms[row["name"]]
+        print(f"  {row['name']} N={n} x {c}, 2 sweeps: kernel "
+              f"{row['ms']:.3f} ms ({row['ms'] / ms['sweep_dense'] - 1:+.1%} "
+              f"against sweep_dense N=108 x 512 in the same turns), plain "
+              f"{row['plain_ms']:.1f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), max |dx| {row['max_abs_err']:.3g} "
+              f"({card})", flush=True)
+    rows += new_rows
+    rows.append({"name": "debug_reference_noise", "route": "cuda",
+                 "source": "tpu_smc_torch/kernels/csrc/sweep.cu",
+                 "replaces": "tpu_smc/kernels/sweep_pallas.py:81",
+                 "launches": lrn["debug_reference_noise"],
+                 **noise_case(device, *k5_case, card), "library_ms": None})
     print(f"  sweep_zskip per-chain (A, T) N=1024 x 512, 2 sweeps: kernel "
           f"{ms['sweep_zskip_per_chain_at']:.3f} ms, bound "
           f"{zat['bound_ms']:.4f} ms ({card})", flush=True)
@@ -1073,6 +1468,7 @@ def main() -> int:
           + f" ({card})", flush=True)
     phase_line("timing", t0)
 
+    check(lm10["dense"] > 0, f"M=10 launches {lm10}")
     check(not FAILED, f"{len(FAILED)} main-path checks failed: {FAILED}")
     print("kernels: " + ", ".join(r["name"] for r in rows))
     print(json.dumps({"kernels": rows}))

@@ -183,6 +183,10 @@ def test_resident_refuses_beyond_capacity(cuda):
     engine routes there by itself."""
     res_rows, stream_rows = ks.capacity(cuda)
     assert 16384 <= res_rows < 32768 < stream_rows
+    # the wall coefficients share the budget: 8 bytes per site
+    res9, stream9 = ks.capacity(cuda, 9)
+    res100, stream100 = ks.capacity(cuda, 100)
+    assert res100 < res9 <= res_rows and stream100 < stream9 <= stream_rows
     assert ks.resident_fits(16384, cuda) and not ks.resident_fits(32768, cuda)
     cfg = SMCConfig.for_n(32768)
     state, w = init_ensemble_state(cfg, seed_words(1), 2, device=cuda)
@@ -193,3 +197,107 @@ def test_resident_refuses_beyond_capacity(cuda):
                        cfg.proposal_a, zskip=True)
     with pytest.raises(ValueError, match="streamed"):
         ten.ensemble_sweeps_dense(state, w, cfg, cfg.proposal_a, 1, seed=1)
+
+
+def _agree(outk, outp, min_same):
+    """Kernel against plain: accept counts equal on at least `min_same`
+    chains (near-tie flips stay rare), positions within 1e-2 and energies
+    within rtol 1e-4, atol 5e-2 on those (the tolerances of
+    test_kernel_matches_plain)."""
+    same = (outk[5] == outp[5]).all(0)
+    assert int(same.sum()) >= min_same
+    for k in range(3):
+        np.testing.assert_allclose(outk[k][:, same].cpu().numpy(),
+                                   outp[k][:, same].cpu().numpy(), atol=1e-2)
+    np.testing.assert_allclose(outk[3][:, same].cpu().numpy(),
+                               outp[3][:, same].cpu().numpy(),
+                               rtol=1e-4, atol=5e-2)
+
+
+def _cfg_inputs(cfg, c, device, r0=None, seed=5):
+    state, w = init_ensemble_state(cfg, seed_words(seed), c, r0=r0,
+                                   device=device)
+    words, offsets = ten._per_sweep_randomness(state, cfg, seed, 2)
+    x, y, z, e, wa, wb = ten._kernel_inputs(state, w, cfg)
+    return (x, y, z, e, wa, wb, offsets, words)
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_wall_grid_m10_matches_plain(cuda, stream):
+    """M = 10 (100 wall sites, all in the launch's dynamic shared
+    memory) on the resident dense kernel (K1) and on the streamed
+    kernel (K3) against the plain version, identical uniforms; it used to
+    fail to launch (cudaError 1)."""
+    cfg = SMCConfig(n=108, m=10, box_l=10.0, box_lz=24.0)
+    args = _cfg_inputs(cfg, 32, cuda)
+    if stream:
+        kernel, plain = ks.sweep_block_stream, ks.sweep_block_stream_plain
+    else:
+        kernel, plain = ks.sweep_block, ks.sweep_block_plain
+    dk, dp = {"uniforms": True}, {"uniforms": True}
+    outk = kernel(*args, cfg, 2, cfg.proposal_a, diag=dk)
+    outp = plain(*args, cfg, 2, cfg.proposal_a, diag=dp)
+    torch.cuda.synchronize()
+    assert torch.equal(dk["uniforms"], dp["uniforms"])
+    _agree(outk, outp, 30)
+
+
+@pytest.mark.parametrize("n", [12, 256])
+def test_pbc_kernel_matches_plain(cuda, n):
+    """K1-pbc (z periodic, no walls, pads and self masked by row id)
+    against the plain version: at N = 12 (4 pad rows, random start in a
+    10^3 box, cutoff 3) and N = 256 (the bulk lattice at rho 0.5); a
+    pbc_z and a no_walls launch counted; z-skip refused."""
+    if n == 12:
+        cfg = SMCConfig(n=12, box_l=10.0, box_lz=10.0, use_walls=False,
+                        pbc_z=True, lj_cutoff=3.0)
+        r0 = np.random.default_rng(5).uniform(-4.5, 4.5, (12, 3))
+    else:
+        cfg, r0 = SMCConfig.bulk(n=256, temperature=1.5, rho=0.5,
+                                 gamma=0.01, lj_cutoff=2.5), None
+    args = _cfg_inputs(cfg, 64, cuda, r0=r0)
+    before = dict(ks.sweep_block.launches)
+    dk, dp = {"uniforms": True}, {"uniforms": True}
+    outk = ks.sweep_block(*args, cfg, 2, cfg.proposal_a, diag=dk)
+    outp = ks.sweep_block_plain(*args, cfg, 2, cfg.proposal_a, diag=dp)
+    torch.cuda.synchronize()
+    for key in ("dense", "pbc_z", "no_walls"):
+        assert ks.sweep_block.launches[key] == before[key] + 1
+    assert torch.equal(dk["uniforms"], dp["uniforms"])
+    _agree(outk, outp, 60)
+    z = outk[2][:cfg.n]
+    assert bool((z.abs() <= cfg.box_lz / 2).all())
+    with pytest.raises(NotImplementedError, match="pbc_z"):
+        ks.sweep_block(*args, cfg, 2, cfg.proposal_a, zskip=True)
+
+
+def test_refnoise_kernel_matches_plain(cuda):
+    """K1-rn (the reference's dependent noise pairs, by particle id)
+    against the plain version at N = 108 x 64: the dumped pair and
+    acceptance uniforms bitwise equal, trajectories within the
+    tolerances; a reference_noise launch counted."""
+    cfg = SMCConfig.for_n(108, reference_noise=True)
+    args = _cfg_inputs(cfg, 64, cuda)
+    before = ks.sweep_block.launches["reference_noise"]
+    dk, dp = {"uniforms": True}, {"uniforms": True}
+    outk = ks.sweep_block(*args, cfg, 2, cfg.proposal_a, diag=dk)
+    outp = ks.sweep_block_plain(*args, cfg, 2, cfg.proposal_a, diag=dp)
+    torch.cuda.synchronize()
+    assert ks.sweep_block.launches["reference_noise"] == before + 1
+    assert torch.equal(dk["uniforms"], dp["uniforms"])
+    _agree(outk, outp, 60)
+    iid = ks.sweep_block(*args, SMCConfig.for_n(108), 2, cfg.proposal_a)
+    assert not torch.equal(iid[0], outk[0])
+
+
+def test_debug_reference_noise_matches_plane(cuda):
+    """K5 against reference_noise_plane on the same words: within 1e-6
+    (the same uniforms bitwise; sqrt, log1p, cos, sin may round
+    differently on the card), and a launch counted."""
+    before = ks.sweep_block.launches["debug_reference_noise"]
+    d = ks.debug_reference_noise((12345, 678), 4096, 256, 0.3, cuda)
+    p = ks.reference_noise_plane((12345, 678), 4096, 256, 0.3, cuda)
+    torch.cuda.synchronize()
+    assert ks.sweep_block.launches["debug_reference_noise"] == before + 1
+    assert d.shape == (12288, 256)
+    assert float((d - p).abs().max()) <= 1e-6

@@ -63,15 +63,17 @@ def test_cli_covers_every_jax_option():
         "--chains", "--lca-time", "--storage-time", "--no-trace",
         "--sampler", "--temperatures", "--chains-per-t", "--pt-exchange",
         "--target-acceptance", "--reweight", "--wall-seed",
-        "--wall-realizations"}
+        "--wall-realizations", "--bulk", "--rho", "--lj-cutoff"}
 
 
 @pytest.mark.parametrize("flag", ["--bulk", "--temperatures=1.0,1.2",
                                   "--checkpoint", "--gr-bins=8"])
 def test_cli_refuses_unported_options(flag, capsys):
     """Unported options exit 2 by name; so does a ported mode (the
-    temperature ladder) combined with one (--sk-kmax)."""
-    extra = ["--sk-kmax=4"] if flag.startswith("--temperatures") else []
+    temperature ladder, the bulk fluid) combined with one (--sk-kmax,
+    --widom)."""
+    extra = {"--temperatures=1.0,1.2": ["--sk-kmax=4"],
+             "--bulk": ["--widom=4"]}.get(flag, [])
     with pytest.raises(SystemExit) as exc:
         tcli.main(["1", "2", "1", "1.1", "--device", "cpu", flag] + extra)
     assert exc.value.code == 2
@@ -80,7 +82,16 @@ def test_cli_refuses_unported_options(flag, capsys):
         .split("=")[0] in err
 
 
-def test_resolve_sampler_routing():
+def test_resolve_sampler_routing(monkeypatch):
+    """tpu_smc's routing: zsorted from N = 1024 on a card, dense below;
+    bulk and reference-noise runs on dense at every N (the resident
+    kernel's capacity set to 4096 rows on a CUDA device here); torch on
+    the CPU and in float64; and the refusals."""
+    import tpu_smc_torch.kernels.sweep as ks
+
+    monkeypatch.setattr(ks, "resident_fits", lambda n_pad, device=None,
+                        sites=0: (
+        str(device or "cuda") != "cuda" or n_pad <= 4096))
     c = tconfig.SMCConfig.for_n
     assert tcli._resolve_sampler("auto", c(108), "cuda") == "dense"
     assert tcli._resolve_sampler("auto", c(1024), "cuda") == "zsorted"
@@ -92,6 +103,15 @@ def test_resolve_sampler_routing():
                               "cuda")
     with pytest.raises(SystemExit):
         tcli._resolve_sampler("dense", c(108, dtype="float64"), "cuda")
+    bulk = tconfig.SMCConfig.bulk
+    for n in (108, 1024, 4000):
+        assert tcli._resolve_sampler("auto", bulk(n=n), "cuda") == "dense"
+        assert tcli._resolve_sampler("auto", c(n, reference_noise=True),
+                                     "cuda") == "dense"
+    assert tcli._resolve_sampler("auto", bulk(n=4000), "cpu") == "torch"
+    assert tcli._resolve_sampler("dense", c(108, m=10), "cuda") == "dense"
+    with pytest.raises(SystemExit, match="confined z"):
+        tcli._resolve_sampler("zsorted", bulk(n=1024), "cuda")
 
 
 def test_port_imports_without_jax():

@@ -4,6 +4,8 @@ tpu_smc.sampler.sweep in float64 under injected randomness, z-skip on/off
 bitwise, the Philox stream, and the interpret-mode Pallas engine's
 bookkeeping beside the port's dense engine."""
 
+import unittest.mock as um
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -138,6 +140,63 @@ def test_plain_kernel_matches_jax_sweep_float64(zskip):
     visited = diag["visited"].numpy()
     assert (visited < 2 * n * n).all() if zskip else \
         (visited == 2 * n * n).all()
+
+
+def test_plain_kernel_wall_grid_m10_matches_jax_float64():
+    """A 10 x 10 wall grid (100 sites: more than the CUDA kernel's old
+    64-site cap): sweep_block_plain is tpu_smc.sampler.sweep move for
+    move in float64 (tolerance 1e-10) in a box whose walls reach the
+    particles, and the launcher's input checks take mm = 100 (no site
+    cap left)."""
+    n, c, off = 30, 2, 4
+    kw = dict(n=n, m=10, box_l=6.0, box_lz=14.0, dtype="float64")
+    jc, tc = JConfig(**kw), TConfig(**kw)
+    w = build_walls(jc)[0]
+    assert w.shape == (100, 2)
+    rng = np.random.default_rng(10)
+    r = fcc_lattice(jc)[None] + rng.normal(0.0, 0.05, (c, n, 3))
+    noise = rng.normal(0.0, np.sqrt(2 * jc.proposal_a), (c, n, 3))
+    unif = rng.uniform(0.0, 1.0, (c, n))
+    keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.key(1), i))(
+        jnp.arange(c))
+    e0 = jax.vmap(lambda x: jpot.total_energy(x, jnp.asarray(w), jc))(
+        jnp.asarray(r))
+    ew = jax.vmap(lambda x: jpot.wall_energy_total(x, jnp.asarray(w), jc)
+                  - jpot.wall_energy_total(x, jnp.zeros_like(w), jc))(
+        jnp.asarray(r))
+    assert float(jnp.abs(ew).min()) > 1e-3     # the wall sites reach the slab
+    outs = []
+    for i in range(c):
+        with um.patch.object(jax.random, "normal",
+                             lambda *a, **k: jnp.asarray(noise[i]) / jnp.sqrt(
+                                 2.0 * jc.proposal_a)), \
+                um.patch.object(jax.random, "uniform",
+                                lambda *a, **k: jnp.asarray(unif[i])):
+            outs.append(jsam.sweep(jnp.asarray(r[i]), e0[i], keys[i],
+                                   jnp.asarray(w), jc, jc.proposal_a,
+                                   offset=jnp.int32(off)))
+    rj = np.stack([np.asarray(o[0]) for o in outs])
+    accj = np.asarray([int(o[3]) for o in outs])
+    assert 0 < accj.sum() < c * n
+
+    n_pad = ks.padded_rows(n)
+    x, y, z = (torch.cat([torch.as_tensor(r[..., k]).T, torch.full(
+        (n_pad - n, c), ks.PARK, dtype=torch.float64)]) for k in range(3))
+    wa, wb = (t.double() for t in ks.wall_coeff_rows(torch.as_tensor(w), tc))
+    g = torch.roll(torch.as_tensor(noise), -off, dims=1).permute(1, 0, 2)
+    args = (x, y, z, torch.as_tensor(np.array(e0))[None], wa, wb,
+            torch.tensor([off]), torch.zeros((1, 2), dtype=torch.int64))
+    x, y, z, e, _, atr = ks.sweep_block_plain(
+        *args, tc, 1, tc.proposal_a,
+        draws=(g[None], torch.as_tensor(unif).T[None]))
+    np.testing.assert_array_equal(atr[0].numpy(), accj)
+    np.testing.assert_allclose(ks.from_planes(x, y, z, tc).numpy(), rj,
+                               rtol=0, atol=1e-10)
+    np.testing.assert_allclose(e[0].numpy(),
+                               [float(o[1]) for o in outs], rtol=1e-10,
+                               atol=1e-10)
+    f32 = [t.float() for t in args[:6]] + list(args[6:])
+    assert ks._cuda_call(*f32, tc, 1, tc.proposal_a, None, None)[3] == 0
 
 
 def test_zskip_on_off_bitwise_plain():

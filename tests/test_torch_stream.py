@@ -187,7 +187,7 @@ def test_zsorted_auto_streams_when_resident_does_not_fit(monkeypatch):
         return fn
 
     monkeypatch.setattr(ks, "resident_fits",
-                        lambda n_pad, device=None: n_pad <= 512)
+                        lambda n_pad, device=None, sites=0: n_pad <= 512)
     monkeypatch.setattr(ks, "sweep_block", capture("resident"))
     monkeypatch.setattr(ks, "sweep_block_stream", capture("stream"))
     for n, force, route in ((520, None, "stream"), (512, None, "resident"),
@@ -204,12 +204,21 @@ def test_zsorted_auto_streams_when_resident_does_not_fit(monkeypatch):
 # Memory-bounded observables
 # ----------------------------------------------------------------------
 
-def _configs(n):
+def _configs(n, bulk=False):
     """Two chains of n particles: jammed (a dense random blob, ~20 bonds
     per particle within lca_cutoff, across the periodic x edge) and
-    gas-like (uniform in a slab, a few bonds)."""
-    cfg = JConfig.for_n(n, dtype="float64")
+    gas-like (uniform in a slab, a few bonds). bulk: in the rho = 0.5
+    cube of _config(n, True), the blob across the x and the z edge and
+    the second chain uniform in the cube."""
+    cfg = _config(JConfig, n, bulk)
     rng = np.random.default_rng(n)
+    if bulk:
+        side = (n / 0.9) ** (1.0 / 3.0)
+        jam = rng.uniform(-side / 2, side / 2, (n, 3)) + cfg.box_l / 2
+        jam[:, 1] -= cfg.box_l / 2
+        jam -= cfg.box_l * np.round(jam / cfg.box_l)
+        gas = rng.uniform(-0.5, 0.5, (n, 3)) * cfg.box_l
+        return np.stack([jam, gas])
     side = (n / 0.9) ** (1.0 / 3.0)
     jam = rng.uniform(-side / 2, side / 2, (n, 3))
     jam[:, 0] += cfg.box_l / 2
@@ -219,18 +228,48 @@ def _configs(n):
     return np.stack([jam, gas])
 
 
+def _config(cls, n, bulk):
+    """The default box for n, or the bulk fluid at rho = 0.5 (z periodic,
+    no walls); float64."""
+    if bulk:
+        return cls.bulk(n=n, temperature=1.5, rho=0.5, dtype="float64")
+    return cls.for_n(n, dtype="float64")
+
+
+def _z_image_pairs(r, cfg, cut):
+    """Pairs within `cut` of each other only through the periodic z
+    image, over the chains of r [C, N, 3]."""
+    d = r[:, :, None, :] - r[:, None, :, :]
+    d[..., :2] -= cfg.box_l * np.round(d[..., :2] / cfg.box_l)
+    dz = d[..., 2] - cfg.box_lz * np.round(d[..., 2] / cfg.box_lz)
+    near = d[..., 0] ** 2 + d[..., 1] ** 2 + dz ** 2 < cut * cut
+    return int((near & (np.abs(d[..., 2]) > cfg.box_lz / 2)).sum())
+
+
+# N, bulk: the default box (ids "108", "1024" as before) and the bulk
+# fluid at rho 0.5 with pairs across the z boundary
+OBS_CASES = pytest.mark.parametrize(
+    "n, bulk", [(108, False), (1024, False), (108, True), (256, True)],
+    ids=["108", "1024", "bulk108", "bulk256"])
+
+
 def _small_budget(monkeypatch, n):
     """A pair budget of 0.4 N^2 elements: row chunks of 0.2 N rows for
     two chains and pair batches of 0.4 N^2 / K^2 pairs."""
     monkeypatch.setattr(tpot, "PAIR_BUDGET", 2 * n * n // 5)
 
 
-@pytest.mark.parametrize("n", [108, 1024])
-def test_chunked_energy_pressure_match_jax(n, monkeypatch):
+@OBS_CASES
+def test_chunked_energy_pressure_match_jax(n, bulk, monkeypatch):
+    """Row-chunked pair energy, pair virial pressure and total energy
+    equal tpu_smc's within 1e-10 relative; in the bulk cases z takes the
+    minimum image and there is no wall term."""
     _small_budget(monkeypatch, n)
-    jc, tc = JConfig.for_n(n, dtype="float64"), \
-        TConfig.for_n(n, dtype="float64")
-    r = _configs(n)
+    jc, tc = _config(JConfig, n, bulk), _config(TConfig, n, bulk)
+    r = _configs(n, bulk)
+    if bulk:
+        assert tc.pbc_z and not tc.use_walls
+        assert _z_image_pairs(r, tc, tc.lj_cutoff) > n
     w = build_walls(jc)[0]
     rt, wt = torch.as_tensor(r), torch.as_tensor(w)
     assert tpot.pair_row_chunk(2, n) < n
@@ -245,14 +284,16 @@ def test_chunked_energy_pressure_match_jax(n, monkeypatch):
     np.testing.assert_allclose(got, want, rtol=1e-10, atol=0)
 
 
-@pytest.mark.parametrize("n", [108, 1024])
-def test_cna_neighbour_lists_match_jax(n, monkeypatch):
+@OBS_CASES
+def test_cna_neighbour_lists_match_jax(n, bulk, monkeypatch):
     """Neighbour-list CNA counts exactly tpu_smc's histograms on a jammed
-    and a gas-like chain, through several row chunks and pair batches."""
+    and a gas-like chain, through several row chunks and pair batches; in
+    the bulk cases bonds also form through the z image."""
     _small_budget(monkeypatch, n)
-    jc, tc = JConfig.for_n(n, dtype="float64"), \
-        TConfig.for_n(n, dtype="float64")
-    r = _configs(n)
+    jc, tc = _config(JConfig, n, bulk), _config(TConfig, n, bulk)
+    r = _configs(n, bulk)
+    if bulk:
+        assert _z_image_pairs(r, tc, tc.lca_cutoff) > n
     got = tobs.cluster_histograms_chains(torch.as_tensor(r), tc)
     analyse = jax.jit(lambda x: jobs.cluster_histograms(
         jobs.cluster_analysis(x, jc)))
@@ -263,7 +304,8 @@ def test_cna_neighbour_lists_match_jax(n, monkeypatch):
                                           np.asarray(want[k]))
     nbr = tobs.neighbour_lists(torch.as_tensor(r[0]), tc)
     assert nbr.shape[1] > 10 and int(got[0][0]) > 5 * n   # jammed
-    assert 0 < int(got[0][1]) < n                          # gas-like
+    if not bulk:
+        assert 0 < int(got[0][1]) < n                      # gas-like
 
 
 def test_cluster_analysis_all_pairs_match_jax(monkeypatch):
@@ -308,7 +350,8 @@ def test_cli_routes_large_n_to_the_streamed_engine(monkeypatch):
     none on the CPU, as in resident_fits)."""
     from tpu_smc_torch import cli as tcli
 
-    monkeypatch.setattr(ks, "resident_fits", lambda n_pad, device=None: (
+    monkeypatch.setattr(ks, "resident_fits", lambda n_pad, device=None,
+                        sites=0: (
         torch.device(device or "cuda").type != "cuda" or n_pad <= 1024))
     big, small = TConfig.for_n(2048), TConfig.for_n(1024)
     assert tcli._resolve_sampler("auto", big, "cuda") == "zsorted"

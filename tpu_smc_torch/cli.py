@@ -1,7 +1,7 @@
 """Command-line entry point of the port: the NVT chain-ensemble path of
 tpu_smc.cli (main.c equivalent), its temperature ladders (tsweep,
-parallel tempering, tuned mobility, MBAR reweighting) and quenched wall
-disorder.
+parallel tempering, tuned mobility, MBAR reweighting), quenched wall
+disorder and the bulk LJ fluid (--bulk, the SMC_noMPI_noWall.c variant).
 
     python -m tpu_smc_torch EQSTEPS MAXSTEPS NUMDATA T --chains C [options]
     python -m tpu_smc_torch EQSTEPS MAXSTEPS NUMDATA T --temperatures T1,T2,..
@@ -18,11 +18,11 @@ import time
 
 # Options of `python -m tpu_smc` that are not ported yet.
 NOT_PORTED = (
-    "--bulk", "--gr-bins", "--z-bins",
+    "--gr-bins", "--z-bins",
     "--widom", "--widom-bins", "--ptensor-bins", "--gcmc", "--gcmc-cap",
     "--gcmc-exchanges", "--gcmc-grid", "--npt", "--npt-grid", "--npt-dlnv",
     "--gibbs", "--gibbs-transfers", "--gibbs-cap", "--gibbs-temps",
-    "--npt-reweight", "--rho", "--lj-cutoff", "--sk-kmax", "--checkpoint",
+    "--npt-reweight", "--sk-kmax", "--checkpoint",
     "--resume", "--acf-mode", "--auto-checkpoint", "--fault-retries",
     "--health-checks", "--profile-dir", "--platform", "--x64",
     "--umbrella", "--umbrella-spring",
@@ -56,7 +56,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--storage-time", type=int, default=None, metavar="G",
                    help="gathers between position dumps (SMC.h:45)")
     p.add_argument("--gamma", type=float, default=None,
-                   help="A = gamma*T (main.c:51; default 1.0)")
+                   help="A = gamma*T (main.c:51; default 1.0, or the bulk "
+                        "variant's A=4e-8 equivalent under --bulk)")
+    p.add_argument("--bulk", action="store_true",
+                   help="bulk LJ fluid (SMC_noMPI_noWall.c variant)")
+    p.add_argument("--rho", type=float, default=None,
+                   help="bulk number density (default 0.1, "
+                        "SMC_noMPI_noWall.c:77); sets the box")
+    p.add_argument("--lj-cutoff", type=float, default=None, metavar="RC",
+                   help="pair cutoff (default: 3.0 with walls, L/2 bulk "
+                        "- the reference conventions)")
     p.add_argument("--dtype", choices=("float32", "float64"),
                    default="float32")
     p.add_argument("--data-dir", default="Data", help="output root (main.c:55)")
@@ -72,7 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "whole-sweep CUDA kernel, zsorted = the kernel with "
                         "exact z-block skipping; auto picks dense below "
                         "N=1024 and zsorted from N=1024 on a CUDA device in "
-                        "float32, torch otherwise")
+                        "float32 (dense at every N for --bulk), torch "
+                        "otherwise")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--temperatures", default=None, metavar="T1,T2,...",
                    help="temperature-ladder mode: chains at EVERY listed "
@@ -111,28 +121,46 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _resolve_sampler(requested: str, cfg, device: str) -> str:
     """--sampler auto: the kernel engines on a CUDA device in float32
-    (zsorted from N = 1024 when z is confined, dense below), the plain
-    engine otherwise — tpu_smc.cli._resolve_sampler's routing, whose
-    crossover chip_smoke.py times on the card (see PERF.md)."""
+    (zsorted from N = 1024 when z is confined and the noise i.i.d., dense
+    otherwise), the plain engine elsewhere — tpu_smc.cli._resolve_sampler's
+    routing, whose crossover chip_smoke.py times on the card (see
+    PERF.md)."""
     if requested == "zsorted" and cfg.reference_noise:
         raise SystemExit(
             "--sampler zsorted cannot honor reference_noise=True: the "
             "z-sorted move order permutes the bug-compatible noise-pair "
             "structure (docs/DEVIATIONS.md A8).")
+    if requested == "zsorted" and cfg.pbc_z:
+        raise SystemExit("--sampler zsorted assumes confined z (bulk pbc_z "
+                         "runs need --sampler dense)")
     if requested in ("dense", "zsorted") and cfg.dtype != "float32":
         raise SystemExit(f"--sampler {requested} runs float32; use "
                          "--sampler torch for --dtype float64")
     from . import ensemble as en
+    from .kernels import sweep as ks
 
-    if requested == "dense" and en.zsorted_streams(cfg.n, device):
+    if requested == "dense" and en.zsorted_streams(cfg, device):
         raise SystemExit(f"--sampler dense: N = {cfg.n} exceeds the resident "
                          "kernel's shared-memory capacity on this card; use "
                          "--sampler zsorted (the streamed kernel)")
     if requested != "auto":
-        return requested
-    if device != "cuda" or cfg.dtype != "float32" or cfg.reference_noise:
-        return "torch"
-    return "zsorted" if cfg.n >= 1024 and not cfg.pbc_z else "dense"
+        sampler = requested
+    elif device != "cuda" or cfg.dtype != "float32":
+        sampler = "torch"
+    elif cfg.n >= 1024 and not cfg.pbc_z and not cfg.reference_noise:
+        sampler = "zsorted"
+    else:
+        # reference noise stays dense: its fixed-label move order keeps
+        # the pair semantics the mode exists for (tpu_smc/cli.py:327-330)
+        sampler = "dense"
+    if sampler == "dense" and (cfg.pbc_z or cfg.reference_noise) \
+            and not ks.resident_fits(ks.padded_rows(cfg.n), device,
+                                     ks.wall_sites(cfg)):
+        raise SystemExit(f"N = {cfg.n} exceeds the resident kernel's "
+                         "shared-memory capacity on this card, and bulk and "
+                         "reference-noise runs have no streamed kernel; use "
+                         "--sampler torch or fewer particles")
+    return sampler
 
 
 def _engine_label(sampler: str, cfg, device: str) -> str:
@@ -140,7 +168,7 @@ def _engine_label(sampler: str, cfg, device: str) -> str:
     `ensemble.zsorted_streams` says so."""
     from . import ensemble as en
 
-    if sampler == "zsorted" and en.zsorted_streams(cfg.n, device):
+    if sampler == "zsorted" and en.zsorted_streams(cfg, device):
         return "zsorted (streamed)"
     return sampler
 
@@ -156,8 +184,13 @@ def main(argv=None) -> int:
     if args.chains < 2 and not args.temperatures:
         parser.exit(2, "tpu_smc_torch: the single-chain path (--chains 1) "
                        "is not yet ported; use --chains >= 2\n")
+    if args.rho is not None and not args.bulk:
+        raise SystemExit("--rho sets the bulk box; it needs --bulk (the slab "
+                         "geometry is fixed by --n/--m)")
     wall_k = max(1, args.wall_realizations)
     if wall_k > 1:
+        if args.bulk:
+            raise SystemExit("--wall-realizations: bulk mode has no walls")
         if args.temperatures and (args.chains_per_t < wall_k
                                   or args.chains_per_t % wall_k):
             raise SystemExit(f"--chains-per-t {args.chains_per_t} must be a "
@@ -195,8 +228,16 @@ def main(argv=None) -> int:
         gkw["lca_time"] = args.lca_time
     if args.storage_time is not None:
         gkw["storage_time"] = args.storage_time
-    cfg = SMCConfig.for_n(args.n, temperature=args.temperature,
-                          dtype=args.dtype, m=args.m, **gkw)
+    if args.lj_cutoff is not None:
+        gkw["lj_cutoff"] = args.lj_cutoff
+    if args.bulk:
+        if args.rho is not None:
+            gkw["rho"] = args.rho
+        cfg = SMCConfig.bulk(n=args.n, temperature=args.temperature,
+                             dtype=args.dtype, **gkw)
+    else:
+        cfg = SMCConfig.for_n(args.n, temperature=args.temperature,
+                              dtype=args.dtype, m=args.m, **gkw)
     params = RunParams(args.eqsteps, args.maxsteps, args.numdata)
     sampler = _resolve_sampler(args.sampler, cfg, args.device)
 

@@ -18,6 +18,12 @@ and cyclic offsets folded from a base key and the ABSOLUTE sweep counter
 sweep's words. Trajectories therefore do not depend on how a run is
 split into calls, and the plain engine makes exactly the kernel's draws.
 
+Bulk (cfg.pbc_z) and reference-noise (cfg.reference_noise) runs go
+through the plain and dense engines only, as in tpu_smc: z-skip assumes
+confined z, and the z-sorted move order would permute the reference's
+noise pairs (docs/DEVIATIONS.md A8). Reference noise is the pair stream
+of `kernels.sweep.reference_noise_plane`, by particle, in both engines.
+
 Every engine takes the mobility as the scalar `a` (temperature
 cfg.temperature) or as per-chain rows `a_per_chain` / `t_per_chain` [C]
 (both or neither: a temperature ladder); and the wall table shared [M*M, 2] or
@@ -71,7 +77,8 @@ def ensemble_sweeps(state: ChainState, w: torch.Tensor, cfg: SMCConfig,
                     t_per_chain=None):
     """n_sweeps sweeps of every chain on the plain PyTorch engine.
 
-    draws: None = the kernel's Philox draws of each sweep; or injected
+    draws: None = the kernel's Philox draws of each sweep (with
+    cfg.reference_noise its pair plane, by particle); or injected
     (noise [S, C, N, 3] by particle, unif [S, C, N] by move, offsets [S]).
     Returns (state, SweepStats [S, C] or None)."""
     if draws is None:
@@ -86,11 +93,17 @@ def ensemble_sweeps(state: ChainState, w: torch.Tensor, cfg: SMCConfig,
     for s in range(n_sweeps):
         off = int(offsets[s])
         if draws is None:
-            g, unif = ks.box_muller(ks.move_uniforms(words[s], cfg.n, c, dev,
-                                                     dt), s2a)
-            # move-indexed -> particle-indexed: move nn visits (nn+off)%n
-            noise = torch.roll(g, off, dims=0).permute(1, 0, 2)
-            unif = unif.T
+            u5 = ks.move_uniforms(words[s], cfg.n, c, dev, dt)
+            if cfg.reference_noise:
+                plane = ks.reference_noise_plane(words[s], cfg.n, c, s2a,
+                                                 dev, dt)
+                noise = plane[:3 * cfg.n].T.reshape(c, cfg.n, 3)
+                unif = u5[..., 4].T
+            else:
+                g, unif = ks.box_muller(u5, s2a)
+                # move-indexed -> particle-indexed: move nn visits (nn+off)%n
+                noise = torch.roll(g, off, dims=0).permute(1, 0, 2)
+                unif = unif.T
         else:
             noise, unif = draws[0][s], draws[1][s]
         state, st = sweep_state(state, w, cfg, a, noise, unif, off,
@@ -130,7 +143,8 @@ def ensemble_sweeps_dense(state: ChainState, w: torch.Tensor,
     kernel (counterpart of ensemble_sweeps_pallas). The state stays in
     real units, so the result does not depend on call boundaries. On a
     CUDA device beyond the resident kernel's capacity it raises, naming
-    the streamed engine (ensemble_sweeps_zsorted)."""
+    the streamed engine (ensemble_sweeps_zsorted) where the mode has one
+    (bulk and reference-noise runs do not)."""
     a, t = _chain_at(a, cfg, a_per_chain, t_per_chain)
     words, offsets = _per_sweep_randomness(state, cfg, seed, n_sweeps)
     x, y, z, e, wa, wb = _kernel_inputs(state, w, cfg)
@@ -149,11 +163,16 @@ def zsort_cadence(n: int) -> int:
     return 16 if n <= 1024 else 8
 
 
-def zsorted_streams(n: int, device) -> bool:
+def zsorted_streams(cfg: SMCConfig, device) -> bool:
     """Whether ensemble_sweeps_zsorted runs the streamed kernel by default
-    for n particles on `device`: exactly when the resident kernel does
-    not fit (`kernels.sweep.resident_fits`; never on the CPU)."""
-    return not ks.resident_fits(ks.padded_rows(n), device)
+    for cfg on `device`: exactly when the resident kernel does not fit
+    (`kernels.sweep.resident_fits`; never on the CPU), and never for bulk
+    or reference-noise runs, which have no streamed kernel (tpu_smc's
+    `stream_ok`, tpu_smc/ensemble.py:434)."""
+    if cfg.pbc_z or cfg.reference_noise:
+        return False
+    return not ks.resident_fits(ks.padded_rows(cfg.n), device,
+                                ks.wall_sites(cfg))
 
 
 def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
@@ -171,7 +190,7 @@ def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
     and the positions CSV keep particle identity.
 
     hbm_stream: run the streamed kernel (planes in device memory) instead
-    of the resident one; None = `zsorted_streams(n, device)`. The two
+    of the resident one; None = `zsorted_streams(cfg, device)`. The two
     are bitwise equal on the same rows, so the switch changes capacity
     and speed, not results."""
     if n_sweeps < 1:
@@ -182,7 +201,7 @@ def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
     words, offsets = _per_sweep_randomness(state, cfg, seed, n_sweeps)
     x, y, z, e, wa, wb = _kernel_inputs(state, w, cfg)
     if hbm_stream is None:
-        hbm_stream = zsorted_streams(n, x.device)
+        hbm_stream = zsorted_streams(cfg, x.device)
     idx = torch.arange(n, device=x.device)[:, None].expand(n, c)
     e_pieces, a_pieces = [], []
     k0 = 0

@@ -3,9 +3,12 @@ their plain PyTorch versions, the plane adapters and the capacity query.
 
 Counterpart of tpu_smc/kernels/sweep_pallas.py `pallas_sweep_block` in its
 dense and zskip modes, with per-chain (A, T) (`per_chain_at`) and per-chain
-wall coefficients (`per_chain_w`), and of its hbm_stream mode
-(`_pallas_sweep_block_stream`). `sweep_block` launches the resident kernel
-(planes in shared memory, N_pad up to `capacity(device)[0]`) and
+wall coefficients (`per_chain_w`), in bulk (`cfg.pbc_z`, `use_walls=False`)
+and in reference-noise mode (`cfg.reference_noise`, dense only, as on the
+TPU), of its hbm_stream mode (`_pallas_sweep_block_stream`), and of the
+test-only `debug_reference_noise` (`reference_noise_plane` is its plain
+version). `sweep_block` launches the resident kernel
+(planes in shared memory, N_pad up to `capacity(device, sites)[0]`) and
 `sweep_block_stream` the streamed kernel K3 (planes in device memory,
 chain-major for the call) for CUDA tensors; for CPU tensors they run
 `sweep_block_plain` and `sweep_block_stream_plain`. Nothing else selects
@@ -109,6 +112,53 @@ def move_uniforms(words, n: int, c: int, device=None,
     return unit_uniform(torch.stack(b + [b4], dim=-1), dtype)
 
 
+def noise_rows(n: int) -> int:
+    """Rows of a reference-noise plane for n particles: the flat [3N]
+    noise vector padded to a multiple of 8 (the TPU kernel's flat_pad)."""
+    return _round_up(3 * n, 8)
+
+
+def pair_uniforms(words, pairs: int, c: int, device=None,
+                  dtype=torch.float32) -> torch.Tensor:
+    """The uniforms (u1, u2) of reference-noise pairs 0..pairs-1 of every
+    chain: [pairs, c, 2], Philox of counters (pair, chain, 2, 0) under
+    the sweep's seed words (tag 2: apart from the move counters)."""
+    k = torch.arange(pairs, dtype=torch.int64, device=device)[:, None]
+    ch = torch.arange(c, dtype=torch.int64, device=device)[None, :]
+    k, ch = torch.broadcast_tensors(k, ch)
+    z = torch.zeros_like(k)
+    b = philox4x32(k, ch, z + 2, z, torch.full_like(k, int(words[0])),
+                   torch.full_like(k, int(words[1])))
+    return unit_uniform(torch.stack(b[:2], dim=-1), dtype)
+
+
+def pair_noise(u1: torch.Tensor, u2: torch.Tensor, s2a):
+    """The reference's dependent Box-Muller pair (matematicose.c:187-192)
+    with scale s2a = sqrt(2A): d0 = s sqrt(-2 ln(1-u1)) cos 2 pi u2 and
+    d1 = s sqrt(-2 ln(1-u2)) sin 2 pi u1, the kernel's operation order."""
+    two_pi = 2.0 * math.pi
+    d0 = torch.sqrt(-2.0 * torch.log1p(-u1)) * s2a * torch.cos(two_pi * u2)
+    d1 = torch.sqrt(-2.0 * torch.log1p(-u2)) * s2a * torch.sin(two_pi * u1)
+    return d0, d1
+
+
+def _pair_plane(u: torch.Tensor, s2a) -> torch.Tensor:
+    """Pair uniforms [P, C, 2] -> the flat noise plane [2P, C]: row 2k + q
+    holds component q of pair k."""
+    d0, d1 = pair_noise(u[..., 0], u[..., 1], s2a)
+    return torch.stack([d0, d1], dim=1).reshape(-1, u.shape[1])
+
+
+def reference_noise_plane(words, n: int, c: int, s2a, device=None,
+                          dtype=torch.float32) -> torch.Tensor:
+    """Plain version of K5 (`debug_reference_noise`): the reference-noise
+    plane [noise_rows(n), c] of one sweep's seed words, the pairs the
+    kernel draws in reference-noise mode; particle i's proposal noise is
+    rows 3i..3i+2. s2a: scalar or one value per chain."""
+    return _pair_plane(pair_uniforms(words, noise_rows(n) // 2, c, device,
+                                     dtype), s2a)
+
+
 def box_muller(u: torch.Tensor, s2a):
     """Proposal noise [.., 3] and acceptance uniform from 5 uniforms, the
     TPU kernel's recipe (3 Gaussians with sigma sqrt(2A) + 1 uniform);
@@ -192,13 +242,15 @@ def _lane_sums(t: torch.Tensor) -> torch.Tensor:
 def _pair_pass(qx, qy, qz, x, y, z, rows, cfg: SMCConfig):
     """LJ energy and force sums [C] of queries [C] against rows [R, C] of
     the planes (R from a block boundary); `rows` [R, C] bool restricts
-    them (None = all)."""
+    them (None = all). z takes the minimum image too under cfg.pbc_z."""
     inv_l = 1.0 / cfg.box_l
     dx = qx - x
     dx = dx - cfg.box_l * torch.round(dx * inv_l)
     dy = qy - y
     dy = dy - cfg.box_l * torch.round(dy * inv_l)
     dz = qz - z
+    if cfg.pbc_z:
+        dz = dz - cfg.box_lz * torch.round(dz * (1.0 / cfg.box_lz))
     dr2 = dx * dx + dy * dy + dz * dz
     mask = dr2 < cfg.cutoff2
     if rows is not None:
@@ -302,15 +354,24 @@ def sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
     the acceptance uses the unwrapped displacement, and zskip restricts
     each pass to the block envelope the kernel visits. Pair sums add each
     lane's rows in ascending block order, then the lanes (`_lane_sums`).
+    Under cfg.pbc_z z wraps too, in the pair pass and the proposal, so
+    the mover and the pads are masked by row id instead of parked; the
+    wall terms are skipped when not cfg.use_walls. With
+    cfg.reference_noise the proposal noise of particle i is rows
+    3i..3i+2 of the sweep's pair plane (`reference_noise_plane`). Both
+    modes are dense only, as on the TPU.
 
     draws: None = the kernel's own Philox stream, bit for bit (exact
-    mode); or injected (g [S, N, C, 3] proposal noise already scaled by
-    sqrt(2A), u [S, N, C] acceptance uniforms), indexed by MOVE.
+    mode); or injected: (g [S, N, C, 3] proposal noise already scaled by
+    sqrt(2A), u [S, N, C] acceptance uniforms), g indexed by MOVE; with
+    cfg.reference_noise (pair uniforms [S, P, C, 2] with 2P >= 3N, u),
+    made into the pair plane by the kernel's recipe and read by particle.
     diag: optional dict; filled with "visited" [C] (pair rows visited),
     "min_gap" [C] (smallest |min(log_ap, 0) - log u| of any move),
     "near_ties" [C] (moves with that gap below diag["tie_margin"],
     default 0) and, when it holds "uniforms": True on entry, the kernel's
-    uniforms [S, C, N, 5] in exact mode.
+    uniforms [S, C, N, 5] in exact mode (with reference noise (u1, u2) of
+    the move's two pairs, then the acceptance uniform).
 
     Returns (x, y, z, e [1, C], e_trace [S, C], acc_trace [S, C] int32)."""
     return _sweep_plain(x, y, z, e, wa, wb, offsets, seeds, cfg, n_sweeps,
@@ -330,12 +391,21 @@ def sweep_block_stream_plain(x, y, z, e, wa, wb, offsets, seeds,
                         a, "stream", draws, diag, temperature)
 
 
+def _dense_only(cfg: SMCConfig, mode: str) -> None:
+    """Bulk and reference-noise sweeps run dense only, in both versions:
+    z-skip assumes confined z and a fixed row order (the TPU kernel
+    refuses zskip under pbc_z, sweep_pallas.py:271-272, and never streams
+    either mode, tpu_smc/ensemble.py:434)."""
+    if mode != "dense" and (cfg.pbc_z or cfg.reference_noise):
+        raise NotImplementedError(
+            f"the {mode} sweep takes neither pbc_z nor reference_noise; "
+            "they run on the dense sweep only")
+
+
 def _sweep_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
                  n_sweeps: int, a, mode: str, draws, diag, temperature):
     """The plain sweep loop; mode "dense", "zskip" or "stream"."""
-    if cfg.reference_noise or cfg.pbc_z or not cfg.use_walls:
-        raise NotImplementedError(
-            "the sweep kernel implements walls + i.i.d. noise only")
+    _dense_only(cfg, mode)
     x, y, z, e = x.clone(), y.clone(), z.clone(), e.clone().reshape(-1)
     n, (n_pad, c) = cfg.n, x.shape
     dt, dev = x.dtype, x.device
@@ -351,6 +421,7 @@ def _sweep_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
     tie_margin = float(diag.get("tie_margin", 0.0)) if diag else 0.0
     dump = [] if diag is not None and diag.get("uniforms") else None
     rows_j = torch.arange(n_pad, device=dev)[:, None]
+    rn, park = cfg.reference_noise, not cfg.pbc_z and mode != "stream"
 
     def pass_sums(qx, qy, qz, i):
         """Pair sums of the queries against the planes and rows visited."""
@@ -362,17 +433,33 @@ def _sweep_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
             b_lo, b_hi = _envelope(sbmin, sbmax, qz - zcut, qz + zcut)
             rows = (rows_j >= b_lo * ROW_BLOCK) & (rows_j < b_hi * ROW_BLOCK)
         cnt = n_pad if rows is None else rows.sum(0)
+        if cfg.pbc_z:
+            # a wrapped park value lands in the box: mask mover and pads
+            rows = (rows_j != i) & (rows_j < n)
         return _pair_pass(qx, qy, qz, x, y, z, rows, cfg), cnt
 
     for s in range(n_sweeps):
         off = int(offsets[s])
         if draws is None:
             u5 = move_uniforms(seeds[s], n, c, dev, dt)
-            if dump is not None:
+            u_all = u5[..., 4]
+            if rn:
+                up = pair_uniforms(seeds[s], noise_rows(n) // 2, c, dev, dt)
+            else:
+                g_all, u_all = box_muller(u5, s2a)
+            if dump is not None and rn:
+                # the kernel's dump: (u1, u2) of the move's two pairs, u_acc
+                k = 3 * ((torch.arange(n, device=dev) + off) % n) // 2
+                dump.append(torch.cat([up[k], up[k + 1], u5[..., 4:]],
+                                      dim=-1).permute(1, 0, 2))
+            elif dump is not None:
                 dump.append(u5.permute(1, 0, 2))
-            g_all, u_all = box_muller(u5, s2a)
+        elif rn:
+            up, u_all = draws[0][s], draws[1][s]
         else:
             g_all, u_all = draws[0][s], draws[1][s]
+        if rn:
+            plane = _pair_plane(up, s2a)
         if mode != "dense":
             # exact bounds of the real rows per block at sweep start
             zp = torch.cat([z, z.new_full((nb * ROW_BLOCK - n_pad, c), PARK)])
@@ -384,16 +471,19 @@ def _sweep_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
         for nn in range(n):
             i = (nn + off) % n
             xi, yi, zi = x[i].clone(), y[i].clone(), z[i].clone()
-            if mode != "stream":
+            if park:
                 x[i] = PARK
                 y[i] = PARK
                 z[i] = PARK
             (um, fmx, fmy, fmz), cnt = pass_sums(xi, yi, zi, i)
             visited += cnt
-            uw, wx, wy, wz = _wall_terms(xi, yi, zi, wa, wb, cfg)
-            um, fmx, fmy, fmz = um + uw, fmx + wx, fmy + wy, fmz + wz
+            if cfg.use_walls:
+                uw, wx, wy, wz = _wall_terms(xi, yi, zi, wa, wb, cfg)
+                um, fmx, fmy, fmz = um + uw, fmx + wx, fmy + wy, fmz + wz
 
-            g, u_acc = g_all[nn], u_all[nn]
+            # noise by particle id (displ[3n], SMC.c:309) or by move
+            g = plane[3 * i:3 * i + 3].T if rn else g_all[nn]
+            u_acc = u_all[nn]
             ddx = fmx * a_t + g[:, 0]
             ddy = fmy * a_t + g[:, 1]
             ddz = fmz * a_t + g[:, 2]
@@ -402,11 +492,14 @@ def _sweep_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
             py = yi + ddy
             py = py - cfg.box_l * torch.round(py * (1.0 / cfg.box_l))
             pz = zi + ddz
+            if cfg.pbc_z:
+                pz = pz - cfg.box_lz * torch.round(pz * (1.0 / cfg.box_lz))
 
             (un, fnx, fny, fnz), cnt = pass_sums(px, py, pz, i)
             visited += cnt
-            uw, wx, wy, wz = _wall_terms(px, py, pz, wa, wb, cfg)
-            un, fnx, fny, fnz = un + uw, fnx + wx, fny + wy, fnz + wz
+            if cfg.use_walls:
+                uw, wx, wy, wz = _wall_terms(px, py, pz, wa, wb, cfg)
+                un, fnx, fny, fnz = un + uw, fnx + wx, fny + wy, fnz + wz
 
             dfx, dfy, dfz = fnx - fmx, fny - fmy, fnz - fmz
             dw_term = (dfx * dfx + dfy * dfy + dfz * dfz
@@ -486,42 +579,52 @@ def build() -> ctypes.CDLL:
     _Build.seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.smc_sweep_launch.argtypes = [P] * 17 + [I] * 7 + [D] * 6 + [P]
+    lib.smc_sweep_launch.argtypes = [P] * 17 + [I] * 10 + [D] * 6 + [P]
     lib.smc_sweep_launch.restype = I
-    lib.smc_sweep_stream_launch.argtypes = [P] * 14 + [I] * 6 + [D] * 6 + [P]
+    lib.smc_sweep_stream_launch.argtypes = [P] * 14 + [I] * 7 + [D] * 6 + [P]
     lib.smc_sweep_stream_launch.restype = I
-    lib.smc_sweep_capacity.argtypes = [I] + [ctypes.POINTER(
+    lib.smc_sweep_capacity.argtypes = [I, I] + [ctypes.POINTER(
         ctypes.c_longlong)] * 2
     lib.smc_sweep_capacity.restype = I
+    lib.smc_debug_reference_noise.argtypes = [P] + [I] * 4 + [D, P]
+    lib.smc_debug_reference_noise.restype = I
     _Build.lib = lib
     return lib
 
 
-def capacity(device) -> tuple[int, int]:
+def wall_sites(cfg: SMCConfig) -> int:
+    """Wall sites whose coefficients a launch for cfg holds in shared
+    memory: M*M, none without walls."""
+    return cfg.m * cfg.m if cfg.use_walls else 0
+
+
+def capacity(device, sites: int = 0) -> tuple[int, int]:
     """(resident, streamed): the largest N_pad each kernel takes on the
-    CUDA `device`. The resident kernel holds three planes in shared
-    memory (the device's opt-in limit per block, cudaDevAttrMaxShared
-    MemoryPerBlockOptin, beside the kernel's static shared memory) and
-    at most MAX_BLOCKS = 256 blocks of 128 rows; the streamed kernel
-    holds only two floats of block bounds per 128 rows."""
+    CUDA `device` with `sites` wall sites (`wall_sites(cfg)`). The
+    resident kernel holds three planes and the 2 x sites wall
+    coefficients in shared memory (the device's opt-in limit per block,
+    cudaDevAttrMaxSharedMemoryPerBlockOptin, beside the kernel's static
+    shared memory) and at most MAX_BLOCKS = 256 blocks of 128 rows; the
+    streamed kernel holds the wall coefficients and two floats of block
+    bounds per 128 rows."""
     idx = torch.device(device).index
     idx = torch.cuda.current_device() if idx is None else idx
-    if idx not in _Build.capacity:
+    if (idx, sites) not in _Build.capacity:
         res, stream = ctypes.c_longlong(), ctypes.c_longlong()
-        err = build().smc_sweep_capacity(idx, ctypes.byref(res),
+        err = build().smc_sweep_capacity(idx, sites, ctypes.byref(res),
                                          ctypes.byref(stream))
         if err != 0:
             raise RuntimeError(f"smc_sweep_capacity failed: cudaError {err}")
-        _Build.capacity[idx] = (res.value, stream.value)
-    return _Build.capacity[idx]
+        _Build.capacity[idx, sites] = (res.value, stream.value)
+    return _Build.capacity[idx, sites]
 
 
-def resident_fits(n_pad: int, device=None) -> bool:
-    """Whether the resident kernel takes N_pad rows on `device` (default:
-    the current CUDA device). The plain versions that CPU tensors run
-    have no such limit."""
+def resident_fits(n_pad: int, device=None, sites: int = 0) -> bool:
+    """Whether the resident kernel takes N_pad rows and `sites` wall
+    sites on `device` (default: the current CUDA device). The plain
+    versions that CPU tensors run have no such limit."""
     device = torch.device("cuda") if device is None else torch.device(device)
-    return device.type != "cuda" or n_pad <= capacity(device)[0]
+    return device.type != "cuda" or n_pad <= capacity(device, sites)[0]
 
 
 def chain_major(x, y, z):
@@ -545,9 +648,6 @@ def _cuda_call(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
     """Checked inputs and fresh outputs of one launch of either kernel:
     (offsets, seeds, scales, w_stride, e_out, e_trace, acc_trace,
     visited, u_dump), the last two None unless `diag` asks."""
-    if cfg.reference_noise or cfg.pbc_z or not cfg.use_walls:
-        raise NotImplementedError(
-            "the sweep kernel implements walls + i.i.d. noise only")
     n_pad, c = x.shape
     dev = x.device
     f32 = torch.float32
@@ -583,7 +683,8 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
-def _count(kind: str, a, temperature, w_stride: int, diag, visited, u_dump):
+def _count(kind: str, cfg: SMCConfig, a, temperature, w_stride: int, diag,
+           visited, u_dump):
     """Count a launch by kind and mode; hand the diagnostics over."""
     launches = sweep_block.launches
     launches[kind] += 1
@@ -591,6 +692,12 @@ def _count(kind: str, a, temperature, w_stride: int, diag, visited, u_dump):
         launches["per_chain_at"] += 1
     if w_stride:
         launches["per_chain_w"] += 1
+    if cfg.pbc_z:
+        launches["pbc_z"] += 1
+    if not cfg.use_walls:
+        launches["no_walls"] += 1
+    if cfg.reference_noise:
+        launches["reference_noise"] += 1
     if diag is not None:
         diag["visited"] = visited
         if u_dump is not None:
@@ -606,17 +713,22 @@ def _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
                       n_sweeps: int, a, zskip: bool, diag, temperature):
     n_pad, c = x.shape
     dev = x.device
+    _dense_only(cfg, "zskip" if zskip else "dense")
     (offsets, seeds, scales, w_stride, eo, e_tr, a_tr, visited,
      u_dump) = _cuda_call(x, y, z, e, wa, wb, offsets, seeds, cfg, n_sweeps,
                           a, diag, temperature)
-    if not resident_fits(n_pad, dev):
+    sites = wall_sites(cfg)
+    if not resident_fits(n_pad, dev, sites):
+        instead = ("bulk (pbc_z) and reference-noise sweeps have no "
+                   "streamed kernel (nor in tpu_smc): run fewer particles "
+                   "or the plain engine" if cfg.pbc_z or cfg.reference_noise
+                   else "run the streamed kernel instead (sweep_block_stream, "
+                   "or ensemble_sweeps_zsorted, which routes there by itself)")
         raise ValueError(
             f"N_pad = {n_pad} rows exceed the resident sweep kernel's "
             f"capacity on {torch.cuda.get_device_name(dev)} "
-            f"({capacity(dev)[0]} rows: three planes in shared memory, at "
-            "most 256 blocks); run the streamed kernel instead "
-            "(sweep_block_stream, or ensemble_sweeps_zsorted, which "
-            "routes there by itself)")
+            f"({capacity(dev, sites)[0]} rows: three planes and {sites} "
+            f"wall sites in shared memory, at most 256 blocks); {instead}")
     lib = build()
     xo, yo, zo = (torch.empty_like(x) for _ in range(3))
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -627,11 +739,12 @@ def _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
             scales.data_ptr(), xo.data_ptr(), yo.data_ptr(), zo.data_ptr(),
             eo.data_ptr(), e_tr.data_ptr(), a_tr.data_ptr(), _ptr(visited),
             _ptr(u_dump), cfg.n, n_pad, c, n_sweeps, cfg.m, int(bool(zskip)),
-            w_stride, *_geometry(cfg), stream)
+            w_stride, int(cfg.pbc_z), int(cfg.use_walls),
+            int(cfg.reference_noise), *_geometry(cfg), stream)
     if err != 0:
         raise RuntimeError(f"smc_sweep_launch failed: cudaError {err}")
-    _count("zskip" if zskip else "dense", a, temperature, w_stride, diag,
-           visited, u_dump)
+    _count("zskip" if zskip else "dense", cfg, a, temperature, w_stride,
+           diag, visited, u_dump)
     return xo, yo, zo, eo, e_tr, a_tr
 
 
@@ -640,12 +753,14 @@ def _sweep_block_stream_cuda(x, y, z, e, wa, wb, offsets, seeds,
                              temperature):
     n_pad, c = x.shape
     dev = x.device
+    _dense_only(cfg, "stream")
     (offsets, seeds, scales, w_stride, eo, e_tr, a_tr, visited,
      u_dump) = _cuda_call(x, y, z, e, wa, wb, offsets, seeds, cfg, n_sweeps,
                           a, diag, temperature)
-    if n_pad > capacity(dev)[1]:
+    rows = capacity(dev, wall_sites(cfg))[1]
+    if n_pad > rows:
         raise ValueError(f"N_pad = {n_pad} rows exceed the streamed sweep "
-                         f"kernel's capacity ({capacity(dev)[1]} rows)")
+                         f"kernel's capacity ({rows} rows)")
     lib = build()
     xc, yc, zc = chain_major(x, y, z)        # updated in place by the kernel
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -655,10 +770,10 @@ def _sweep_block_stream_cuda(x, y, z, e, wa, wb, offsets, seeds,
             wa.data_ptr(), wb.data_ptr(), offsets.data_ptr(), seeds.data_ptr(),
             scales.data_ptr(), eo.data_ptr(), e_tr.data_ptr(), a_tr.data_ptr(),
             _ptr(visited), _ptr(u_dump), cfg.n, n_pad, c, n_sweeps, cfg.m,
-            w_stride, *_geometry(cfg), stream)
+            w_stride, int(cfg.use_walls), *_geometry(cfg), stream)
     if err != 0:
         raise RuntimeError(f"smc_sweep_stream_launch failed: cudaError {err}")
-    _count("stream", a, temperature, w_stride, diag, visited, u_dump)
+    _count("stream", cfg, a, temperature, w_stride, diag, visited, u_dump)
     return (*chain_major(xc, yc, zc), eo, e_tr, a_tr)
 
 
@@ -675,8 +790,10 @@ def sweep_block(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
     `sweep_block.launches`: by kernel ("dense", "zskip", or "stream" for
     sweep_block_stream), and also as "per_chain_at" when a or
     temperature is per-chain and "per_chain_w" with per-chain wall
-    tables. N_pad beyond `capacity(device)[0]` raises, naming the
-    streamed kernel. CPU tensors go through the plain version.
+    tables, and by mode as "pbc_z", "no_walls" (use_walls=False) and
+    "reference_noise" (both dense only). N_pad beyond
+    `capacity(device, wall_sites(cfg))[0]` raises, naming the streamed kernel where the
+    mode has one. CPU tensors go through the plain version.
     zskip: rows must be z-sorted per chain for the skips to pay; results
     are bitwise those of zskip=False on the same row order.
 
@@ -705,5 +822,30 @@ def sweep_block_stream(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
                                     temperature=temperature)
 
 
+def debug_reference_noise(words, n: int, c: int, s2a: float, device="cuda"):
+    """K5: one reference-noise plane [noise_rows(n), c] float32 for the
+    seed words (w0, w1) and the scale s2a = sqrt(2A), from the device
+    function the reference-noise sweep draws its pairs with (test-only,
+    as tpu_smc's debug_reference_noise). A CUDA `device` launches the
+    kernel and counts a "debug_reference_noise" launch in
+    sweep_block.launches; the CPU runs reference_noise_plane."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return reference_noise_plane(words, n, c, float(s2a), device)
+    rows = noise_rows(n)
+    out = torch.empty((rows, c), dtype=torch.float32, device=device)
+    lib = build()
+    with torch.cuda.device(device):
+        err = lib.smc_debug_reference_noise(
+            out.data_ptr(), rows, c, int(words[0]), int(words[1]),
+            float(s2a), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"smc_debug_reference_noise failed: cudaError {err}")
+    sweep_block.launches["debug_reference_noise"] += 1
+    return out
+
+
 sweep_block.launches = {"dense": 0, "zskip": 0, "stream": 0,
-                        "per_chain_at": 0, "per_chain_w": 0}
+                        "per_chain_at": 0, "per_chain_w": 0, "pbc_z": 0,
+                        "no_walls": 0, "reference_noise": 0,
+                        "debug_reference_noise": 0}

@@ -19,6 +19,10 @@ per chain (temperature ladders, tsweep.py), and the wall table is shared
 [M*M, 2] or per chain [C, M*M, 2] (quenched disorder). Randomness is
 injected: the caller passes the proposal noise (indexed by particle, like
 the reference's displ[3n]) and the acceptance uniforms (indexed by move).
+With cfg.reference_noise that noise is the reference's dependent
+Box-Muller pair vector (matematicose.c:187-192, tpu_smc.sampler's
+reference_noise branch), which ensemble.ensemble_sweeps draws from the
+counter-based pair stream (kernels.sweep.reference_noise_plane).
 """
 
 from __future__ import annotations
@@ -56,12 +60,11 @@ def sweep(r: torch.Tensor, energy: torch.Tensor, w: torch.Tensor,
     """One sweep of every chain.
 
     r [C, N, 3], energy [C]; noise [C, N, 3] is the proposal noise
-    sqrt(2A) * xi by particle, unif [C, N] the acceptance uniforms by
-    move, offset the shared cyclic start (SMC.c:290). a, temperature:
-    scalars or [C] (None = cfg.temperature); w [M*M, 2] or [C, M*M, 2].
+    sqrt(2A) * xi by particle (the pair recipe's under
+    cfg.reference_noise), unif [C, N] the acceptance uniforms by move,
+    offset the shared cyclic start (SMC.c:290). a, temperature: scalars
+    or [C] (None = cfg.temperature); w [M*M, 2] or [C, M*M, 2].
     Returns (r, energy, n_accepted [C])."""
-    if cfg.reference_noise:
-        raise NotImplementedError("reference_noise: not yet ported")
     n = cfg.n
     t = cfg.temperature if temperature is None else temperature
     if torch.is_tensor(a) or torch.is_tensor(t):
