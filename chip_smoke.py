@@ -8,7 +8,10 @@ walls), the disordered ensemble (N = 108 x 512, 8 walls), the large-N
 confined ensemble on the streamed kernel (N = 32768 x 128 chains, through
 simulate_ensemble and through the CLI), the bulk fluid (N = 4000 x 128
 and N = 32 x 512 through the CLI), the bug-compatible reference-noise
-ensemble (N = 108 x 512) and a 10 x 10 wall grid (N = 108 x 512).
+ensemble (N = 108 x 512), a 10 x 10 wall grid (N = 108 x 512), and the
+two experimental engines, zsorted with the 2-D x-slice skip (K1-xs) and
+the z-banded random-scan kernel (K4), held with zsorted against dense at
+N = 1024 x 256 chains.
 
     python3 chip_smoke.py
 
@@ -36,7 +39,13 @@ Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
      noise mode K1-rn at N = 108 x 64, K5 against reference_noise_plane
      (within 1e-6) with the pair moments on a [3 * 4096, 256] plane, K1
      at M = 10 (100 wall sites) at N = 108 x 512 and K3 at M = 10 at
-     N = 108 x 64, each against its plain version as above;
+     N = 108 x 64, each against its plain version as above; then K1-xs
+     (the 2-D pass) against its plain version at N = 256 x 64 (k = 2)
+     and bitwise K1 on the same 2-D-sorted rows at N = 1024 x 128 for k
+     = 4 and 8, from the equilibrated ensemble (400 dense sweeps from
+     the lattice) and from a cluster at the x seam, and K4 against its
+     plain version at N = 1024 x 64, one sweep (the same schedule,
+     fallback counts equal, carried E against a recompute);
   3. the main path: `tpu_smc_torch.cli.main` at N = 1024 x 512 chains
      (auto -> zsorted, z-skip launches) and N = 108 x 512 (auto -> dense),
      each reproducing the mean energy and acceptance recorded for it
@@ -64,7 +73,11 @@ Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
      beside i.i.d. noise at the same seed (both mean energies and the
      offset reported; the run's own noise of 64 sweeps dumped through K5,
      each plane within 1e-6 of reference_noise_plane, holds the pair
-     moments), and the CLI with --m 10 at N = 108 x 512;
+     moments), and the CLI with --m 10 at N = 108 x 512; then
+     scripts/validate_banded.py's contract: from the equilibrated N =
+     1024 x 256 ensemble, 200 sweeps each through the dense, zsorted,
+     zsorted + xsort 4 and banded engines, each within 4 combined SE of
+     dense in mean E and within 0.01 in acceptance;
   4. at the main path's shapes (N = 108 x 512 dense, N = 1024 x 512
      z-skip): kernel vs plain as in phase 2, the plain time and the
      bound, for the uniform form and for per-chain (A, T) and per-chain
@@ -78,7 +91,11 @@ Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
      at sort cadences 8 and 16 (N = 1024 x 512); K1-pbc at N = 4000 x
      128 and K1-rn at N = 108 x 512 against their plain versions and
      timed in the same turns as K1, and K5 on one plane of the reference-
-     noise run ([328, 512]).
+     noise run ([328, 512]); K1-xs (k = 4) at N = 1024 x 256 against its
+     plain version and timed in the same turns, K1-xs (k = 4, 8) beside
+     K2 in turns at scripts/probe_xsort.py's N = 1024 x 512 and 4096 x
+     256, and K4 at N = 1024 x 256 against its plain version and beside
+     K2 per sweep in turns.
 
 Each phase prints its elapsed seconds; any failure exits non-zero before
 the result lines. The last two lines are the kernel table (JSON) and
@@ -195,11 +212,14 @@ def card_line() -> str:
 # ----------------------------------------------------------------------
 
 def kernel_inputs(n: int, c: int, device, seed: int = 11, sweeps: int = 2,
-                  sort: bool = False, walls: int = 0, cfg=None, r0=None):
+                  sort: bool = False, walls: int = 0, cfg=None, r0=None,
+                  xsort: int = 0):
     """Planes of an FCC-started ensemble (default box, or `cfg`; or the
     start r0 [n, 3]), advanced one sweep on the dense engine (the zsorted
     one where the resident kernel does not fit) so the chains differ,
-    plus the per-sweep draws of `sweeps`. walls = K > 0: per-chain wall
+    plus the per-sweep draws of `sweeps`; sort: rows z-sorted per chain;
+    xsort = k: sorted by z-band of 128 k rows and by x within each band
+    (the order of ensemble_sweeps_zsorted(xsort_slices=k)). walls = K > 0: per-chain wall
     tables of K realizations, each on a contiguous block of c / K chains
     (the energies under their own walls); the returned w is then the
     [c, M*M, 2] table."""
@@ -219,8 +239,8 @@ def kernel_inputs(n: int, c: int, device, seed: int = 11, sweeps: int = 2,
     state, _ = engine(state, w, cfg, cfg.proposal_a, 1, seed=seed)
     words, offsets = en._per_sweep_randomness(state, cfg, seed + 1, sweeps)
     x, y, z, e, wa, wb = en._kernel_inputs(state, w, cfg)
-    if sort:
-        perm = torch.argsort(z[:n], dim=0, stable=True)
+    if sort or xsort:
+        perm = en.xsort_perm(x, z, n, xsort)
         x, y, z = (torch.cat([torch.take_along_dim(p[:n], perm, 0), p[n:]])
                    for p in (x, y, z))
     return cfg, w, (x, y, z, e, wa, wb, offsets, words), ks
@@ -236,10 +256,11 @@ def ladder_rows(cfg, c: int, device, a_scale: float = 1.0):
 
 
 def compare(cfg, w, args, ks, zskip: bool, label: str, a=None, t=None,
-            stream: bool = False):
+            stream: bool = False, xslices: int = 0):
     """Kernel vs plain (exact Philox) on the same inputs, with mobility
     and temperature a / t (default the config's; scalars or per-chain
-    rows); stream: the streamed kernel and its plain version. Returns
+    rows); stream: the streamed kernel and its plain version; xslices:
+    the 2-D pass (K1-xs) with that many blocks per band. Returns
     the kernel's outputs, the largest position error over chains whose
     trajectories agree, the plain version's wall ms (diagnostics
     included) and the kernel's visited pair rows [C]."""
@@ -251,6 +272,8 @@ def compare(cfg, w, args, ks, zskip: bool, label: str, a=None, t=None,
         kernel, plain, kw = ks.sweep_block_stream, ks.sweep_block_stream_plain, {}
     else:
         kernel, plain, kw = ks.sweep_block, ks.sweep_block_plain, {"zskip": zskip}
+        if xslices:
+            kw["xslices"] = xslices
     dk = {"uniforms": True}
     outk = kernel(*args, cfg, sweeps, a, diag=dk, temperature=t, **kw)
     dp = {"uniforms": True, "tie_margin": TIE_MARGIN}
@@ -491,6 +514,156 @@ def phase_new_modes(device):
     compare(cfg, w, args, ks, True, "K3 M=10 N=108 C=64", stream=True)
 
 
+_EQUILIBRATED = {}
+
+
+def equilibrated(device, n: int = 1024, c: int = 256, sweeps: int = 400):
+    """(cfg, state, w): c chains at N = n in the default box, from the
+    FCC lattice through `sweeps` sweeps of the dense engine, one launch
+    (64 sweeps from the lattice are too few at N = 1024, PERF.md); made
+    once per run."""
+    from tpu_smc_torch import ensemble as en
+    from tpu_smc_torch.config import SMCConfig
+    from tpu_smc_torch.state import init_ensemble_state, seed_words
+
+    if (n, c) not in _EQUILIBRATED:
+        cfg = SMCConfig.for_n(n)
+        state, w = init_ensemble_state(cfg, seed_words(2024), c,
+                                       device=device)
+        state, _ = en.ensemble_sweeps_dense(state, w, cfg, cfg.proposal_a,
+                                            sweeps, seed=2024)
+        _EQUILIBRATED[n, c] = (cfg, state, w)
+    return _EQUILIBRATED[n, c]
+
+
+def seam_start(n: int, box_l: float) -> np.ndarray:
+    """n particles on a jittered grid with every x within 1.5 of the
+    periodic seam +-L/2: three columns 1.2 apart across the seam, rows
+    L/27 apart in y, layers 1.2 apart in z."""
+    rng = np.random.default_rng(13)
+    k = np.arange(n)
+    x = (k % 3 - 1) * 1.2 + box_l / 2
+    y = (k // 3 % 27) * (box_l / 27) - box_l / 2
+    z = (k // 81 - (n // 81) / 2) * 1.2
+    r = np.stack([x, y, z], axis=1) + rng.normal(0.0, 0.05, (n, 3))
+    r[:, 0] -= box_l * np.rint(r[:, 0] / box_l)
+    return r
+
+
+def chain_planes(cfg, state, w, c: int, seed: int, sweeps: int):
+    """Kernel inputs of the first c chains of `state` with the draws of
+    `sweeps` sweeps."""
+    from tpu_smc_torch import ensemble as en
+
+    x, y, z, e, wa, wb = en._kernel_inputs(state, w, cfg)
+    words, offsets = en._per_sweep_randomness(state, cfg, seed, sweeps)
+    return [p[:, :c].contiguous() for p in (x, y, z, e)] + [wa, wb, offsets,
+                                                           words]
+
+
+def compare_banded(cfg, w, r, e, words, label: str, window: int = 128,
+                   d_z: float = 12.0):
+    """K4 against its plain version (exact Philox) for one sweep from
+    positions r [C, N, 3] with carried energies e [C]: the same schedule,
+    positions within POS_TOL and energies within E_ATOL + E_RTOL on
+    chains whose trajectories agree (a chain may diverge only through a
+    near-tie acceptance or sufficiency test), per-chain fallback counts
+    equal on them, carried E against a recompute. Returns the kernel's
+    outputs, the max |dx| on agreeing chains, the plain version's ms and
+    the inputs."""
+    from tpu_smc_torch.kernels import banded as kb
+    from tpu_smc_torch.kernels import sweep as ks
+    from tpu_smc_torch.potentials import total_energy
+
+    x, y, z, margin = kb.sort_and_margin(r, cfg, window)
+    wa, wb = ks.wall_coeff_rows(w, cfg)
+    args = (x, y, z, e.reshape(1, -1).to(torch.float32), wa, wb, margin,
+            words, cfg, cfg.proposal_a, window, d_z)
+    dk, dp = {}, {}
+    outk = kb.banded_sweep_block(*args, diag=dk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outp = kb.banded_sweep_plain(*args, diag=dp)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(dk["rows"].long(), dp["rows"].to(x.device)),
+          f"{label}: kernel schedule != banded_rows")
+    c = x.shape[1]
+    dpos = torch.stack([(outk[k] - outp[k])[:cfg.n].abs().amax(0)
+                        for k in range(3)]).amax(0)
+    de = (outk[3] - outp[3]).abs().reshape(-1)
+    agree = (outk[4] == outp[4]).reshape(-1) & (dpos <= POS_TOL) & (
+        de <= E_ATOL + E_RTOL * outp[3].abs().reshape(-1))
+    gap = (torch.clamp(dp["log_ap"], max=0.0) - torch.log(dp["u"])).abs()
+    ties = ((gap < TIE_MARGIN) | (dp["slack"].abs() < TIE_MARGIN)).sum(0)
+    diverged = (~agree).nonzero().reshape(-1).tolist()
+    for ci in diverged:
+        check(int(ties[ci]) > 0, f"{label}: chain {ci} diverged without a "
+              "near-tie acceptance or sufficiency test")
+    check(len(diverged) <= max(2, MAX_DIVERGED * c),
+          f"{label}: {len(diverged)} of {c} chains diverged")
+    fb_k, fb_p = outk[5].reshape(-1), outp[5].reshape(-1)
+    check(torch.equal(fb_k[agree], fb_p[agree]),
+          f"{label}: fallback counts differ on agreeing chains")
+    exact = total_energy(ks.from_planes(*outk[:3], cfg), w, cfg)
+    err = (outk[3].reshape(-1) - exact).abs()
+    check(bool((err <= E_ATOL + E_RTOL * exact.abs()).all()),
+          f"{label}: carried E vs recompute off by {float(err.max()):.3g}")
+    max_err = float(dpos[agree].max()) if bool(agree.any()) else 0.0
+    print(f"  {label}: schedule equal, {len(diverged)}/{c} chains diverged "
+          f"({int(ties.sum())} near ties), fallback counts equal on the "
+          f"others (fallback fraction {float(fb_k.double().mean()) / cfg.n:.4f}"
+          f" per chain), max |dx| {max_err:.3g}, max |E - recompute| "
+          f"{float(err.max()):.3g}", flush=True)
+    return dict(out=outk, max_err=max_err, plain_ms=plain_ms, args=args)
+
+
+def phase_xs_banded(device):
+    """K1-xs and K4: K1-xs against its plain version at N = 256 x 64 (k =
+    2); K1-xs bitwise the no-skip kernel K1 on the same 2-D-sorted rows at
+    N = 1024 x 128 for k = 4 and 8, from the equilibrated ensemble and
+    from a cluster at the x seam; K4 against its plain version at N = 1024
+    x 64, one sweep, from the equilibrated ensemble."""
+    from tpu_smc_torch import ensemble as en
+    from tpu_smc_torch.config import SMCConfig
+    from tpu_smc_torch.kernels import sweep as ks
+    from tpu_smc_torch.state import init_ensemble_state, seed_words
+
+    cfg, w, args, ks = kernel_inputs(256, 64, device, xsort=2)
+    compare(cfg, w, args, ks, True, "xskip k=2 N=256 C=64", xslices=2)
+
+    cfg, state, w = equilibrated(device)
+    seam = SMCConfig.for_n(1024)
+    st, sw = init_ensemble_state(seam, seed_words(5), 128,
+                                 r0=seam_start(1024, seam.box_l),
+                                 device=device)
+    st, _ = en.ensemble_sweeps_dense(st, sw, seam, seam.proposal_a, 1, seed=5)
+    for label, (s0, w0) in (("equilibrated", (state, w)),
+                            ("seam cluster", (st, sw))):
+        x, y, z, *rest = chain_planes(cfg, s0, w0, 128, 9, 2)
+        for k in (4, 8):
+            perm = en.xsort_perm(x, z, cfg.n, k)
+            planes = [torch.take_along_dim(p, perm, 0) for p in (x, y, z)]
+            dd, dx = {}, {}
+            dense = ks.sweep_block(*planes, *rest, cfg, 2, cfg.proposal_a,
+                                   diag=dd)
+            xs = ks.sweep_block(*planes, *rest, cfg, 2, cfg.proposal_a,
+                                zskip=True, xslices=k, diag=dx)
+            torch.cuda.synchronize()
+            check(bitwise(dense, xs), f"K1-xs k={k} ({label}): not bitwise "
+                  "the dense kernel on the same rows")
+            rows = lambda d: float(d["visited"].double().mean()) / (4 * cfg.n)
+            print(f"  K1-xs k={k} N=1024 C=128 ({label}): bitwise K1 on the "
+                  f"same rows (positions, energies, traces); pair rows per "
+                  f"pass {rows(dx):.1f} against K1's {rows(dd):.0f}, "
+                  f"acceptance {float(xs[5].double().mean()) / (2 * cfg.n):.4f}",
+                  flush=True)
+
+    words = en._per_sweep_randomness(state, cfg, 21, 1)[0][0]
+    compare_banded(cfg, w, state.r[:64], state.energy[:64], words,
+                   "K4 vs plain N=1024 C=64")
+
+
 # ----------------------------------------------------------------------
 # Phase 3: the main path through the CLI
 # ----------------------------------------------------------------------
@@ -532,6 +705,7 @@ def main_path():
     """A main-path run: the launch counts set to 0 just before it and
     copied into the yielded dict just after, the kernels' plain versions
     made to fail if called."""
+    from tpu_smc_torch.kernels import banded as kb
     from tpu_smc_torch.kernels import sweep as ks
 
     def refuse(*args, **kw):
@@ -541,7 +715,8 @@ def main_path():
         ks.sweep_block.launches[k] = 0
     counts = {}
     with patched(ks, sweep_block_plain=refuse,
-                 sweep_block_stream_plain=refuse):
+                 sweep_block_stream_plain=refuse), \
+            patched(kb, banded_sweep_plain=refuse):
         yield counts
         torch.cuda.synchronize()
     counts.update(ks.sweep_block.launches)
@@ -1099,6 +1274,64 @@ def drive_cli_large(card: str):
     return launches
 
 
+def drive_validation(device, card: str):
+    """scripts/validate_banded.py's contract on the port: from one state at
+    N = 1024 x 256 chains (400 dense sweeps from the lattice), 200 sweeps
+    each through the dense, zsorted, zsorted + xsort 4 (K1-xs) and banded
+    (K4) engines, as one main-path run. Gates, the script's bar
+    (validate_banded.py:108-110): each engine's mean final energy within
+    4 combined SE of dense (SE = std / sqrt(C - 1) over the chains) and
+    its acceptance within 0.01. Prints each engine's mean E, acceptance,
+    chain-sweeps/s (the engine call, sorts included) and the banded
+    fallback fraction. Returns the launch counts."""
+    from tpu_smc_torch import ensemble as en
+
+    cfg, state, w = equilibrated(device)
+    a, c, s = cfg.proposal_a, state.n_chains, 200
+    engines = {
+        "dense": lambda: en.ensemble_sweeps_dense(state, w, cfg, a, s,
+                                                  seed=7),
+        "zsorted": lambda: en.ensemble_sweeps_zsorted(state, w, cfg, a, s,
+                                                      seed=7),
+        "xsort 4": lambda: en.ensemble_sweeps_zsorted(
+            state, w, cfg, a, s, seed=7, xsort_slices=4),
+        "banded": lambda: en.ensemble_sweeps_banded(state, w, cfg, a, s,
+                                                    seed=7)}
+    res = {}
+    with main_path() as launches:
+        for name, run in engines.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            e = out[0].energy.double().cpu().numpy()
+            res[name] = dict(
+                E=float(e.mean()), err=float(e.std() / math.sqrt(c - 1)),
+                acc=float(out[1].accepted.double().mean()) / cfg.n,
+                rate=s * c / dt, fb=out[2] if len(out) > 2 else None)
+    check(launches["dense"] == 1 and launches["zskip"] > 0
+          and launches["xskip"] > 0 and launches["banded"] == s
+          and launches["stream"] == 0, f"validation launches {launches}")
+    ref = res["dense"]
+    for name, r in res.items():
+        sig = math.hypot(r["err"], ref["err"])
+        de, dacc = abs(r["E"] - ref["E"]), abs(r["acc"] - ref["acc"])
+        print(f"  validation N=1024 x {c}, {s} sweeps from 400 dense: "
+              f"{name} mean E {r['E']:.3f} +- {r['err']:.3f}, acceptance "
+              f"{r['acc']:.5f}, {r['rate']:,.0f} chain-sweeps/s"
+              + (f", fallback fraction {r['fb']:.4f}" if r["fb"] is not None
+                 else "")
+              + ("" if name == "dense" else
+                 f"; against dense {de / sig:.2f} combined SE, |d acc| "
+                 f"{dacc:.5f}") + f" ({card})", flush=True)
+        if name != "dense":
+            check_later(de < 4 * sig and dacc < 0.01,
+                        f"validation: {name} is {de / sig:.2f} combined SE "
+                        f"and {dacc:.5f} in acceptance from dense")
+    return launches
+
+
 # ----------------------------------------------------------------------
 # Phase 4: timing
 # ----------------------------------------------------------------------
@@ -1118,38 +1351,55 @@ def cuda_ms(fn, reps: int = 3) -> float:
 
 def kernel_case(n: int, c: int, zskip: bool, device, sweeps: int = 2,
                 at: bool = False, walls: int = 0, plain: bool = True,
-                cfg=None):
+                cfg=None, xsort: int = 0):
     """At the main path's shape (n, c): kernel vs plain on the same inputs
     (phase 2's comparison; skipped when not `plain`), the plain version's
     ms and the bound of this run's work, and a launch of the kernel on
     these inputs to time. at: per-chain (A, T) rows of an 8-level ladder;
     walls: per-chain wall tables of that many realizations; cfg: the
-    configuration (default: the default box for n)."""
+    configuration (default: the default box for n); xsort = k: the 2-D
+    pass (K1-xs) on rows sorted by z-band of 128 k rows and x, its bound
+    from the fewer of its own visited rows and K2's on the same positions
+    z-sorted (the 2-D admission visits more rows than the 1-D one, and
+    the bound counts the least work the sweep needs)."""
     cfg, w, args, ks = kernel_inputs(n, c, device, sweeps=sweeps,
-                                     sort=zskip, walls=walls, cfg=cfg)
+                                     sort=zskip, walls=walls, cfg=cfg,
+                                     xsort=xsort)
     a, t = ladder_rows(cfg, c, device) if at else (cfg.proposal_a, None)
-    mode = ("zskip" if zskip else "dense") + (" pbc" if cfg.pbc_z else "") \
+    mode = (f"xskip k={xsort}" if xsort else "zskip" if zskip else "dense") \
+        + (" pbc" if cfg.pbc_z else "") \
         + (" refnoise" if cfg.reference_noise else "")
     label = (f"{mode} N={n} C={c}" + (" per-chain (A, T)" if at else "")
              + (f" walls of {walls}" if walls else ""))
     dk = {}
-    cmp = (compare(cfg, w, args, ks, zskip, label, a=a, t=t) if plain
-           else None)
+    cmp = (compare(cfg, w, args, ks, zskip, label, a=a, t=t, xslices=xsort)
+           if plain else None)
     if cmp is None:
         ks.sweep_block(*args, cfg, sweeps, a, zskip=zskip, diag=dk,
+                       temperature=t, xslices=xsort)
+    visited = float((cmp["visited"] if cmp else dk["visited"]).double().sum())
+    if xsort:
+        _, _, args2, _ = kernel_inputs(n, c, device, sweeps=sweeps, sort=True,
+                                       cfg=cfg)
+        d2 = {}
+        ks.sweep_block(*args2, cfg, sweeps, a, zskip=True, diag=d2,
                        temperature=t)
-    visited = cmp["visited"] if cmp else dk["visited"]
+        k2 = float(d2["visited"].double().sum())
+        print(f"  {label}: pair rows per pass {visited / (2 * sweeps * n * c):.0f}"
+              f", K2's on the same positions z-sorted "
+              f"{k2 / (2 * sweeps * n * c):.0f}; the bound counts "
+              f"{'K2' if k2 < visited else 'K1-xs'}'s", flush=True)
+        visited = min(visited, k2)
     n_pad = args[0].shape[0]
     wall_floats = args[4].numel() + args[5].numel()
     # planes and energy in and out, wall rows, per-chain scales, offsets
     # and seed words, traces
     nbytes = 4 * (2 * (3 * n_pad * c + c) + wall_floats + 4 * c
                   + 3 * sweeps + 2 * sweeps * c)
-    flops = (row_flops(cfg) * float(visited.double().sum())
-             + move_flops(cfg) * sweeps * n * c)
+    flops = row_flops(cfg) * visited + move_flops(cfg) * sweeps * n * c
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
     launch = lambda: ks.sweep_block(*args, cfg, sweeps, a, zskip=zskip,
-                                    temperature=t)
+                                    temperature=t, xslices=xsort)
     return launch, dict(max_abs_err=cmp["max_err"] if cmp else None,
                         plain_ms=cmp["plain_ms"] if cmp else None,
                         bound_ms=max(t_bytes, t_ops),
@@ -1230,6 +1480,78 @@ def noise_case(device, words, n: int, c: int, s2a: float, err: float,
           f"plain| {err:.3g} ({card})", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes > t_ops else "operations")
+
+
+def xsort_probe(device, card: str):
+    """K1-xs (k = 4, 8) beside K2 in turns at scripts/probe_xsort.py's
+    shapes, N = 1024 x 512 and N = 4096 x 256, 2-sweep calls from the
+    same state (K2 on z-sorted rows, K1-xs on the 2-D-sorted rows), with
+    the pair rows each visits per pass."""
+    for n, c in ((1024, 512), (4096, 256)):
+        launches, rows = {}, {}
+        for k in (0, 4, 8):
+            cfg, _, args, ks = kernel_inputs(n, c, device, sort=True, xsort=k)
+            kw = dict(zskip=True, xslices=k)
+            d = {}
+            ks.sweep_block(*args, cfg, 2, cfg.proposal_a, diag=d, **kw)
+            name = f"xs{k}" if k else "K2"
+            rows[name] = float(d["visited"].double().mean()) / (4 * n)
+            launches[name] = (lambda args=args, cfg=cfg, kw=kw:
+                              ks.sweep_block(*args, cfg, 2, cfg.proposal_a,
+                                             **kw))
+        ms = interleaved_ms(launches, rounds=3, reps=5)
+        print(f"  N={n} x {c}, 2 sweeps, in turns: K2 {ms['K2']:.3f} ms "
+              f"({rows['K2']:.0f} rows/pass); K1-xs k=4 {ms['xs4']:.3f} ms "
+              f"({ms['xs4'] / ms['K2']:.3f}x, {rows['xs4']:.0f} rows/pass); "
+              f"k=8 {ms['xs8']:.3f} ms ({ms['xs8'] / ms['K2']:.3f}x, "
+              f"{rows['xs8']:.0f} rows/pass) ({card})", flush=True)
+
+
+def banded_case(device, card: str):
+    """K4 at its main path's shape (the validation run's N = 1024 x 256
+    equilibrated ensemble, W = 128, d_z = 12), one sweep: against its
+    plain version (compare_banded), the plain version's ms, the bound of
+    this sweep's work (the rows its fallback counts imply), and K4 beside
+    K2 per sweep in turns (K2 on the same state's z-sorted rows). Returns
+    the kernels-line fields."""
+    from tpu_smc_torch import ensemble as en
+    from tpu_smc_torch.kernels import banded as kb
+    from tpu_smc_torch.kernels import sweep as ks
+
+    cfg, state, w = equilibrated(device)
+    c, n = state.n_chains, cfg.n
+    words, offsets = en._per_sweep_randomness(state, cfg, 31, 1)
+    cmp = compare_banded(cfg, w, state.r, state.energy, words[0],
+                         f"K4 vs plain N={n} C={c}")
+    args = cmp["args"]
+    fb = float(cmp["out"][5].double().sum())
+    n_pad = args[0].shape[0]
+    visited = kb.visited_rows(fb, n * c, n_pad, 128)
+    # planes and margin in, planes out, energy in and out, accepted and
+    # fallback counts, wall rows, scales
+    nbytes = 4 * (7 * n_pad * c + 4 * c + args[4].numel() + args[5].numel()
+                  + 4 * c)
+    flops = row_flops(cfg) * visited + move_flops(cfg) * n * c
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    x, y, z, e, wa, wb = en._kernel_inputs(state, w, cfg)
+    perm = en.xsort_perm(x, z, n, 0)
+    x, y, z = (torch.take_along_dim(p, perm, 0) for p in (x, y, z))
+    ms = interleaved_ms({
+        "K4": lambda: kb.banded_sweep_block(*args),
+        "K2": lambda: ks.sweep_block(x, y, z, e, wa, wb, offsets, words, cfg,
+                                     1, cfg.proposal_a, zskip=True)},
+        rounds=3, reps=10)
+    print(f"  sweep_banded N={n} x {c}, 1 sweep: kernel {ms['K4']:.3f} ms "
+          f"beside K2 {ms['K2']:.3f} ms per sweep in turns "
+          f"({ms['K4'] / ms['K2']:.3f}x), plain {cmp['plain_ms']:.1f} ms, "
+          f"bound {max(t_bytes, t_ops):.4f} ms "
+          f"({'bytes' if t_bytes > t_ops else 'operations'}), pair rows per "
+          f"pass {visited / (2 * n * c):.0f}, fallback fraction "
+          f"{fb / (n * c):.4f}, max |dx| {cmp['max_err']:.3g} ({card})",
+          flush=True)
+    return dict(max_abs_err=cmp["max_err"], ms=ms["K4"],
+                plain_ms=cmp["plain_ms"], bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes > t_ops else "operations")
 
 
@@ -1319,6 +1641,10 @@ def main() -> int:
     phase_line("kernel vs plain, bulk, reference noise, K5, M = 10", t0)
 
     t0 = time.perf_counter()
+    phase_xs_banded(device)
+    phase_line("kernel vs plain, K1-xs and K4", t0)
+
+    t0 = time.perf_counter()
     launches = {}
     launches["zskip"] = drive_cli(1024, 512, 64, 192, 3, card,
                                   ("1590.673720", "0.789075"))
@@ -1383,6 +1709,10 @@ def main() -> int:
     phase_line("main path, bulk, reference noise, M = 10", t0)
 
     t0 = time.perf_counter()
+    lval = drive_validation(device, card)
+    phase_line("main path, validation of the engines (K1-xs, K4)", t0)
+
+    t0 = time.perf_counter()
     cases = (
         ("sweep_dense", 108, False, {}, "tpu_smc/kernels/sweep_pallas.py:992",
          launches["dense"]["dense"]),
@@ -1418,6 +1748,12 @@ def main() -> int:
                          "source": "tpu_smc_torch/kernels/csrc/sweep.cu",
                          "replaces": replaces, "launches": count, **t,
                          "library_ms": None})
+    # K1-xs at its main path's shape, the validation run's xsort 4
+    runs["sweep_xskip"], t = kernel_case(1024, 256, True, device, xsort=4)
+    xs_row = {"name": "sweep_xskip", "route": "cuda",
+              "source": "tpu_smc_torch/kernels/csrc/sweep.cu",
+              "replaces": "tpu_smc/kernels/sweep_pallas.py:344",
+              "launches": lval["xskip"], **t, "library_ms": None}
     ms = interleaved_ms(runs)
     rows.append({"name": "sweep_stream", "route": "cuda",
                  "source": "tpu_smc_torch/kernels/csrc/sweep.cu",
@@ -1444,6 +1780,18 @@ def main() -> int:
                  "replaces": "tpu_smc/kernels/sweep_pallas.py:81",
                  "launches": lrn["debug_reference_noise"],
                  **noise_case(device, *k5_case, card), "library_ms": None})
+    xs_row["ms"] = ms["sweep_xskip"]
+    print(f"  sweep_xskip k=4 N=1024 x 256, 2 sweeps: kernel "
+          f"{xs_row['ms']:.3f} ms, plain {xs_row['plain_ms']:.1f} ms, bound "
+          f"{xs_row['bound_ms']:.4f} ms ({xs_row['bound_by']}), max |dx| "
+          f"{xs_row['max_abs_err']:.3g} ({card})", flush=True)
+    rows.append(xs_row)
+    xsort_probe(device, card)
+    rows.append({"name": "sweep_banded", "route": "cuda",
+                 "source": "tpu_smc_torch/kernels/csrc/sweep.cu",
+                 "replaces": "tpu_smc/kernels/sweep_banded.py:308",
+                 "launches": lval["banded"], **banded_case(device, card),
+                 "library_ms": None})
     print(f"  sweep_zskip per-chain (A, T) N=1024 x 512, 2 sweeps: kernel "
           f"{ms['sweep_zskip_per_chain_at']:.3f} ms, bound "
           f"{zat['bound_ms']:.4f} ms ({card})", flush=True)

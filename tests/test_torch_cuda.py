@@ -301,3 +301,150 @@ def test_debug_reference_noise_matches_plane(cuda):
     assert ks.sweep_block.launches["debug_reference_noise"] == before + 1
     assert d.shape == (12288, 256)
     assert float((d - p).abs().max()) <= 1e-6
+
+
+def _xsorted_args(n, c, k, device, r0=None, seed=5):
+    """Kernel inputs of one sweep on rows sorted by z-band of 128 k rows
+    and by x within each band (ensemble.xsort_perm)."""
+    cfg = SMCConfig.for_n(n)
+    x, y, z, e, wa, wb, offsets, words = _cfg_inputs(cfg, c, device, r0=r0,
+                                                     seed=seed)
+    perm = ten.xsort_perm(x, z, n, k)
+    x, y, z = (torch.take_along_dim(p, perm, 0) for p in (x, y, z))
+    return cfg, (x, y, z, e, wa, wb, offsets[:1], words[:1])
+
+
+def _seam(n, seed=12):
+    """n particles with every x within 1.5 of the periodic seam +-L/2."""
+    rng = np.random.default_rng(seed)
+    x = np.where(rng.uniform(size=n) < 0.5, -16.5 + rng.uniform(0, 1.5, n),
+                 16.5 - rng.uniform(0, 1.5, n))
+    return np.stack([x, rng.uniform(-16.5, 16.5, n),
+                     rng.uniform(-60.0, 60.0, n)], axis=1)
+
+
+def test_xskip_kernel_matches_plain(cuda):
+    """K1-xs (the 2-D pass, k = 2) against its plain version at N = 256 x
+    32 on 2-D-sorted rows: identical uniforms and visited rows, the
+    trajectories within the tolerances; an xskip launch counted."""
+    cfg, args = _xsorted_args(256, 32, 2, cuda)
+    before = ks.sweep_block.launches["xskip"]
+    dk, dp = {"uniforms": True}, {"uniforms": True}
+    outk = ks.sweep_block(*args, cfg, 1, cfg.proposal_a, zskip=True,
+                          xslices=2, diag=dk)
+    outp = ks.sweep_block_plain(*args, cfg, 1, cfg.proposal_a, zskip=True,
+                                xslices=2, diag=dp)
+    torch.cuda.synchronize()
+    assert ks.sweep_block.launches["xskip"] == before + 1
+    assert torch.equal(dk["uniforms"], dp["uniforms"])
+    _agree(outk, outp, 30)
+    same = (outk[5] == outp[5]).all(0)
+    assert torch.equal(dk["visited"][same], dp["visited"][same])
+
+
+@pytest.mark.parametrize("n,k,seam", [(512, 2, False), (512, 4, False),
+                                      (256, 2, True)])
+def test_xskip_kernel_bitwise_dense(cuda, n, k, seam):
+    """On the same 2-D-sorted rows K1-xs equals the dense kernel K1
+    bitwise (every output), also on a cluster at the x seam; it visits
+    fewer rows."""
+    cfg, args = _xsorted_args(n, 32, k, cuda, r0=_seam(n) if seam else None)
+    dd, dx = {}, {}
+    dense = ks.sweep_block(*args, cfg, 1, cfg.proposal_a, diag=dd)
+    xskip = ks.sweep_block(*args, cfg, 1, cfg.proposal_a, zskip=True,
+                           xslices=k, diag=dx)
+    for u, v in zip(dense, xskip):
+        assert torch.equal(u, v)
+    assert bool((dx["visited"] < dd["visited"]).all())
+
+
+def _banded_against_plain(cuda, cfg, state, w, window, d_z):
+    """K4 and its plain version on one sweep from `state`: the same
+    schedule, a banded launch counted, per-chain fallback counts equal
+    where the trajectories agree, positions and energies within the
+    tolerances, carried E against a recompute. Returns the fallback
+    counts [C]."""
+    from tpu_smc_torch.kernels import banded as kb
+    from tpu_smc_torch.potentials import total_energy
+
+    c = state.n_chains
+    x, y, z, margin = kb.sort_and_margin(state.r, cfg, window)
+    wa, wb = ks.wall_coeff_rows(w, cfg)
+    e = state.energy.reshape(1, -1).float()
+    words = ten._per_sweep_randomness(state, cfg, 3, 1)[0][0]
+    args = (x, y, z, e, wa, wb, margin, words, cfg, cfg.proposal_a, window,
+            d_z)
+    before = ks.sweep_block.launches["banded"]
+    dk = {}
+    outk = kb.banded_sweep_block(*args, diag=dk)
+    outp = kb.banded_sweep_plain(*args)
+    torch.cuda.synchronize()
+    assert ks.sweep_block.launches["banded"] == before + 1
+    assert torch.equal(dk["rows"].long(), kb.banded_rows(words, cfg.n, cuda))
+    same = outk[4][0] == outp[4][0]
+    assert int(same.sum()) >= c - 2
+    assert torch.equal(outk[5][0][same], outp[5][0][same])
+    for q in range(3):
+        np.testing.assert_allclose(outk[q][:, same].cpu().numpy(),
+                                   outp[q][:, same].cpu().numpy(), atol=1e-2)
+    exact = total_energy(ks.from_planes(*outk[:3], cfg), w, cfg)
+    np.testing.assert_allclose(outk[3][0].cpu().numpy(), exact.cpu().numpy(),
+                               rtol=1e-4, atol=5e-2)
+    return outk[5][0]
+
+
+@pytest.mark.parametrize("window", [32, 512])
+def test_banded_kernel_matches_plain(cuda, window):
+    """K4 against its plain version at N = 512 x 32, one sweep, d_z = 12
+    (`_banded_against_plain`). W = 32: moves fall back to the full pass
+    (all of them, from this start); W = 512 >= n: every margin is
+    clipped, every move takes the window (all rows)."""
+    cfg = SMCConfig.for_n(512)
+    state, w = init_ensemble_state(cfg, seed_words(2), 32, device=cuda)
+    state, _ = ten.ensemble_sweeps_dense(state, w, cfg, cfg.proposal_a, 2,
+                                         seed=2)
+    fallback = int(_banded_against_plain(cuda, cfg, state, w, window,
+                                         12.0).sum())
+    assert fallback > 0 if window == 32 else fallback == 0
+
+
+def _clusters(seed):
+    """32 particles in 8 groups of 4 along z, 14 apart (squares of side
+    1.12, jittered), in a 10 x 10 x 120 box: [32, 3] float64."""
+    rng = np.random.default_rng(seed)
+    sq = np.array([[0, 0], [1.12, 0], [0, 1.12], [1.12, 1.12]])
+    r = []
+    for g in range(8):
+        xy = rng.uniform(-4.0, 3.0, 2) + sq
+        z = -49.0 + 14.0 * g + rng.uniform(-0.3, 0.3, 4)
+        r.append(np.column_stack([xy + rng.normal(0, 0.05, (4, 2)), z]))
+    return np.concatenate(r)
+
+
+def test_banded_kernel_partial_window(cuda):
+    """K4 against its plain version where moves take a real partial
+    window (rows [j0, j0 + 2W) with j0 > 0 or j0 + 2W < n_pad) and others
+    fall back: 32 chains of z-separated clusters, W = 8, d_z = 24.5."""
+    cfg = SMCConfig(n=32, box_l=10.0, box_lz=120.0, gamma=0.02)
+    state, w = init_ensemble_state(cfg, seed_words(5), 32, r0=_clusters(5),
+                                   device=cuda)
+    fallback = _banded_against_plain(cuda, cfg, state, w, 8, 24.5)
+    assert 0 < int(fallback.sum()) < cfg.n * 32
+    # some chains take the window on most moves
+    assert int(fallback.min()) < cfg.n // 2
+
+
+def test_banded_refuses_beyond_capacity(cuda):
+    """K4 holds its planes in shared memory: N_pad beyond the resident
+    capacity raises."""
+    from tpu_smc_torch.kernels import banded as kb
+
+    cfg = SMCConfig.for_n(32768)
+    rows = ks.capacity(cuda, ks.wall_sites(cfg))[0]
+    r = torch.zeros((1, 32768, 3), device=cuda)
+    r[..., 2] = torch.linspace(-100, 100, 32768, device=cuda)
+    x, y, z, margin = kb.sort_and_margin(r, cfg, 128)
+    wa, wb = ks.wall_coeff_rows(torch.zeros((9, 2), device=cuda), cfg)
+    e = torch.zeros((1, 1), device=cuda)
+    with pytest.raises(ValueError, match=f"at most {rows} rows"):
+        kb.banded_sweep_block(x, y, z, e, wa, wb, margin, (1, 2), cfg, 1.1)

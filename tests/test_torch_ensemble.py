@@ -33,7 +33,7 @@ def _carry(jstate, jw, tc):
     arrays = {f: np.asarray(getattr(jstate, f)) for f in jstate._fields
               if f != "key"}
     arrays["key"] = np.asarray(jax.random.key_data(jstate.key))
-    return from_jax_state(arrays, np.asarray(jw), tc)
+    return from_jax_state(arrays, np.asarray(jw), tc, device="cpu")
 
 
 def test_ensemble_sweeps_reproduce_jax_float64():

@@ -232,7 +232,7 @@ def test_interpret_pallas_bookkeeping_beside_dense_engine():
     arrays = {f: np.asarray(getattr(jstate, f)) for f in jstate._fields
               if f != "key"}
     arrays["key"] = np.asarray(jax.random.key_data(jstate.key))
-    tstate, tw = from_jax_state(arrays, np.asarray(jw), tc)
+    tstate, tw = from_jax_state(arrays, np.asarray(jw), tc, device="cpu")
     np.testing.assert_array_equal(tstate.r.numpy(), arrays["r"])
     t2, ttr = ten.ensemble_sweeps_dense(tstate, tw, tc, tc.proposal_a, s,
                                         seed=5)

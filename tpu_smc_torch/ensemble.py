@@ -1,6 +1,7 @@
 """Chain-ensemble sweep engines (counterpart of tpu_smc.ensemble).
 
-Three engines advance every chain of a ChainState by n sweeps:
+Three engines advance every chain of a ChainState by n sweeps, and a
+fourth, experimental one, by n random-scan sweeps:
 
   * `ensemble_sweeps` — the plain PyTorch engine (sampler.sweep over the
     chain batch, one visiting order shared by all chains);
@@ -10,7 +11,10 @@ Three engines advance every chain of a ChainState by n sweeps:
     skipping over rows z-sorted per chain every `zsort_cadence(n)` sweeps,
     particle identity carried through the sorts; beyond the resident
     kernel's shared-memory capacity it runs the streamed kernel (K3),
-    bitwise the same on the same rows.
+    bitwise the same on the same rows; `xsort_slices` > 1 adds the
+    experimental 2-D (z-band, x-slice) skip (K1-xs);
+  * `ensemble_sweeps_banded` — the experimental z-banded random-scan
+    kernel (K4, kernels/banded.py), one launch per sweep.
 
 All three draw from the same counter-based stream: per-sweep seed words
 and cyclic offsets folded from a base key and the ABSOLUTE sweep counter
@@ -36,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from .config import SMCConfig
+from .kernels import banded as kb
 from .kernels import sweep as ks
 from .sampler import SweepStats, sweep_state
 from .state import ChainState, fold_in, seed_words
@@ -175,11 +180,29 @@ def zsorted_streams(cfg: SMCConfig, device) -> bool:
                                 ks.wall_sites(cfg))
 
 
+def xsort_perm(x: torch.Tensor, z: torch.Tensor, n: int,
+               xslices: int) -> torch.Tensor:
+    """Row order [n, C] of the zsorted engine: the stable z argsort of the
+    real rows of planes x, z [N_pad, C], and for xslices = k > 1, inside
+    each band of 128 k rows, a stable x argsort (tpu_smc/ensemble.py:
+    503-513)."""
+    perm = torch.argsort(z[:n], dim=0, stable=True)
+    if xslices > 1:
+        band = ks.ROW_BLOCK * xslices
+        c = x.shape[1]
+        xz = torch.take_along_dim(x[:n], perm, dim=0).reshape(-1, band, c)
+        xperm = torch.argsort(xz, dim=1, stable=True)
+        perm = torch.take_along_dim(perm.reshape(-1, band, c), xperm,
+                                    dim=1).reshape(n, c)
+    return perm
+
+
 def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
                             cfg: SMCConfig, a: float, n_sweeps: int,
                             seed=None, sweeps_per_sort: int | None = None,
                             a_per_chain=None, t_per_chain=None,
-                            hbm_stream: bool | None = None):
+                            hbm_stream: bool | None = None,
+                            xsort_slices: int = 0):
     """n_sweeps sweeps through the kernel with exact z-block skipping.
 
     Every `sweeps_per_sort` sweeps (plus one shorter chunk for a
@@ -192,12 +215,33 @@ def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
     hbm_stream: run the streamed kernel (planes in device memory) instead
     of the resident one; None = `zsorted_streams(cfg, device)`. The two
     are bitwise equal on the same rows, so the switch changes capacity
-    and speed, not results."""
+    and speed, not results.
+
+    xsort_slices = k > 1: the EXPERIMENTAL 2-D refinement (K1-xs): rows
+    are also x-sorted within z-bands of k row blocks (`xsort_perm`) and
+    the kernel skips blocks by live (z, x) bounds; results are bitwise
+    the no-skip kernel on the same rows. Resident kernel and i.i.d. noise
+    only, and n a multiple of 128 k (tpu_smc/ensemble.py:454-466)."""
     if n_sweeps < 1:
         raise ValueError("n_sweeps must be >= 1")
     a, t = _chain_at(a, cfg, a_per_chain, t_per_chain)
     n, c = cfg.n, state.n_chains
     sps = max(1, int(sweeps_per_sort or zsort_cadence(n)))
+    xsl = max(0, int(xsort_slices or 0))
+    if xsl > 1:
+        if hbm_stream or (hbm_stream is None and zsorted_streams(
+                cfg, state.r.device)):
+            raise NotImplementedError(
+                "xsort_slices: resident kernel only (prototype)")
+        if cfg.reference_noise:
+            raise NotImplementedError("xsort_slices requires i.i.d. "
+                                      "noise (DEVIATIONS A8 scope)")
+        band_rows = ks.ROW_BLOCK * xsl
+        if n != ks.padded_rows(n) or n % band_rows:
+            raise ValueError(
+                f"xsort_slices {xsl}: n {n} must be a multiple of "
+                f"row_block*xslices = {band_rows} (pad-free bands)")
+        hbm_stream = False
     words, offsets = _per_sweep_randomness(state, cfg, seed, n_sweeps)
     x, y, z, e, wa, wb = _kernel_inputs(state, w, cfg)
     if hbm_stream is None:
@@ -207,7 +251,7 @@ def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
     k0 = 0
     while k0 < n_sweeps:
         length = min(sps, n_sweeps - k0)
-        perm = torch.argsort(z[:n], dim=0, stable=True)
+        perm = xsort_perm(x, z, n, xsl)
         x, y, z = (torch.cat([torch.take_along_dim(p[:n], perm, dim=0),
                               p[n:]]) for p in (x, y, z))
         idx = torch.take_along_dim(idx, perm, dim=0)
@@ -215,7 +259,8 @@ def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
                 words[k0:k0 + length], cfg, length, a)
         x, y, z, e, e_tr, a_tr = (
             ks.sweep_block_stream(*args, temperature=t) if hbm_stream
-            else ks.sweep_block(*args, zskip=True, temperature=t))
+            else ks.sweep_block(*args, zskip=True, temperature=t,
+                                xslices=xsl))
         e_pieces.append(e_tr)
         a_pieces.append(a_tr)
         k0 += length
@@ -224,3 +269,58 @@ def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
     r.scatter_(1, idx.T[:, :, None].expand(c, n, 3), r_sorted)
     return _finish(state, r, e, torch.cat(e_pieces), torch.cat(a_pieces),
                    cfg, n_sweeps)
+
+
+def ensemble_sweeps_banded(state: ChainState, w: torch.Tensor,
+                           cfg: SMCConfig, a: float, n_sweeps: int,
+                           window: int = 128, d_z: float = 12.0, seed=None):
+    """n_sweeps random-scan sweeps of every chain on the EXPERIMENTAL
+    z-banded kernel (K4, kernels/banded.py; counterpart of tpu_smc's
+    ensemble_sweeps_banded): each sweep z-sorts every chain and records
+    the window margins (`kernels.banded.sort_and_margin`, plain torch
+    between launches, as in tpu_smc), then runs one launch of n moves.
+
+    As in tpu_smc, particle LABELS are permuted by the per-sweep sorts
+    (physically meaningless; density, g(r), pressure and E are
+    unaffected, the Rbin mobility bookkeeping loses identity), and the
+    wall table is one shared [M*M, 2] row. Refused: pbc_z (the kernel is
+    for the confined system), per-chain wall tables, and reference noise
+    (deliberately: tpu_smc silently ignores cfg.reference_noise here, but
+    noise by particle id cannot follow a random-scan order, DEVIATIONS
+    A8).
+
+    Returns (state, SweepStats [S, C], fallback_fraction): the mean over
+    sweeps and chains of the moves that took the full pass, over n (per
+    chain; tpu_smc counts per 128-chain tile)."""
+    if n_sweeps < 1:
+        raise ValueError("n_sweeps must be >= 1")
+    if cfg.pbc_z:
+        raise NotImplementedError("the banded engine is for the wall "
+                                  "(confined-z) system")
+    if w.dim() == 3:
+        raise NotImplementedError("the banded engine takes one shared wall "
+                                  "table [M*M, 2]")
+    if cfg.reference_noise:
+        raise NotImplementedError(
+            "the banded engine takes i.i.d. noise only: reference noise is "
+            "by particle id, which a random-scan order cannot follow "
+            "(DEVIATIONS A8)")
+    if cfg.lj_shift:
+        raise NotImplementedError(
+            "the banded kernel implements the truncated-unshifted LJ")
+    words, _ = _per_sweep_randomness(state, cfg, seed, n_sweeps)
+    wa, wb = ks.wall_coeff_rows(w, cfg)
+    e = state.energy.reshape(1, -1).to(torch.float32)
+    r = state.r
+    e_tr, a_tr, fb = [], [], []
+    for s in range(n_sweeps):
+        x, y, z, margin = kb.sort_and_margin(r, cfg, window)
+        x, y, z, e, acc, fbk = kb.banded_sweep_block(
+            x, y, z, e, wa, wb, margin, words[s], cfg, a, window, d_z)
+        r = ks.from_planes(x, y, z, cfg, dtype=cfg.torch_dtype)
+        e_tr.append(e[0])
+        a_tr.append(acc[0])
+        fb.append(fbk[0])
+    new, stats = _finish(state, r, e, torch.stack(e_tr), torch.stack(a_tr),
+                         cfg, n_sweeps)
+    return new, stats, float(torch.stack(fb).double().mean()) / cfg.n

@@ -2,7 +2,8 @@
 their plain PyTorch versions, the plane adapters and the capacity query.
 
 Counterpart of tpu_smc/kernels/sweep_pallas.py `pallas_sweep_block` in its
-dense and zskip modes, with per-chain (A, T) (`per_chain_at`) and per-chain
+dense and zskip modes and the 2-D (z-band, x-slice) refinement of zskip
+(`xslices > 1`), with per-chain (A, T) (`per_chain_at`) and per-chain
 wall coefficients (`per_chain_w`), in bulk (`cfg.pbc_z`, `use_walls=False`)
 and in reference-noise mode (`cfg.reference_noise`, dense only, as on the
 TPU), of its hbm_stream mode (`_pallas_sweep_block_stream`), and of the
@@ -320,6 +321,45 @@ def _envelope(sbmin, sbmax, lo, hi):
             torch.where(need, b + 1, 0).amax(0))
 
 
+def xcut(cfg: SMCConfig) -> float:
+    """Half-width of the x-slice admission window: the cutoff widened by a
+    relative 1e-5 as the z window is, plus 1e-6 L for the float32
+    rounding of coordinates up to L/2 (the wrap of the window's edge,
+    the +L shift of the doubled index space)."""
+    return float(cfg.lj_cutoff * (1.0 + 1e-5) + cfg.box_l * 1e-6)
+
+
+def _xs_blocks(sbmin, sbmax, sxmin, sxmax, qx, qz, k: int, cfg: SMCConfig):
+    """Blocks [nb, C] the 2-D pass visits for queries (qx, qz) [C]: the
+    contiguous band envelope (bands of k blocks) whose z bounds reach the
+    z window, and within each band the x-slices whose live bounds reach
+    the circular x window [qx - xcut, qx + xcut]. The window's lower edge
+    is wrapped into [-L/2, L/2); slice s of a band stands at index s
+    (shift 0) and s + k (shift +L) of a doubled index space, where the
+    window is one interval; the admitted run there is clamped to k
+    entries, so it holds every residue at most once (sweep_pallas.py
+    `pair_terms_2d`)."""
+    nb, c = sbmin.shape
+    zc = float(cfg.lj_cutoff * (1.0 + 1e-5))
+    b_lo, b_hi = _envelope(sbmin, sbmax, qz - zc, qz + zc)
+    bd_lo, bd_hi = b_lo // k, (b_hi + k - 1) // k
+    box_l, xc = cfg.box_l, xcut(cfg)
+    lo = qx - xc
+    lo = lo - box_l * torch.floor(lo * (1.0 / box_l) + 0.5)
+    hi = lo + min(2.0 * xc, box_l)
+    bmin, bmax = sxmin.reshape(-1, k, c), sxmax.reshape(-1, k, c)
+    need = torch.cat([(bmin <= hi) & (bmax >= lo),
+                      (bmin + box_l <= hi) & (bmax + box_l >= lo)], dim=1)
+    s = torch.arange(2 * k, device=sbmin.device)[None, :, None]
+    s_lo = torch.where(need, s, 2 * k).amin(1, keepdim=True)
+    s_hi = torch.minimum(torch.where(need, s + 1, 0).amax(1, keepdim=True),
+                         s_lo + k)
+    r = s[:, :k]
+    adm = ((r >= s_lo) & (r < s_hi)) | ((r + k >= s_lo) & (r + k < s_hi))
+    band = torch.arange(nb // k, device=sbmin.device)[:, None, None]
+    return (adm & (band >= bd_lo) & (band < bd_hi)).reshape(nb, c)
+
+
 def _envelope_pass(qx, qy, qz, x, y, z, i: int, b_lo, b_hi, cfg: SMCConfig):
     """The streamed kernel's pass: only rows of the blocks [min b_lo,
     max b_hi) are read, each chain's own envelope and the row id (not
@@ -342,7 +382,7 @@ def _envelope_pass(qx, qy, qz, x, y, z, i: int, b_lo, b_hi, cfg: SMCConfig):
 def sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
                       n_sweeps: int, a, zskip: bool = False,
                       draws=None, diag: dict | None = None,
-                      temperature=None):
+                      temperature=None, xslices: int = 0):
     """Plain PyTorch version of the resident kernel: same arguments,
     results and semantics, in the dtype of the planes (float32 for the
     kernel's inputs; float64 for parity with tpu_smc.sampler.sweep).
@@ -352,7 +392,10 @@ def sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
 
     The moving row is parked at 1e15 during its move, pads sit at 1e15,
     the acceptance uses the unwrapped displacement, and zskip restricts
-    each pass to the block envelope the kernel visits. Pair sums add each
+    each pass to the block envelope the kernel visits; xslices = k > 1
+    (with zskip) to the 2-D pass's blocks (`_xs_blocks`) over rows sorted
+    by z-band of k blocks and by x within each band, with live x bounds
+    per block beside the z bounds (`check_xslices`). Pair sums add each
     lane's rows in ascending block order, then the lanes (`_lane_sums`).
     Under cfg.pbc_z z wraps too, in the pair pass and the proposal, so
     the mover and the pads are masked by row id instead of parked; the
@@ -374,9 +417,29 @@ def sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
     the move's two pairs, then the acceptance uniform).
 
     Returns (x, y, z, e [1, C], e_trace [S, C], acc_trace [S, C] int32)."""
+    mode = "zskip" if zskip else "dense"
+    if check_xslices(cfg, x.shape[0], zskip, xslices):
+        mode = "xskip"
     return _sweep_plain(x, y, z, e, wa, wb, offsets, seeds, cfg, n_sweeps,
-                        a, "zskip" if zskip else "dense", draws, diag,
-                        temperature)
+                        a, mode, draws, diag, temperature, xslices)
+
+
+def check_xslices(cfg: SMCConfig, n_pad: int, zskip: bool,
+                  xslices: int) -> bool:
+    """Whether a call runs the 2-D (z-band, x-slice) pass: xslices > 1.
+    Refuses what sweep_pallas.py:273-283 refuses: without zskip, with
+    reference noise, and k that does not divide the row blocks (pbc_z
+    and streaming are refused for every z-skip pass)."""
+    if xslices <= 1:
+        return False
+    if not zskip:
+        raise NotImplementedError("xslices refines the zskip engine")
+    if cfg.reference_noise:
+        raise NotImplementedError("xslices requires i.i.d. noise")
+    nb = -(-n_pad // ROW_BLOCK)
+    if nb % xslices:
+        raise ValueError(f"xslices {xslices} must divide the {nb} row blocks")
+    return True
 
 
 def sweep_block_stream_plain(x, y, z, e, wa, wb, offsets, seeds,
@@ -403,8 +466,10 @@ def _dense_only(cfg: SMCConfig, mode: str) -> None:
 
 
 def _sweep_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
-                 n_sweeps: int, a, mode: str, draws, diag, temperature):
-    """The plain sweep loop; mode "dense", "zskip" or "stream"."""
+                 n_sweeps: int, a, mode: str, draws, diag, temperature,
+                 xslices: int = 0):
+    """The plain sweep loop; mode "dense", "zskip", "xskip" (xslices
+    blocks per band) or "stream"."""
     _dense_only(cfg, mode)
     x, y, z, e = x.clone(), y.clone(), z.clone(), e.clone().reshape(-1)
     n, (n_pad, c) = cfg.n, x.shape
@@ -432,6 +497,9 @@ def _sweep_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
         if mode == "zskip":
             b_lo, b_hi = _envelope(sbmin, sbmax, qz - zcut, qz + zcut)
             rows = (rows_j >= b_lo * ROW_BLOCK) & (rows_j < b_hi * ROW_BLOCK)
+        elif mode == "xskip":
+            rows = _xs_blocks(sbmin, sbmax, sxmin, sxmax, qx, qz, xslices,
+                              cfg)[rows_j[:, 0] // ROW_BLOCK]
         cnt = n_pad if rows is None else rows.sum(0)
         if cfg.pbc_z:
             # a wrapped park value lands in the box: mask mover and pads
@@ -467,6 +535,11 @@ def _sweep_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
             real = zp < 1e14
             sbmin = torch.where(real, zp, PARK).amin(1)
             sbmax = torch.where(real, zp, -PARK).amax(1)
+            if mode == "xskip":
+                xp = torch.cat([x, x.new_full((nb * ROW_BLOCK - n_pad, c),
+                                              PARK)]).reshape(nb, ROW_BLOCK, c)
+                sxmin = torch.where(real, xp, PARK).amin(1)
+                sxmax = torch.where(real, xp, -PARK).amax(1)
         acc = torch.zeros((c,), dtype=torch.int32, device=dev)
         for nn in range(n):
             i = (nn + off) % n
@@ -521,6 +594,11 @@ def _sweep_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
                 ib = i // ROW_BLOCK
                 sbmin[ib] = torch.minimum(sbmin[ib], pz)
                 sbmax[ib] = torch.maximum(sbmax[ib], pz)
+                if mode == "xskip":
+                    # a seam-wrapping write widens the linear x interval:
+                    # loose, never unsafe
+                    sxmin[ib] = torch.minimum(sxmin[ib], px)
+                    sxmax[ib] = torch.maximum(sxmax[ib], px)
             e = e + torch.where(accept, un - um, torch.zeros_like(un))
             acc += accept.to(torch.int32)
         e_trace[s] = e
@@ -579,13 +657,15 @@ def build() -> ctypes.CDLL:
     _Build.seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.smc_sweep_launch.argtypes = [P] * 17 + [I] * 10 + [D] * 6 + [P]
+    lib.smc_sweep_launch.argtypes = [P] * 17 + [I] * 11 + [D] * 7 + [P]
     lib.smc_sweep_launch.restype = I
     lib.smc_sweep_stream_launch.argtypes = [P] * 14 + [I] * 7 + [D] * 6 + [P]
     lib.smc_sweep_stream_launch.restype = I
     lib.smc_sweep_capacity.argtypes = [I, I] + [ctypes.POINTER(
         ctypes.c_longlong)] * 2
     lib.smc_sweep_capacity.restype = I
+    lib.smc_banded_launch.argtypes = [P] * 15 + [I] * 8 + [D] * 7 + [P]
+    lib.smc_banded_launch.restype = I
     lib.smc_debug_reference_noise.argtypes = [P] + [I] * 4 + [D, P]
     lib.smc_debug_reference_noise.restype = I
     _Build.lib = lib
@@ -710,18 +790,24 @@ def _geometry(cfg: SMCConfig):
 
 
 def _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
-                      n_sweeps: int, a, zskip: bool, diag, temperature):
+                      n_sweeps: int, a, zskip: bool, diag, temperature,
+                      xslices: int):
     n_pad, c = x.shape
     dev = x.device
+    xs = check_xslices(cfg, n_pad, zskip, xslices)
     _dense_only(cfg, "zskip" if zskip else "dense")
     (offsets, seeds, scales, w_stride, eo, e_tr, a_tr, visited,
      u_dump) = _cuda_call(x, y, z, e, wa, wb, offsets, seeds, cfg, n_sweeps,
                           a, diag, temperature)
-    sites = wall_sites(cfg)
+    # the 2-D pass keeps its x bounds (2 floats per block) in dynamic
+    # shared memory beside the wall sites (2 floats each)
+    sites = wall_sites(cfg) + (-(-n_pad // ROW_BLOCK) if xs else 0)
     if not resident_fits(n_pad, dev, sites):
         instead = ("bulk (pbc_z) and reference-noise sweeps have no "
                    "streamed kernel (nor in tpu_smc): run fewer particles "
                    "or the plain engine" if cfg.pbc_z or cfg.reference_noise
+                   else "the 2-D x-slice pass has no streamed kernel (nor in "
+                   "tpu_smc): run it at fewer particles" if xs
                    else "run the streamed kernel instead (sweep_block_stream, "
                    "or ensemble_sweeps_zsorted, which routes there by itself)")
         raise ValueError(
@@ -740,11 +826,12 @@ def _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
             eo.data_ptr(), e_tr.data_ptr(), a_tr.data_ptr(), _ptr(visited),
             _ptr(u_dump), cfg.n, n_pad, c, n_sweeps, cfg.m, int(bool(zskip)),
             w_stride, int(cfg.pbc_z), int(cfg.use_walls),
-            int(cfg.reference_noise), *_geometry(cfg), stream)
+            int(cfg.reference_noise), xslices if xs else 0, *_geometry(cfg),
+            xcut(cfg), stream)
     if err != 0:
         raise RuntimeError(f"smc_sweep_launch failed: cudaError {err}")
-    _count("zskip" if zskip else "dense", cfg, a, temperature, w_stride,
-           diag, visited, u_dump)
+    _count("xskip" if xs else "zskip" if zskip else "dense", cfg, a,
+           temperature, w_stride, diag, visited, u_dump)
     return xo, yo, zo, eo, e_tr, a_tr
 
 
@@ -779,7 +866,8 @@ def _sweep_block_stream_cuda(x, y, z, e, wa, wb, offsets, seeds,
 
 def sweep_block(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
                 n_sweeps: int, a, zskip: bool = False,
-                diag: dict | None = None, temperature=None):
+                diag: dict | None = None, temperature=None,
+                xslices: int = 0):
     """n_sweeps Smart-MC sweeps of every chain (columns of the planes) on
     the resident kernel.
 
@@ -787,8 +875,9 @@ def sweep_block(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
     wa/wb: shared rows [1, MM_pad] or per-chain tables [C, MM_pad].
 
     CUDA tensors go through the CUDA kernel and count a launch in
-    `sweep_block.launches`: by kernel ("dense", "zskip", or "stream" for
-    sweep_block_stream), and also as "per_chain_at" when a or
+    `sweep_block.launches`: by kernel ("dense", "zskip", "xskip" for the
+    2-D pass, "stream" for sweep_block_stream, "banded" for
+    kernels.banded), and also as "per_chain_at" when a or
     temperature is per-chain and "per_chain_w" with per-chain wall
     tables, and by mode as "pbc_z", "no_walls" (use_walls=False) and
     "reference_noise" (both dense only). N_pad beyond
@@ -796,14 +885,20 @@ def sweep_block(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
     mode has one. CPU tensors go through the plain version.
     zskip: rows must be z-sorted per chain for the skips to pay; results
     are bitwise those of zskip=False on the same row order.
+    xslices = k > 1 (with zskip; K1-xs): rows sorted by z-band of k
+    blocks and by x within each band; each pass visits the admitted
+    (z, x) blocks in ascending order, so results are again bitwise those
+    of zskip=False on the same rows. Resident kernel and i.i.d. noise
+    only, k dividing the row blocks (`check_xslices`).
 
     Returns (x, y, z, e [1, C], e_trace [S, C], acc_trace [S, C])."""
     if x.is_cuda:
         return _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg,
-                                 n_sweeps, a, zskip, diag, temperature)
+                                 n_sweeps, a, zskip, diag, temperature,
+                                 xslices)
     return sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg,
                              n_sweeps, a, zskip=zskip, diag=diag,
-                             temperature=temperature)
+                             temperature=temperature, xslices=xslices)
 
 
 def sweep_block_stream(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
@@ -845,7 +940,8 @@ def debug_reference_noise(words, n: int, c: int, s2a: float, device="cuda"):
     return out
 
 
-sweep_block.launches = {"dense": 0, "zskip": 0, "stream": 0,
+sweep_block.launches = {"dense": 0, "zskip": 0, "xskip": 0, "stream": 0,
+                        "banded": 0,
                         "per_chain_at": 0, "per_chain_w": 0, "pbc_z": 0,
                         "no_walls": 0, "reference_noise": 0,
                         "debug_reference_noise": 0}

@@ -148,11 +148,13 @@ def init_ensemble_state(cfg: SMCConfig, key: torch.Tensor, n_chains: int,
 
 
 def from_jax_state(arrays: dict, w, cfg: SMCConfig,
-                   device="cpu") -> tuple[ChainState, torch.Tensor]:
+                   device="cuda") -> tuple[ChainState, torch.Tensor]:
     """Carry a tpu_smc ensemble state across: `arrays` holds its leaves as
     numpy (r, energy, sweeps, accepted, rbin, density, mobility, and
     `key` = jax.random.key_data of the chain keys, [C, 2] uint32), `w`
-    the [M*M, 2] wall table. Returns (ChainState, wall table tensor)."""
+    the [M*M, 2] wall table, onto `device` (the card by default, as
+    every entry point; pass "cpu" for the CPU). Returns (ChainState,
+    wall table tensor)."""
     dtype = cfg.torch_dtype
     i64 = dict(dtype=torch.int64, device=device)
 
