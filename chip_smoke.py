@@ -17,7 +17,8 @@ N = 1024 x 256 chains.
 
 Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
 
-  1. setup: card name and power limit, versions, cold nvcc build;
+  1. setup: card name and power limit, versions, cold nvcc build (ptxas
+     registers, spills and stack per kernel instantiation);
   2. kernel vs plain, dense and z-skip, at N = 108 x 64 and N = 1024 x 128
      chains, 2 sweeps, identical Philox draws (the plain version's exact
      mode): uniforms bitwise equal and inside (0, 1), accept decisions and
@@ -95,7 +96,11 @@ Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
      plain version and timed in the same turns, K1-xs (k = 4, 8) beside
      K2 in turns at scripts/probe_xsort.py's N = 1024 x 512 and 4096 x
      256, and K4 at N = 1024 x 256 against its plain version and beside
-     K2 per sweep in turns.
+     K2 per sweep in turns; first, where a move's time goes: the SM
+     clock cycles per move in each phase (envelope, passes, reductions,
+     wall terms, draws, acceptance, end barrier) from diagnostic launches
+     of K1 (N = 108 x 512), K2 (N = 1024 x 512) and K3 (N = 32768 x 128),
+     their outputs held bitwise the main path's instantiation's.
 
 Each phase prints its elapsed seconds; any failure exits non-zero before
 the result lines. The last two lines are the kernel table (JSON) and
@@ -1349,6 +1354,91 @@ def cuda_ms(fn, reps: int = 3) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def kernel_templates(source: str) -> dict:
+    """{kernel: its bool template parameters' names, in order}, read from
+    the __global__ declarations of csrc/sweep.cu's text."""
+    decl = re.finditer(r"template <([^>]*)>\s*__global__ void"
+                       r"(?: __launch_bounds__\([^)]*\))?\s*(\w+)\s*\(",
+                       source)
+    return {m.group(2): tuple(re.findall(r"bool (\w+)", m.group(1)))
+            for m in decl}
+
+
+def ptxas_table(log: str, templates: dict) -> list:
+    """Registers, spills and stack per kernel instantiation from nvcc's
+    `-Xptxas -v` log: [(name<modes>, registers, spill stores, spill
+    loads, stack bytes)], modes the template flags that are set, named
+    by `templates` (kernel_templates); a kernel whose parsed flags do not
+    match its parameters in number raises."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+        if m:
+            k = int(m.group(1))
+            name, rest = m.group(2)[:k], m.group(2)[k:]
+            targs = re.match(r"I((?:Lb[01]E)+)E", rest)
+            flags = re.findall(r"Lb([01])E", targs.group(1)) if targs else []
+            names = templates.get(name, ())
+            if len(flags) != len(names):
+                raise ValueError(f"ptxas log: {name} has {len(flags)} template "
+                                 f"flags, csrc/sweep.cu declares {names}")
+            modes = [nm for nm, f in zip(names, flags) if f == "1"]
+            cur = [f"{name}<{','.join(modes)}>" if targs else name, 0, 0, 0, 0]
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur[4], cur[2], cur[3] = (int(g) for g in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur[1] = int(m.group(1))
+    return rows
+
+
+def print_ptxas(log: str, source: str) -> None:
+    for name, regs, st, ld, stack in ptxas_table(log,
+                                                 kernel_templates(source)):
+        print(f"  ptxas: {name}: {regs} registers, {st} bytes spill stores, "
+              f"{ld} bytes spill loads, {stack} bytes stack", flush=True)
+
+
+def cycle_split(device, card: str) -> None:
+    """Where a move's time goes: SM clock cycles per move in each phase
+    (kernels.sweep.PHASES, csrc/sweep.cu `Laps`), lapped by lane 0 of the
+    wall warp of each chain in a diagnostic launch and averaged over the
+    chains, at K1 (dense, N = 108 x 512, 2 sweeps), K2 (z-skip, N = 1024 x
+    512, 2 sweeps) and K3 (streamed, the large-N main path's N = 32768 x
+    128, 1 sweep); the lapped launch's outputs are held bitwise those of
+    the main path's instantiation."""
+    from tpu_smc_torch.kernels import sweep as ks
+
+    big = large_n_config()
+    cases = (("K1", 108, 512, False, False, 2, None),
+             ("K2", 1024, 512, True, False, 2, None),
+             ("K3", big.n, 128, True, True, 1, big))
+    for label, n, c, zskip, stream, sweeps, cfg in cases:
+        cfg, _, args, ks = kernel_inputs(n, c, device, sweeps=sweeps,
+                                         sort=zskip, cfg=cfg)
+        run = ((lambda **kw: ks.sweep_block_stream(*args, cfg, sweeps,
+                                                   cfg.proposal_a, **kw))
+               if stream else
+               (lambda **kw: ks.sweep_block(*args, cfg, sweeps, cfg.proposal_a,
+                                            zskip=zskip, **kw)))
+        d = {"cycles": True}
+        check(bitwise(run(diag=d), run()), f"cycle split {label}: the lapped "
+              "launch is not bitwise the main path's")
+        per = d["cycles"].double().mean(0) / (sweeps * cfg.n)
+        total = float(per.sum())
+        print(f"  cycle split {label} N={n} x {c}, {sweeps} sweep(s): "
+              f"{total:.0f} cycles per move; " + ", ".join(
+                  f"{k} {v:.0f} ({v / total:.1%})"
+                  for k, v in zip(ks.PHASES, per.tolist()))
+              + f" ({card})", flush=True)
+
+
 def kernel_case(n: int, c: int, zskip: bool, device, sweeps: int = 2,
                 at: bool = False, walls: int = 0, plain: bool = True,
                 cfg=None, xsort: int = 0):
@@ -1614,9 +1704,7 @@ def main() -> int:
     ks.build()
     print(f"nvcc build of kernels/csrc/sweep.cu: {ks._Build.seconds:.1f} s",
           flush=True)
-    for line in ks._Build.log.splitlines():
-        if "registers" in line or "smem" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    print_ptxas(ks._Build.log, ks._CSRC.read_text())
     caps = {m: ks.capacity(device, m * m) for m in (3, 10)}
     print("capacity (N_pad rows, resident / streamed): "
           + ", ".join(f"M = {m}: {r} / {st}" for m, (r, st) in caps.items())
@@ -1713,6 +1801,7 @@ def main() -> int:
     phase_line("main path, validation of the engines (K1-xs, K4)", t0)
 
     t0 = time.perf_counter()
+    cycle_split(device, card)
     cases = (
         ("sweep_dense", 108, False, {}, "tpu_smc/kernels/sweep_pallas.py:992",
          launches["dense"]["dense"]),

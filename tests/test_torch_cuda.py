@@ -448,3 +448,127 @@ def test_banded_refuses_beyond_capacity(cuda):
     e = torch.zeros((1, 1), device=cuda)
     with pytest.raises(ValueError, match=f"at most {rows} rows"):
         kb.banded_sweep_block(x, y, z, e, wa, wb, margin, (1, 2), cfg, 1.1)
+
+
+# The pass keeps ROWS = 4 of a thread's rows in flight (csrc/sweep.cu
+# `pair_rows`), the wall terms run in one warp beside the pass and the
+# draws in another; the cases below hold that design at its edges.
+
+def _layers(n, gap=3.6, side=12, spacing=1.5, jitter=0.05, seed=3):
+    """n particles in z-layers of 128 rows (the last holds the rest),
+    layer k at z = gap (k - (layers - 1) / 2) on a jittered side x side
+    grid of the given spacing: row block b is layer b, and no other layer
+    lies within the cutoff (3) of it, so a mover's first envelope is its
+    own block."""
+    rng = np.random.default_rng(seed)
+    k = np.arange(n)
+    pos, layers = k % 128, -(-n // 128)
+    r = np.stack([(pos % side - side / 2 + 0.5) * spacing,
+                  (pos // side - side / 2 + 0.5) * spacing,
+                  (k // 128 - (layers - 1) / 2) * gap], axis=1)
+    return r + rng.normal(0.0, jitter, (n, 3))
+
+
+@pytest.mark.parametrize("n", [108, 1000, 4096])
+def test_grouped_rows_edges(cuda, n):
+    """The grouped row loop at its edges, on layers whose envelope is one
+    block (_layers, 12 empty units above and below the stack), at the
+    default mobility and at A = 4 and 8, whose proposals leave the stack
+    (an empty envelope: at N = 108, one block, fewer rows visited than
+    every pass over it); n_pad = 112, 1000 (not multiples of 128 x 4) and
+    4096. At every mobility: z-skip bitwise the dense pass, and against
+    the plain version on identical draws as in chip_smoke: on every chain
+    without a near-tie move (|min(log_ap, 0) - log u| < 1e-3, where
+    float32 rounding may flip a decision) the same accepted moves and
+    visited rows within 1 % (a block whose bound lies within rounding of
+    a window's edge may count on one side only). At the default mobility
+    and at A = 4 also positions within 1e-2 and energies within rtol
+    1e-4, atol 5e-2 on those chains; at A = 8 only the decisions and the
+    visited rows are held against plain (the step's F A/T term carries
+    the float32 rounding of large forces past that position tolerance),
+    the positions only bitwise against the dense pass."""
+    layers = -(-n // 128)
+    cfg = SMCConfig(n=n, box_l=18.0, box_lz=layers * 3.6 + 24.0)
+    x, y, z, e, wa, wb, offsets, words = _cfg_inputs(cfg, 64, cuda,
+                                                     r0=_layers(n))
+    args = (x, y, z, e, wa, wb, offsets[:1], words[:1])
+    n_pad = x.shape[0]
+    for a, close in ((cfg.proposal_a, True), (4.0, True), (8.0, False)):
+        dk, dp = {"uniforms": True}, {"uniforms": True, "tie_margin": 1e-3}
+        outk = ks.sweep_block(*args, cfg, 1, a, zskip=True, diag=dk)
+        outp = ks.sweep_block_plain(*args, cfg, 1, a, zskip=True, diag=dp)
+        dense = ks.sweep_block(*args, cfg, 1, a)
+        torch.cuda.synchronize()
+        for u, v in zip(dense, outk):
+            assert torch.equal(u, v)
+        assert torch.equal(dk["uniforms"], dp["uniforms"])
+        clean = dp["near_ties"] == 0
+        assert int(clean.sum()) >= 8
+        assert torch.equal(outk[5][:, clean], outp[5][:, clean])
+        vk, vp = dk["visited"][clean], dp["visited"][clean]
+        assert bool(((vk - vp).abs() <= 0.01 * vp).all())
+        if close:
+            _agree([o[..., clean] for o in outk],
+                   [o[..., clean] for o in outp], int(clean.sum()))
+        assert int(outk[5].sum()) > 0
+        if n == 108 and a > cfg.proposal_a:
+            assert float(dp["visited"].double().mean()) < 2 * n * n_pad
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_m10_per_chain_walls_match_plain(cuda, stream):
+    """M = 10 (100 sites: the wall warp's site loop, not the unrolled M = 3
+    grid) with per-chain wall tables of 4 realizations, on the resident
+    dense kernel (K1-w) and on the streamed kernel (K3), against the plain
+    version on identical draws; four identical tables are bitwise the
+    shared row."""
+    from tpu_smc_torch.system import build_wall_ensemble
+
+    cfg = SMCConfig(n=108, m=10, box_l=10.0, box_lz=24.0)
+    w4 = build_wall_ensemble(cfg, 4)[0]
+    state, w = init_ensemble_state(cfg, seed_words(5), 32,
+                                   w=np.repeat(w4, 8, axis=0), device=cuda)
+    words, offsets = ten._per_sweep_randomness(state, cfg, 5, 2)
+    x, y, z, e, wa, wb = ten._kernel_inputs(state, w, cfg)
+    assert wa.shape[0] == 32
+    if stream:
+        kernel, plain = ks.sweep_block_stream, ks.sweep_block_stream_plain
+    else:
+        kernel, plain = ks.sweep_block, ks.sweep_block_plain
+    args = (x, y, z, e, wa, wb, offsets, words)
+    dk, dp = {"uniforms": True}, {"uniforms": True}
+    outk = kernel(*args, cfg, 2, cfg.proposal_a, diag=dk)
+    outp = plain(*args, cfg, 2, cfg.proposal_a, diag=dp)
+    torch.cuda.synchronize()
+    assert torch.equal(dk["uniforms"], dp["uniforms"])
+    _agree(outk, outp, 28)
+    w0 = torch.as_tensor(w4[0], device=cuda)
+    same = ks.wall_coeff_rows(w0.expand(32, -1, -1), cfg)
+    shared = ks.wall_coeff_rows(w0, cfg)
+    out_same = kernel(x, y, z, e, *same, offsets, words, cfg, 2,
+                      cfg.proposal_a)
+    out_shared = kernel(x, y, z, e, *shared, offsets, words, cfg, 2,
+                        cfg.proposal_a)
+    for u, v in zip(out_same, out_shared):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("n", [1100, 2400])
+def test_stream_kernel_bitwise_resident_odd_blocks(cuda, n):
+    """K3 against the resident z-skip kernel on the same sorted rows at an
+    odd number of row blocks (N = 1100: 9 blocks, the last of 76 rows;
+    N = 2400: 19 blocks, with per-chain (A, T) of 4 levels): every output
+    and the visited rows bitwise."""
+    cfg, args = _inputs(n, 64, cuda, True)
+    assert -(-args[0].shape[0] // 128) % 2 == 1
+    a, t = (_ladder_rows(64, cuda) if n == 2400
+            else (cfg.proposal_a, None))
+    dr, ds = {}, {}
+    resident = ks.sweep_block(*args, cfg, 2, a, zskip=True, diag=dr,
+                              temperature=t)
+    stream = ks.sweep_block_stream(*args, cfg, 2, a, diag=ds, temperature=t)
+    torch.cuda.synchronize()
+    for u, v in zip(resident, stream):
+        assert torch.equal(u, v)
+    assert torch.equal(dr["visited"], ds["visited"])
+    assert int(stream[5].sum()) > 0

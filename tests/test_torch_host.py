@@ -115,9 +115,9 @@ def test_resolve_sampler_routing(monkeypatch):
 
 
 def test_port_imports_without_jax():
-    """tpu_smc_torch and chip_smoke.py import with jax and tpu_smc made
-    unimportable, and no line of them imports either."""
-    files = [ROOT / "chip_smoke.py"] + sorted(
+    """tpu_smc_torch, chip_smoke.py and kernel_ab.py import with jax and
+    tpu_smc made unimportable, and no line of them imports either."""
+    files = [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"] + sorted(
         (ROOT / "tpu_smc_torch").rglob("*.py"))
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
@@ -136,7 +136,7 @@ def test_port_imports_without_jax():
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'tpu_smc'):\n"
             "    sys.modules[m] = None\n"
-            "import importlib, tpu_smc_torch, chip_smoke\n"
+            "import importlib, tpu_smc_torch, chip_smoke, kernel_ab\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "print('ok')\n")

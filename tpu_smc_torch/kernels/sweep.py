@@ -45,6 +45,11 @@ from ..config import SMCConfig
 
 ROW_BLOCK = 128          # rows per z-skip block = threads per CTA
 PARK = 1e15              # pad / parked rows: beyond every cutoff
+# the phases of a move whose SM clock cycles a diagnostic launch sums per
+# chain (diag={"cycles": True}; csrc/sweep.cu `Phase`, in its order)
+PHASES = ("envelope", "pass 1", "reduction 1", "wall terms",
+          "draws and proposal", "pass 2", "reduction 2",
+          "acceptance and write-back", "end barrier")
 _CSRC = Path(__file__).resolve().parent / "csrc" / "sweep.cu"
 _BUILD = Path(__file__).resolve().parents[1] / "_build"
 _MASK32 = 0xFFFFFFFF
@@ -657,9 +662,9 @@ def build() -> ctypes.CDLL:
     _Build.seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.smc_sweep_launch.argtypes = [P] * 17 + [I] * 11 + [D] * 7 + [P]
+    lib.smc_sweep_launch.argtypes = [P] * 18 + [I] * 11 + [D] * 7 + [P]
     lib.smc_sweep_launch.restype = I
-    lib.smc_sweep_stream_launch.argtypes = [P] * 14 + [I] * 7 + [D] * 6 + [P]
+    lib.smc_sweep_stream_launch.argtypes = [P] * 15 + [I] * 7 + [D] * 6 + [P]
     lib.smc_sweep_stream_launch.restype = I
     lib.smc_sweep_capacity.argtypes = [I, I] + [ctypes.POINTER(
         ctypes.c_longlong)] * 2
@@ -727,7 +732,7 @@ def _cuda_call(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
                n_sweeps: int, a, diag, temperature):
     """Checked inputs and fresh outputs of one launch of either kernel:
     (offsets, seeds, scales, w_stride, e_out, e_trace, acc_trace,
-    visited, u_dump), the last two None unless `diag` asks."""
+    visited, u_dump, cycles), the last three None unless `diag` asks."""
     n_pad, c = x.shape
     dev = x.device
     f32 = torch.float32
@@ -746,17 +751,19 @@ def _cuda_call(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
     seeds = seeds.to(device=dev, dtype=torch.int32).contiguous()
     _check(offsets, "offsets", (n_sweeps,), torch.int32, dev)
     _check(seeds, "seeds", (n_sweeps, 2), torch.int32, dev)
-    visited = u_dump = None
+    visited = u_dump = cycles = None
     if diag is not None:
         visited = torch.empty((c,), dtype=torch.int64, device=dev)
     if diag is not None and diag.get("uniforms"):
         u_dump = torch.empty((n_sweeps, c, cfg.n, 5), dtype=f32, device=dev)
+    if diag is not None and diag.get("cycles"):
+        cycles = torch.empty((c, len(PHASES)), dtype=torch.int64, device=dev)
     t = cfg.temperature if temperature is None else temperature
     return (offsets, seeds, chain_scales(a, t, c, dev), w_stride,
             torch.empty_like(e),
             torch.empty((n_sweeps, c), dtype=f32, device=dev),
             torch.empty((n_sweeps, c), dtype=torch.int32, device=dev),
-            visited, u_dump)
+            visited, u_dump, cycles)
 
 
 def _ptr(t):
@@ -764,7 +771,7 @@ def _ptr(t):
 
 
 def _count(kind: str, cfg: SMCConfig, a, temperature, w_stride: int, diag,
-           visited, u_dump):
+           visited, u_dump, cycles=None):
     """Count a launch by kind and mode; hand the diagnostics over."""
     launches = sweep_block.launches
     launches[kind] += 1
@@ -782,6 +789,8 @@ def _count(kind: str, cfg: SMCConfig, a, temperature, w_stride: int, diag,
         diag["visited"] = visited
         if u_dump is not None:
             diag["uniforms"] = u_dump
+        if cycles is not None:
+            diag["cycles"] = cycles
 
 
 def _geometry(cfg: SMCConfig):
@@ -796,8 +805,8 @@ def _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
     dev = x.device
     xs = check_xslices(cfg, n_pad, zskip, xslices)
     _dense_only(cfg, "zskip" if zskip else "dense")
-    (offsets, seeds, scales, w_stride, eo, e_tr, a_tr, visited,
-     u_dump) = _cuda_call(x, y, z, e, wa, wb, offsets, seeds, cfg, n_sweeps,
+    (offsets, seeds, scales, w_stride, eo, e_tr, a_tr, visited, u_dump,
+     cycles) = _cuda_call(x, y, z, e, wa, wb, offsets, seeds, cfg, n_sweeps,
                           a, diag, temperature)
     # the 2-D pass keeps its x bounds (2 floats per block) in dynamic
     # shared memory beside the wall sites (2 floats each)
@@ -824,14 +833,15 @@ def _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
             wa.data_ptr(), wb.data_ptr(), offsets.data_ptr(), seeds.data_ptr(),
             scales.data_ptr(), xo.data_ptr(), yo.data_ptr(), zo.data_ptr(),
             eo.data_ptr(), e_tr.data_ptr(), a_tr.data_ptr(), _ptr(visited),
-            _ptr(u_dump), cfg.n, n_pad, c, n_sweeps, cfg.m, int(bool(zskip)),
+            _ptr(u_dump), _ptr(cycles), cfg.n, n_pad, c, n_sweeps, cfg.m,
+            int(bool(zskip)),
             w_stride, int(cfg.pbc_z), int(cfg.use_walls),
             int(cfg.reference_noise), xslices if xs else 0, *_geometry(cfg),
             xcut(cfg), stream)
     if err != 0:
         raise RuntimeError(f"smc_sweep_launch failed: cudaError {err}")
     _count("xskip" if xs else "zskip" if zskip else "dense", cfg, a,
-           temperature, w_stride, diag, visited, u_dump)
+           temperature, w_stride, diag, visited, u_dump, cycles)
     return xo, yo, zo, eo, e_tr, a_tr
 
 
@@ -841,8 +851,8 @@ def _sweep_block_stream_cuda(x, y, z, e, wa, wb, offsets, seeds,
     n_pad, c = x.shape
     dev = x.device
     _dense_only(cfg, "stream")
-    (offsets, seeds, scales, w_stride, eo, e_tr, a_tr, visited,
-     u_dump) = _cuda_call(x, y, z, e, wa, wb, offsets, seeds, cfg, n_sweeps,
+    (offsets, seeds, scales, w_stride, eo, e_tr, a_tr, visited, u_dump,
+     cycles) = _cuda_call(x, y, z, e, wa, wb, offsets, seeds, cfg, n_sweeps,
                           a, diag, temperature)
     rows = capacity(dev, wall_sites(cfg))[1]
     if n_pad > rows:
@@ -856,11 +866,13 @@ def _sweep_block_stream_cuda(x, y, z, e, wa, wb, offsets, seeds,
             xc.data_ptr(), yc.data_ptr(), zc.data_ptr(), e.data_ptr(),
             wa.data_ptr(), wb.data_ptr(), offsets.data_ptr(), seeds.data_ptr(),
             scales.data_ptr(), eo.data_ptr(), e_tr.data_ptr(), a_tr.data_ptr(),
-            _ptr(visited), _ptr(u_dump), cfg.n, n_pad, c, n_sweeps, cfg.m,
+            _ptr(visited), _ptr(u_dump), _ptr(cycles), cfg.n, n_pad, c,
+            n_sweeps, cfg.m,
             w_stride, int(cfg.use_walls), *_geometry(cfg), stream)
     if err != 0:
         raise RuntimeError(f"smc_sweep_stream_launch failed: cudaError {err}")
-    _count("stream", cfg, a, temperature, w_stride, diag, visited, u_dump)
+    _count("stream", cfg, a, temperature, w_stride, diag, visited, u_dump,
+           cycles)
     return (*chain_major(xc, yc, zc), eo, e_tr, a_tr)
 
 
@@ -890,6 +902,10 @@ def sweep_block(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
     (z, x) blocks in ascending order, so results are again bitwise those
     of zskip=False on the same rows. Resident kernel and i.i.d. noise
     only, k dividing the row blocks (`check_xslices`).
+    diag (CUDA): filled with "visited" [C]; with "uniforms": True, the
+    move uniforms [S, C, N, 5]; with "cycles": True, the SM clock cycles
+    of each move phase (`PHASES`) summed over the call, [C, len(PHASES)]
+    int64. A diagnostic launch gives bitwise the results of a plain one.
 
     Returns (x, y, z, e [1, C], e_trace [S, C], acc_trace [S, C])."""
     if x.is_cuda:
