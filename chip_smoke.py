@@ -2,6 +2,8 @@
 """On-card check of tpu_smc_torch: builds the CUDA kernels, holds them against
 their plain PyTorch versions in every mode, and drives the CLI at full width:
 the NVT chain ensemble (N = 1024 x 512 and N = 108 x 512 chains), the
+reference's single-chain main.c run (N = 108, and one chain at N = 1024)
+with checkpoint, SIGTERM stop, resume and fault replay, the
 temperature ladder with parallel tempering, tuning and MBAR (N = 1024,
 8 x 64 chains), the quenched-disorder ladder (N = 108, 4 x 128 chains, 4
 walls), the disordered ensemble (N = 108 x 512, 8 walls), the large-N
@@ -50,7 +52,18 @@ Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
   3. the main path: `tpu_smc_torch.cli.main` at N = 1024 x 512 chains
      (auto -> zsorted, z-skip launches) and N = 108 x 512 (auto -> dense),
      each reproducing the mean energy and acceptance recorded for it
-     exactly; then (a) the N = 1024 ladder with parallel tempering, tuned
+     exactly; then the single chain: the main.c run `2000 8000 400 1.10`
+     (N = 108, dense; tpu_smc's nine CSVs, finite results, mean E within
+     4 combined SE of a 64-chain run, the chain's SE from its own tau)
+     and one chain at N = 1024 (zsorted), each with its wall-time split;
+     driver.simulate of one chain bitwise chain 0 of simulate_ensemble of
+     8 chains at N = 108 (K1) and N = 1024 (K2); scripts/resume_drill.py's
+     protocol in-process at N = 1024 x 64 (zsorted) and N = 108 single
+     chain (dense): uninterrupted, SIGTERM after the first auto-
+     checkpoint, resumed, with last_state and local byte-identical and
+     the data (E, P) and positions rows the uninterrupted run's tail, and
+     the uninterrupted run again with one injected launch error, replayed
+     to byte-identical CSVs; then (a) the N = 1024 ladder with parallel tempering, tuned
      mobility and MBAR, (b) the N = 108 disorder ladder with per-
      realization MBAR, (d) an N = 108 parallel-tempering ladder run near
      equilibrium and (c) the N = 108 disordered ensemble; launch counts
@@ -1338,6 +1351,314 @@ def drive_validation(device, card: str):
 
 
 # ----------------------------------------------------------------------
+# Phase 3: the single chain (main.c) and resume
+# ----------------------------------------------------------------------
+
+STEMS_SINGLE = ("positions", "local_temp", "data", "local", "total_clusters",
+                "autocorrelation")
+# (EQ, MAX, NUM) of the main.c run at N = 108, of the 64-chain run it is
+# held against, and of the single chain at N = 1024; (N, engine, (EQ,
+# MAX, NUM)) of the one-chain-against-8 checks
+MAIN_C = (2000, 8000, 400)
+MAIN_C_ENSEMBLE = (2000, 2000, 100)
+SINGLE_1024 = (100, 400, 20)
+SINGLE_VS_8 = ((108, "dense", (64, 256, 8)), (1024, "zsorted", (32, 128, 4)))
+
+
+def check_single_files(d: Path, cfg, num: int, windows: int):
+    """tpu_smc's nine CSVs of a single-chain run, finite data rows and
+    one local_temp voxel block per storage window."""
+    key = cfg.file_key()
+    want = {f"{s}_{key}_rank0.csv" for s in STEMS_SINGLE}
+    want |= {f"{s}_{key}.csv" for s in ("wall", "info", "last_state")}
+    have = {p.name for p in d.iterdir()}
+    check(have == want, f"single-chain CSVs: extra {sorted(have - want)}, "
+          f"missing {sorted(want - have)}")
+    data = np.loadtxt(d / f"data_{key}_rank0.csv", delimiter=",",
+                      skiprows=1, ndmin=2)
+    check(data.shape == (num, 3) and np.isfinite(data).all(),
+          f"single-chain data rows: {data.shape}")
+    temp = (d / f"local_temp_{key}_rank0.csv").read_text().count("\n")
+    check(temp == 1 + windows * cfg.n_voxels,
+          f"local_temp holds {temp} lines, want 1 + {windows} blocks")
+
+
+def trace_se(e: np.ndarray) -> float:
+    """Standard error of a correlated trace's mean from its own tau."""
+    from tpu_smc_torch.observables import tau_int
+
+    return float(np.std(e) * math.sqrt(2.0 * tau_int(e) / len(e)))
+
+
+@contextlib.contextmanager
+def engine_timer():
+    """driver_ensemble._advance timed on the host clock, synchronised
+    before and after, for the production calls (those that collect the
+    sweep trace; thermalization does not): yields their seconds."""
+    from tpu_smc_torch import driver_ensemble as de
+
+    advance, spent = de._advance, []
+
+    def timed(state, w, cfg, a, n_sweeps, opts, collect_trace):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = advance(state, w, cfg, a, n_sweeps, opts, collect_trace)
+        torch.cuda.synchronize()
+        if collect_trace:
+            spent.append(time.perf_counter() - t)
+        return out
+
+    with patched(de, _advance=timed):
+        yield spent
+
+
+def print_single_split(n: int, mx: int, dt: float, sim: dict, spent: list):
+    """A single-chain run's wall-time split, its gather loop split into
+    the engine's calls and the rest (observables, host reads, CSV rows)."""
+    print_split(n, mx, 1, dt, sim)
+    loop = mx / sim["sps"]
+    print(f"  N={n} one chain: gather loop {loop:.3f} s = {sum(spent):.3f} s "
+          f"in {len(spent)} engine calls of {mx // max(len(spent), 1)} "
+          f"sweeps ({1e3 * sum(spent) / mx:.4f} ms per sweep, synchronised "
+          f"host clock) + {loop - sum(spent):.3f} s observables and host",
+          flush=True)
+
+
+def drive_main_c(device, card: str):
+    """The reference's main.c run, `python -m tpu_smc_torch 2000 8000 400
+    1.10` (one chain, N = 108, the dense kernel): tpu_smc's nine CSVs,
+    finite results, mean E within 4 combined SE of a 64-chain run of
+    2000 + 2000 sweeps (the chain's SE from its own tau, the ensemble's
+    from its chain spread); then the single chain at N = 1024 (zsorted).
+    Returns the launch counts of both runs."""
+    from tpu_smc_torch.config import RunParams, SMCConfig
+    from tpu_smc_torch.driver import ObservableOptions
+    from tpu_smc_torch.driver_ensemble import simulate_ensemble
+    from tpu_smc_torch.state import init_ensemble_state, seed_words
+
+    eq, mx, num = MAIN_C
+    with tempfile.TemporaryDirectory() as tmp, \
+            engine_timer() as spent:
+        out, launches, dt, sim = run_main(
+            [str(eq), str(mx), str(num), "1.10", "--seed", "2024",
+             "--data-dir", tmp])
+        cfg = SMCConfig.for_n(108, temperature=1.10)
+        check_single_files(Path(tmp) / cfg.run_name(), cfg, num, 1)
+    check("Ensemble sweep engine: dense" in out, "main.c run: not dense")
+    check(launches["dense"] > 0 and launches["zskip"] == launches["stream"]
+          == 0, f"main.c run launches {launches}")
+    res = sim["agg"].chains[0]
+    e = res.energy_trace_full
+    check(len(e) == mx + 1 and np.isfinite(e).all()
+          and 0 < res.acceptance_ratio < 1, "main.c run: results")
+    check(summary_value(out, "Mean energy:") == f"{res.mean_energy:f}",
+          "main.c run: printed mean energy")
+    with main_path() as ens_launches:
+        state, w = init_ensemble_state(cfg, seed_words(2025), 64,
+                                       device=device)
+        _, agg = simulate_ensemble(cfg, RunParams(*MAIN_C_ENSEMBLE), state,
+                                   w, opts=ObservableOptions(
+                                       sampler="dense", stream_seed=2025))
+    check(ens_launches["dense"] > 0, f"64-chain launches {ens_launches}")
+    means = np.asarray([c.mean_energy for c in agg.chains])
+    se1, se2 = trace_se(e), float(means.std(ddof=1) / math.sqrt(64))
+    z = (res.mean_energy - means.mean()) / math.hypot(se1, se2)
+    print(f"  main.c run N=108, one chain, {eq} + {mx} sweeps: {dt:.1f} s, "
+          f"{res.sweeps_per_second:,.1f} sweeps/s in the gather loop, "
+          f"launches {launches}; mean E {res.mean_energy:f} +- {se1:.4f} "
+          f"(tau), acceptance {res.acceptance_ratio:f}; 64 chains of "
+          f"{MAIN_C_ENSEMBLE[0]} + {MAIN_C_ENSEMBLE[1]} sweeps: mean E "
+          f"{means.mean():f} +- {se2:.4f}, acceptance "
+          f"{agg.acceptance_ratio:f}; {z:+.2f} combined SE ({card})",
+          flush=True)
+    print_single_split(108, mx, dt, sim, spent)
+    check_later(abs(z) < 4.0, f"main.c run: mean E {z:+.2f} combined SE "
+                "from the 64-chain run")
+    eq, mx, num = SINGLE_1024
+    with tempfile.TemporaryDirectory() as tmp, \
+            engine_timer() as spent:
+        out, l1024, dt, sim = run_main(
+            [str(eq), str(mx), str(num), "1.10", "--n", "1024", "--seed",
+             "2024", "--data-dir", tmp])
+        cfg = SMCConfig.for_n(1024, temperature=1.10)
+        check_single_files(Path(tmp) / cfg.run_name(), cfg, num, 1)
+    check("Ensemble sweep engine: zsorted" in out
+          and l1024["zskip"] > 0 and l1024["dense"] == 0,
+          f"N=1024 single chain: engine or launches {l1024}")
+    r = sim["agg"].chains[0]
+    print(f"  single chain N=1024, {eq} + {mx} sweeps: {dt:.1f} s, "
+          f"{r.sweeps_per_second:,.1f} sweeps/s in the gather loop, "
+          f"launches {l1024}; mean E {r.mean_energy:f}, acceptance "
+          f"{r.acceptance_ratio:f} ({card})", flush=True)
+    print_single_split(1024, mx, dt, sim, spent)
+    return {k: launches[k] + l1024[k] for k in launches}
+
+
+def drive_single_vs_ensemble(device, card: str):
+    """driver.simulate of one chain bitwise chain 0 of simulate_ensemble
+    of 8 chains from the same seeded start, at N = 108 (dense, K1) and
+    N = 1024 (zsorted, K2). Returns the launch counts."""
+    from tpu_smc_torch.config import RunParams, SMCConfig
+    from tpu_smc_torch.driver import ObservableOptions, simulate
+    from tpu_smc_torch.driver_ensemble import simulate_ensemble
+    from tpu_smc_torch.state import (batch_chain_state, init_chain_state,
+                                     seed_words)
+
+    total = {}
+    for n, sampler, steps in SINGLE_VS_8:
+        params = RunParams(*steps)
+        cfg = SMCConfig.for_n(n, storage_time=2, lca_time=2)
+        s0, w = init_chain_state(cfg, seed_words(31), device=device)
+        opts = ObservableOptions(sampler=sampler, stream_seed=31)
+        with main_path() as l1:
+            st1, one = simulate(cfg, params, batch_chain_state(s0, 1), w,
+                                opts=opts)
+        with main_path() as l8:
+            st8, ens = simulate_ensemble(cfg, params,
+                                         batch_chain_state(s0, 8), w,
+                                         opts=opts)
+        mode = "zskip" if sampler == "zsorted" else "dense"
+        check(l1[mode] > 0 and l1[mode] == l8[mode],
+              f"N={n}: launches {l1} and {l8}")
+        c0 = ens.chains[0]
+        for f in ("r_final", "energy_trace_full", "accept_trace",
+                  "pressure_trace", "density", "mobility", "l2", "l3"):
+            check(np.array_equal(getattr(one, f), getattr(c0, f)),
+                  f"N={n} {sampler}: one chain's {f} is not chain 0's of 8")
+        check(torch.equal(st1.r[0], st8.r[0]), f"N={n}: final state")
+        print(f"  simulate, one chain N={n} ({sampler}, {params.eqsteps} + "
+              f"{params.maxsteps} sweeps): bitwise chain 0 of 8 chains "
+              f"(positions, E/P/acceptance traces, voxel counts, CNA); "
+              f"{one.sweeps_per_second:,.1f} sweeps/s for one chain, "
+              f"{ens.sweeps_per_second:,.1f} chain-sweeps/s for 8 ({card})",
+              flush=True)
+        for k, v in l1.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def run_quiet(argv):
+    """cli.main(argv) as a main-path run, its output kept and not shown.
+    Returns (output, launch counts)."""
+    from tpu_smc_torch import cli
+
+    buf = io.StringIO()
+    with main_path() as launches, contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    check(rc == 0, f"cli.main{argv} returned {rc}: {buf.getvalue()[-400:]}")
+    return buf.getvalue(), launches
+
+
+def one_run_dir(root: Path) -> Path:
+    dirs = sorted((root / "Data").iterdir())
+    check(len(dirs) == 1, f"run dirs {dirs}")
+    return dirs[0]
+
+
+def resume_drill(label: str, common: list, card: str):
+    """scripts/resume_drill.py's protocol in this process: A uninterrupted;
+    B with --auto-checkpoint 1, SIGTERM raised once its first checkpoint
+    has landed (it finishes the window, checkpoints and stops); C resumes
+    B's checkpoint with the remaining steps into B's directory. last_state
+    and local byte-identical to A's; C's (E, P) data rows and positions
+    rows A's tail. Then D, A again with the engine raising a retryable
+    launch error once mid-run: one [elastic] retry and every CSV byte-
+    identical to A's. Returns the launch counts of the four runs."""
+    import signal
+
+    from tpu_smc_torch import driver_ensemble as de
+    from tpu_smc_torch import io as smcio
+    from tpu_smc_torch.kernels.sweep import KernelLaunchError
+
+    eq, mx, num = (int(v) for v in common[:3])
+    lapse = mx // num
+    counts = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            counts[k] = counts.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        wd = Path(tmp)
+        add(run_quiet(common + ["--data-dir", str(wd / "A" / "Data")])[1])
+        save, fired = smcio.save_checkpoint, []
+
+        def save_then_sigterm(*args, **kw):
+            path = save(*args, **kw)
+            if not fired:
+                fired.append(path)
+                signal.raise_signal(signal.SIGTERM)
+            return path
+
+        ck = wd / "ckB.npz"
+        with patched(smcio, save_checkpoint=save_then_sigterm):
+            out, lb = run_quiet(common + [
+                "--data-dir", str(wd / "B" / "Data"), "--auto-checkpoint",
+                "1", "--checkpoint", str(ck)])
+        add(lb)
+        check("[signal" in out and f"Checkpoint written to {ck}" in out,
+              f"{label}: run B did not stop on SIGTERM")
+        with np.load(ck) as data:
+            sweeps = int(data["sweeps"].reshape(-1)[0])
+        done = (sweeps - eq) // lapse
+        check(0 < done < num, f"{label}: B stopped after {done} gathers")
+        out, lc = run_quiet([
+            "0", str(mx - done * lapse), str(num - done)] + common[3:]
+            + ["--resume", str(ck), "--data-dir", str(wd / "B" / "Data")])
+        add(lc)
+        check("Resumed full" in out, f"{label}: run C did not resume")
+        da, db = one_run_dir(wd / "A"), one_run_dir(wd / "B")
+        for pat in ("last_state_*.csv", "local_N*_rank*.csv"):
+            fa, fb = sorted(da.glob(pat)), sorted(db.glob(pat))
+            check(fa and [f.name for f in fa] == [f.name for f in fb]
+                  and all(a.read_bytes() == b.read_bytes()
+                          for a, b in zip(fa, fb)),
+                  f"{label}: {pat} not byte-identical after the resume")
+        for pat, cols in (("data_N*_rank*.csv", 2),
+                          ("positions_*_rank*.csv", None)):
+            fa, fb = sorted(da.glob(pat)), sorted(db.glob(pat))
+            check(fa and len(fa) == len(fb), f"{label}: {pat} files")
+            for a, b in zip(fa, fb):
+                ra = [",".join(ln.split(",")[:cols])
+                      for ln in a.read_text().splitlines()]
+                rb = [",".join(ln.split(",")[:cols])
+                      for ln in b.read_text().splitlines()]
+                check(ra[0] == rb[0] and ra[-(len(rb) - 1):] == rb[1:],
+                      f"{label}: {b.name} is not the tail of A's")
+        # the fault hits the second gather of window 1 (sweeps of the
+        # chain before it: eq + lapse * (storage_time + 1))
+        st = int(common[common.index("--storage-time") + 1])
+        at, advance, fired = eq + lapse * (st + 1), de._advance, []
+
+        def fault_once(state, *args, **kw):
+            if not fired and int(state.sweeps[0]) == at:
+                fired.append(at)
+                raise KernelLaunchError("smc_sweep_launch (injected)", 2)
+            return advance(state, *args, **kw)
+
+        with patched(de, _advance=fault_once):
+            out, ld = run_quiet(common + ["--data-dir",
+                                          str(wd / "D" / "Data")])
+        add(ld)
+        check(fired and out.count("[elastic] device fault") == 1,
+              f"{label}: run D reported {out.count('[elastic]')} retries")
+        dd = one_run_dir(wd / "D")
+        names = sorted(p.name for p in da.iterdir())
+        check(names == sorted(p.name for p in dd.iterdir())
+              and all((da / f).read_bytes() == (dd / f).read_bytes()
+                      for f in names),
+              f"{label}: the replayed run's CSVs differ from A's")
+    print(f"  resume drill {label}: B stopped after {done} of {num} gathers "
+          f"on SIGTERM, C resumed: last_state and local byte-identical, "
+          f"data (E, P) and positions A's tail; D, one injected launch "
+          f"error replayed: all {len(names)} CSVs byte-identical to A's; "
+          f"{time.perf_counter() - t0:.1f} s, launches {counts} ({card})",
+          flush=True)
+    return counts
+
+
+# ----------------------------------------------------------------------
 # Phase 4: timing
 # ----------------------------------------------------------------------
 
@@ -1746,6 +2067,24 @@ def main() -> int:
     phase_line("main path, ensembles", t0)
 
     t0 = time.perf_counter()
+    lsingle = drive_main_c(device, card)
+    drive_single_vs_ensemble(device, card)
+    ldrill = resume_drill(
+        "N=1024 x 64 zsorted",
+        ["64", "320", "10", "1.10", "--n", "1024", "--chains", "64",
+         "--sampler", "zsorted", "--seed", "33", "--storage-time", "2"],
+        card)
+    check(ldrill["zskip"] > 0 and ldrill["dense"] == 0,
+          f"drill N=1024 launches {ldrill}")
+    ldrill1 = resume_drill(
+        "N=108 single chain dense",
+        ["64", "1600", "100", "1.10", "--sampler", "dense", "--seed", "33",
+         "--storage-time", "20"], card)
+    check(ldrill1["dense"] > 0 and ldrill1["zskip"] == 0,
+          f"drill N=108 launches {ldrill1}")
+    phase_line("main path, single chain and resume", t0)
+
+    t0 = time.perf_counter()
     # (a) starts from the FCC lattice and runs 64 + 192 sweeps, too few to
     # reach equilibrium, so MBAR need not reproduce its sampled means; it
     # is held against tpu_smc's run of the same ladder instead (REF_A)
@@ -1804,9 +2143,9 @@ def main() -> int:
     cycle_split(device, card)
     cases = (
         ("sweep_dense", 108, False, {}, "tpu_smc/kernels/sweep_pallas.py:992",
-         launches["dense"]["dense"]),
+         launches["dense"]["dense"] + lsingle["dense"]),
         ("sweep_zskip", 1024, True, {}, "tpu_smc/kernels/sweep_pallas.py:306",
-         launches["zskip"]["zskip"]),
+         launches["zskip"]["zskip"] + lsingle["zskip"]),
         ("sweep_per_chain_at", 108, False, {"at": True},
          "tpu_smc/kernels/sweep_pallas.py:475",
          la["per_chain_at"] + lb["per_chain_at"] + ld["per_chain_at"]),

@@ -1,7 +1,8 @@
 """The CUDA whole-sweep kernels on the card: against their plain version
 with identical Philox draws, z-skip on/off bitwise, the streamed kernel
 (K3) bitwise the resident one, the capacity routing, and the wrapper's
-checks.
+checks; one chain bitwise chain 0 of eight (a launch, and the single-
+chain driver), and a checkpoint round trip of a card state.
 
 Needs an NVIDIA GPU and nvcc (the kernel has no CPU mode); skips
 elsewhere. Imports no JAX, so it runs on a machine without it:
@@ -572,3 +573,67 @@ def test_stream_kernel_bitwise_resident_odd_blocks(cuda, n):
         assert torch.equal(u, v)
     assert torch.equal(dr["visited"], ds["visited"])
     assert int(stream[5].sum()) > 0
+
+
+@pytest.mark.parametrize("zskip", [False, True])
+def test_one_chain_launch_is_chain0(cuda, zskip):
+    """A launch of one chain (C = 1, one CTA) is bitwise chain 0 of a
+    launch of 8 chains on the same inputs, for K1 and K2: a chain's work
+    and draws depend on its index only."""
+    cfg, args = _inputs(1024 if zskip else 108, 8, cuda, zskip)
+    x, y, z, e, wa, wb, offsets, words = args
+    one = (x[:, :1].contiguous(), y[:, :1].contiguous(),
+           z[:, :1].contiguous(), e[:, :1].contiguous(), wa, wb, offsets,
+           words)
+    before = dict(ks.sweep_block.launches)
+    out8 = ks.sweep_block(*args, cfg, 2, cfg.proposal_a, zskip=zskip)
+    out1 = ks.sweep_block(*one, cfg, 2, cfg.proposal_a, zskip=zskip)
+    torch.cuda.synchronize()
+    mode = "zskip" if zskip else "dense"
+    assert ks.sweep_block.launches[mode] == before[mode] + 2
+    for u, v in zip(out1, out8):
+        assert torch.equal(u, v[:, :1])
+    assert int(out1[5].sum()) > 0
+
+
+@pytest.mark.parametrize("sampler,n", [("dense", 108), ("zsorted", 1024)])
+def test_simulate_one_chain_is_chain0_on_card(cuda, sampler, n):
+    """driver.simulate of one chain on the card is bitwise chain 0 of
+    simulate_ensemble of 8 chains from the same seeded start, through
+    thermalization, gathers, resyncs and observables."""
+    from tpu_smc_torch.config import RunParams
+    from tpu_smc_torch.driver import ObservableOptions, simulate
+    from tpu_smc_torch.driver_ensemble import simulate_ensemble
+    from tpu_smc_torch.state import batch_chain_state, init_chain_state
+
+    cfg = SMCConfig.for_n(n, storage_time=2, lca_time=2)
+    params = RunParams(16, 64, 4)
+    opts = ObservableOptions(sampler=sampler, stream_seed=7)
+    s0, w = init_chain_state(cfg, seed_words(7), device=cuda)
+    st1, one = simulate(cfg, params, batch_chain_state(s0, 1), w, opts=opts)
+    st8, ens = simulate_ensemble(cfg, params, batch_chain_state(s0, 8), w,
+                                 opts=opts)
+    c0 = ens.chains[0]
+    for f in ("r_final", "energy_trace_full", "accept_trace",
+              "pressure_trace", "density", "mobility", "l2"):
+        np.testing.assert_array_equal(getattr(one, f), getattr(c0, f), f)
+    assert torch.equal(st1.r[0], st8.r[0])
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """save_checkpoint then load_checkpoint of a card state returns card
+    tensors equal to it."""
+    from tpu_smc_torch import io as tio
+
+    cfg = SMCConfig.for_n(108)
+    state, _ = init_ensemble_state(cfg, seed_words(3), 4, device=cuda)
+    state = state.replace(r=state.r + 0.125, sweeps=state.sweeps + 9,
+                          density=state.density + 2)
+    path = tio.save_checkpoint(tmp_path / "card", state, cfg, stream_seed=3)
+    ck = tio.load_checkpoint(path, device=cuda)
+    assert ck.batched and ck.stream_seed == 3 and ck.cfg == cfg
+    for f in ("r", "energy", "key", "sweeps", "accepted", "rbin", "density",
+              "mobility"):
+        got, want = getattr(ck.state, f), getattr(state, f)
+        assert got.is_cuda and got.dtype == want.dtype, f
+        assert torch.equal(got, want), f

@@ -63,11 +63,13 @@ def test_cli_covers_every_jax_option():
         "--chains", "--lca-time", "--storage-time", "--no-trace",
         "--sampler", "--temperatures", "--chains-per-t", "--pt-exchange",
         "--target-acceptance", "--reweight", "--wall-seed",
-        "--wall-realizations", "--bulk", "--rho", "--lj-cutoff"}
+        "--wall-realizations", "--bulk", "--rho", "--lj-cutoff",
+        "--checkpoint", "--resume", "--acf-mode", "--auto-checkpoint",
+        "--fault-retries", "--health-checks"}
 
 
 @pytest.mark.parametrize("flag", ["--bulk", "--temperatures=1.0,1.2",
-                                  "--checkpoint", "--gr-bins=8"])
+                                  "--profile-dir", "--gr-bins=8"])
 def test_cli_refuses_unported_options(flag, capsys):
     """Unported options exit 2 by name; so does a ported mode (the
     temperature ladder, the bulk fluid) combined with one (--sk-kmax,

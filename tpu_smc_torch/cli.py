@@ -1,8 +1,11 @@
-"""Command-line entry point of the port: the NVT chain-ensemble path of
-tpu_smc.cli (main.c equivalent), its temperature ladders (tsweep,
-parallel tempering, tuned mobility, MBAR reweighting), quenched wall
-disorder and the bulk LJ fluid (--bulk, the SMC_noMPI_noWall.c variant).
+"""Command-line entry point of the port: the single-chain run of
+tpu_smc.cli (the reference's main.c), its NVT chain ensembles,
+temperature ladders (tsweep, parallel tempering, tuned mobility, MBAR
+reweighting), quenched wall disorder and the bulk LJ fluid (--bulk, the
+SMC_noMPI_noWall.c variant), with full-state checkpoints, resume,
+graceful stop on SIGINT/SIGTERM, fault replay and health checks.
 
+    python -m tpu_smc_torch EQSTEPS MAXSTEPS NUMDATA T [options]
     python -m tpu_smc_torch EQSTEPS MAXSTEPS NUMDATA T --chains C [options]
     python -m tpu_smc_torch EQSTEPS MAXSTEPS NUMDATA T --temperatures T1,T2,..
 
@@ -13,6 +16,7 @@ CLI that this port does not have yet are recognised and refused by name.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
@@ -22,9 +26,7 @@ NOT_PORTED = (
     "--widom", "--widom-bins", "--ptensor-bins", "--gcmc", "--gcmc-cap",
     "--gcmc-exchanges", "--gcmc-grid", "--npt", "--npt-grid", "--npt-dlnv",
     "--gibbs", "--gibbs-transfers", "--gibbs-cap", "--gibbs-temps",
-    "--npt-reweight", "--sk-kmax", "--checkpoint",
-    "--resume", "--acf-mode", "--auto-checkpoint", "--fault-retries",
-    "--health-checks", "--profile-dir", "--platform", "--x64",
+    "--npt-reweight", "--sk-kmax", "--profile-dir", "--platform", "--x64",
     "--umbrella", "--umbrella-spring",
     "--umbrella-tag", "--umbrella-replicas", "--umbrella-bins",
     "--umbrella-exchange", "--coordinator", "--num-processes",
@@ -71,10 +73,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data-dir", default="Data", help="output root (main.c:55)")
     p.add_argument("--seed", type=int, default=None,
                    help="run seed (default: time, like srand(time(NULL)))")
-    p.add_argument("--chains", type=int, default=2,
-                   help="independent chains (replaces MPI ranks); >= 2")
+    p.add_argument("--chains", type=int, default=1,
+                   help="independent chains (replaces MPI ranks); 1 is the "
+                        "reference's single-chain run")
     p.add_argument("--no-trace", action="store_true",
                    help="skip per-sweep E/jj traces (big runs)")
+    p.add_argument("--checkpoint", default=None,
+                   help="write a full-state checkpoint here at the end")
+    p.add_argument("--resume", default=None,
+                   help="resume from a full-state checkpoint (of either "
+                        "package)")
+    p.add_argument("--acf-mode", choices=("reference", "circular", "unbiased"),
+                   default="reference")
+    p.add_argument("--auto-checkpoint", type=int, default=0, metavar="W",
+                   help="write the full-state checkpoint every W storage "
+                        "windows (failure recovery); also written on "
+                        "SIGINT/SIGTERM before a clean stop")
+    p.add_argument("--fault-retries", type=int, default=2, metavar="K",
+                   help="tolerate K consecutive device faults per storage "
+                        "window that leave the CUDA context usable (launch "
+                        "errors, out of memory), replaying the window from "
+                        "a host snapshot (bitwise continuation; 0 disables)")
+    p.add_argument("--health-checks", action="store_true",
+                   help="per-window health pass (finite positions, bounds, "
+                        "energy drift); warns like boundsCheck")
     p.add_argument("--sampler", choices=("torch", "dense", "zsorted", "auto"),
                    default="auto",
                    help="sweep engine: torch = plain PyTorch, dense = the "
@@ -181,9 +203,8 @@ def main(argv=None) -> int:
     if given:
         parser.exit(2, f"tpu_smc_torch: {', '.join(given)}: not yet ported "
                        "to the PyTorch package (use python -m tpu_smc)\n")
-    if args.chains < 2 and not args.temperatures:
-        parser.exit(2, "tpu_smc_torch: the single-chain path (--chains 1) "
-                       "is not yet ported; use --chains >= 2\n")
+    if args.chains < 1:
+        parser.exit(2, "tpu_smc_torch: --chains must be >= 1\n")
     if args.rho is not None and not args.bulk:
         raise SystemExit("--rho sets the bulk box; it needs --bulk (the slab "
                          "geometry is fixed by --n/--m)")
@@ -191,6 +212,10 @@ def main(argv=None) -> int:
     if wall_k > 1:
         if args.bulk:
             raise SystemExit("--wall-realizations: bulk mode has no walls")
+        if args.resume:
+            raise SystemExit("--wall-realizations cannot be combined with "
+                             "--resume (restart the disorder run with the "
+                             "same seeds instead)")
         if args.temperatures and (args.chains_per_t < wall_k
                                   or args.chains_per_t % wall_k):
             raise SystemExit(f"--chains-per-t {args.chains_per_t} must be a "
@@ -223,21 +248,31 @@ def main(argv=None) -> int:
     from .state import init_chain_state, seed_words
     from .system import build_wall_ensemble, build_walls, fcc_lattice
 
-    gkw = {} if args.gamma is None else {"gamma": args.gamma}
-    if args.lca_time is not None:
-        gkw["lca_time"] = args.lca_time
-    if args.storage_time is not None:
-        gkw["storage_time"] = args.storage_time
-    if args.lj_cutoff is not None:
-        gkw["lj_cutoff"] = args.lj_cutoff
-    if args.bulk:
-        if args.rho is not None:
-            gkw["rho"] = args.rho
-        cfg = SMCConfig.bulk(n=args.n, temperature=args.temperature,
-                             dtype=args.dtype, **gkw)
+    ck = None
+    if args.resume:
+        # the checkpoint's config is authoritative: a resumed [N_ck] state
+        # under the CLI's physics would be wrong
+        ck = smcio.load_checkpoint(args.resume, device=args.device)
+        cfg = ck.cfg
+        if cfg.n != args.n or cfg.temperature != args.temperature:
+            print(f"Note: resuming with the checkpoint's config "
+                  f"(N={cfg.n}, T={cfg.temperature}); CLI values ignored.")
     else:
-        cfg = SMCConfig.for_n(args.n, temperature=args.temperature,
-                              dtype=args.dtype, m=args.m, **gkw)
+        gkw = {} if args.gamma is None else {"gamma": args.gamma}
+        if args.lca_time is not None:
+            gkw["lca_time"] = args.lca_time
+        if args.storage_time is not None:
+            gkw["storage_time"] = args.storage_time
+        if args.lj_cutoff is not None:
+            gkw["lj_cutoff"] = args.lj_cutoff
+        if args.bulk:
+            if args.rho is not None:
+                gkw["rho"] = args.rho
+            cfg = SMCConfig.bulk(n=args.n, temperature=args.temperature,
+                                 dtype=args.dtype, **gkw)
+        else:
+            cfg = SMCConfig.for_n(args.n, temperature=args.temperature,
+                                  dtype=args.dtype, m=args.m, **gkw)
     params = RunParams(args.eqsteps, args.maxsteps, args.numdata)
     sampler = _resolve_sampler(args.sampler, cfg, args.device)
 
@@ -257,23 +292,51 @@ def main(argv=None) -> int:
     smcio.write_wall_csv(d, cfg, x0, ym)
 
     seed = args.seed if args.seed is not None else int(time.time())
+    if ck is not None and ck.stream_seed is not None:
+        # continue the per-sweep streams of the checkpointed run
+        seed = ck.stream_seed
     if args.reweight and not args.temperatures:
         print("Note: --reweight needs the --temperatures ladder; ignored.")
     if args.temperatures:
         return _run_ladder(args, cfg, params, d, w_np, w_k, sampler, seed,
-                           rw_grid)
-    r0 = smcio.load_last_state(d, cfg)
-    if r0 is not None:
-        print("\nUsing previously saved particle configuration...")
+                           rw_grid, ck)
+    from .state import batch_chain_state
+
+    if ck is not None:
+        state = ck.state
+        w = torch.as_tensor(w_np, dtype=cfg.torch_dtype, device=args.device)
+        print(f"Resumed full {'ensemble' if ck.batched else 'chain'} state "
+              f"from {args.resume} ({int(state.sweeps[0])} sweeps done)")
+        if ck.batched and args.chains > 1 and args.chains != state.n_chains:
+            print(f"Note: checkpoint holds {state.n_chains} chains; "
+                  "--chains ignored.")
+        elif not ck.batched and args.chains > 1:
+            from .state import broadcast_resumed_chain
+
+            state = broadcast_resumed_chain(state, args.chains)
+            print(f"Note: resumed single chain broadcast to {args.chains} "
+                  "chains; cumulative density/mobility history kept in "
+                  "chain 0 only.")
     else:
-        print("\nInitializing system...")
-        r0 = fcc_lattice(cfg)
-    state, w = init_chain_state(cfg, seed_words(seed), r0=r0, w=w_np,
-                                device=args.device)
+        r0 = smcio.load_last_state(d, cfg)
+        if r0 is not None:
+            print("\nUsing previously saved particle configuration...")
+        else:
+            print("\nInitializing system...")
+            r0 = fcc_lattice(cfg)
+        seed_state, w = init_chain_state(cfg, seed_words(seed), r0=r0,
+                                         w=w_np, device=args.device)
+        # one chain is chain 0 of the ensemble this seed starts
+        state = batch_chain_state(seed_state, args.chains)
     if w_k is not None:
+        from .state import per_chain_wall_energy
+
         reps = args.chains // wall_k
         w = torch.as_tensor(np.repeat(w_k, reps, axis=0),
                             dtype=cfg.torch_dtype, device=args.device)
+        # each realization's chains start at their own wall energy
+        state = state.replace(energy=per_chain_wall_energy(state.r, w, cfg)
+                              .to(state.energy.dtype))
         print(f"Quenched wall disorder: {wall_k} realizations x {reps} "
               f"chains (wall seeds {args.wall_seed}.."
               f"{args.wall_seed + wall_k - 1})")
@@ -285,38 +348,68 @@ def main(argv=None) -> int:
           f"{cfg.box_l:0.1f}x{cfg.box_l:0.1f}x{cfg.box_lz:0.1f} box, "
           f"T={cfg.temperature:0.2f}, rho={cfg.rho:0.4f}, "
           f"A={cfg.proposal_a:0.3f}, for {params.maxsteps} steps...")
-    return _run_ensemble(args, cfg, params, d, state, w, sampler, seed)
+    if state.n_chains > 1 or (ck is not None and ck.batched):
+        return _run_ensemble(args, cfg, params, d, state, w, sampler, seed)
+    return _run_single(args, cfg, params, d, state, w, sampler, seed)
 
 
-def _run_ensemble(args, cfg, params, d, seed_state, w, sampler: str,
-                  seed: int) -> int:
-    """Multi-chain run: per-chain files (rank = chain, the reference's
-    per-MPI-rank naming) + the pooled ensemble summary."""
-    import numpy as np
+@contextlib.contextmanager
+def _install_signal_stop():
+    """SIGINT/SIGTERM set the yielded flag, and the run stops cleanly at
+    the next window boundary with a checkpoint (`_window_maintenance`).
+    The previous handlers come back when the block ends. Handlers install
+    only in the main thread; elsewhere the flag is never set."""
+    import signal
 
+    flag = {"stop": False}
+
+    def handler(signum, frame):
+        print(f"\n[signal {signum}] finishing current window, "
+              "checkpointing, and stopping...", flush=True)
+        flag["stop"] = True
+
+    saved = {}
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        try:
+            saved[sig] = signal.signal(sig, handler)
+        except (ValueError, OSError):
+            pass  # not the main thread, or a restricted environment
+    try:
+        yield flag
+    finally:
+        for sig, old in saved.items():
+            signal.signal(sig, old)
+
+
+def _window_maintenance(args, cfg, widx, st, stopper, w, seed: int,
+                        chain_axis: bool = True):
+    """After each storage window: the auto-checkpoint, the health check
+    and the graceful stop. Returns "stop" to end the run at this window
+    boundary."""
     from . import io as smcio
+
+    def save():
+        return smcio.save_checkpoint(args.checkpoint or "autosave.npz", st,
+                                     cfg, chain_axis=chain_axis,
+                                     stream_seed=seed)
+
+    if args.auto_checkpoint and (widx + 1) % args.auto_checkpoint == 0:
+        save()
+    if args.health_checks:
+        from .guards import check_state
+
+        check_state(st, w, cfg, strict=False)
+    if stopper["stop"]:
+        print(f"Checkpoint written to {save()}")
+        return "stop"
+    return None
+
+
+def _options(args, sampler: str, seed: int, state, w, cfg):
+    """(state, ObservableOptions) of a run, the proposal mobility tuned
+    on `state` first under --target-acceptance."""
     from .driver import ObservableOptions
-    from .driver_ensemble import simulate_ensemble
-    from .state import batch_chain_state, per_chain_wall_energy
 
-    c = args.chains
-    state = batch_chain_state(seed_state, c)
-    if w.dim() == 3:
-        # each realization's chains start at their own wall energy
-        state = state.replace(energy=per_chain_wall_energy(state.r, w, cfg)
-                              .to(state.energy.dtype))
-    pos_writers = [smcio.PositionsWriter(d, cfg, rank=ci) for ci in range(c)]
-    r = state.r.cpu().numpy()
-    for ci in range(c):
-        pos_writers[ci].append(r[ci])
-
-    def on_window(widx, st, outs):
-        r = st.r.cpu().numpy()
-        for ci in range(c):
-            pos_writers[ci].append(r[ci])
-        print(f"\rWindow {widx + 1} done...", end="", flush=True)
-
-    print(f"Ensemble sweep engine: {_engine_label(sampler, cfg, args.device)}")
     opts = ObservableOptions(collect_sweep_trace=not args.no_trace,
                              sampler=sampler, stream_seed=seed)
     if args.target_acceptance:
@@ -331,8 +424,98 @@ def _run_ensemble(args, cfg, params, d, seed_state, w, sampler: str,
         print(f"Auto-tuned proposal mobility: A = {tr.proposal_a:0.4g} "
               f"(gamma = {tr.gamma:0.3g}, acceptance {tr.acceptance:0.3f} "
               f"after {tr.sweeps_used} tuning sweeps)")
-    state, agg = simulate_ensemble(cfg, params, state, w, opts=opts,
-                                   on_window=on_window)
+    return state, opts
+
+
+def _run_single(args, cfg, params, d, state, w, sampler: str,
+                seed: int) -> int:
+    """The reference's single-chain run (main.c) of a one-chain state:
+    rank-0 files, the per-window local_temp blocks, the final results
+    block."""
+    import numpy as np
+
+    from . import io as smcio
+    from .driver import simulate
+
+    print(f"Ensemble sweep engine: {_engine_label(sampler, cfg, args.device)}")
+    state, opts = _options(args, sampler, seed, state, w, cfg)
+    pos_writer = smcio.PositionsWriter(d, cfg)
+    pos_writer.append(state.r[0].cpu().numpy())
+    temp_writer = smcio.LocalWriter(d, cfg, "local_temp")
+    snap = {"d": np.zeros(cfg.n_voxels, np.int64),
+            "mu": np.zeros(cfg.n_voxels, np.int64)}
+
+    with _install_signal_stop() as stopper:
+        def on_window(widx, st, outs):
+            pos_writer.append(st.r[0].cpu().numpy())
+            dnow = st.density[0].cpu().numpy()
+            munow = st.mobility[0].cpu().numpy()
+            temp_writer.append(dnow - snap["d"], munow - snap["mu"])
+            snap["d"], snap["mu"] = dnow, munow
+            done = (widx + 1) * min(cfg.storage_time, params.gather_steps)
+            print(f"\rStoring the latest density distribution at "
+                  f"~{done * params.gather_lapse} steps... ", end="",
+                  flush=True)
+            return _window_maintenance(args, cfg, widx, st, stopper, w, seed,
+                                       chain_axis=False)
+
+        state, res = simulate(cfg, params, state, w, opts=opts,
+                              on_window=on_window, acf_mode=args.acf_mode,
+                              max_fault_retries=args.fault_retries)
+
+    print(f"\n\nTime-equivalent throughput: {res.sweeps_per_second:,.0f} "
+          f"sweeps/s ({1e6 / max(res.sweeps_per_second, 1e-9):0.1f} s per "
+          "million)")
+    print("\n###  Final results  ###")
+    print(f"Mean energy: {res.mean_energy:f} ± {res.std_energy:f}")
+    print(f"Mean pressure: {res.mean_pressure:f} ± {res.std_pressure:f}")
+    print(f"Approximate heat capacity: {res.cv:f}")
+    print(f"Average autocorrelation time: {res.tau:f}")
+    print(f"Average acceptance ratio: {res.acceptance_ratio:f}")
+
+    smcio.write_data_csv(d, cfg, res.energy_trace_full, res.pressure_trace,
+                         res.accept_trace, params.gather_lapse)
+    smcio.LocalWriter(d, cfg, "local").append(res.density, res.mobility)
+    smcio.write_total_clusters_csv(d, cfg, res.l1, res.l2, res.l3)
+    smcio.write_autocorrelation_csv(d, cfg, res.acf)
+    smcio.write_info_csv(d, cfg, params, res)
+    smcio.write_last_state(d, cfg, res.r_final)
+    if args.checkpoint:
+        ck_path = smcio.save_checkpoint(args.checkpoint, state, cfg,
+                                        chain_axis=False, stream_seed=seed)
+        print(f"Full chain state checkpointed to {ck_path}")
+    return 0
+
+
+def _run_ensemble(args, cfg, params, d, state, w, sampler: str,
+                  seed: int) -> int:
+    """Multi-chain run: per-chain files (rank = chain, the reference's
+    per-MPI-rank naming) + the pooled ensemble summary."""
+    import numpy as np
+
+    from . import io as smcio
+    from .driver_ensemble import simulate_ensemble
+
+    c = state.n_chains
+    pos_writers = [smcio.PositionsWriter(d, cfg, rank=ci) for ci in range(c)]
+    r = state.r.cpu().numpy()
+    for ci in range(c):
+        pos_writers[ci].append(r[ci])
+
+    print(f"Ensemble sweep engine: {_engine_label(sampler, cfg, args.device)}")
+    state, opts = _options(args, sampler, seed, state, w, cfg)
+    with _install_signal_stop() as stopper:
+        def on_window(widx, st, outs):
+            r = st.r.cpu().numpy()
+            for ci in range(c):
+                pos_writers[ci].append(r[ci])
+            print(f"\rWindow {widx + 1} done...", end="", flush=True)
+            return _window_maintenance(args, cfg, widx, st, stopper, w, seed)
+
+        state, agg = simulate_ensemble(cfg, params, state, w, opts=opts,
+                                       on_window=on_window,
+                                       acf_mode=args.acf_mode,
+                                       max_fault_retries=args.fault_retries)
 
     for ci, res in enumerate(agg.chains):
         smcio.write_data_csv(d, cfg, res.energy_trace_full, res.pressure_trace,
@@ -365,15 +548,23 @@ def _run_ensemble(args, cfg, params, d, seed_state, w, sampler: str,
     smcio.write_ensemble_data_csv(d, cfg, agg.chains, params.gather_lapse)
     smcio.write_info_csv(d, cfg, params, agg.chains[0])
     smcio.write_last_state(d, cfg, agg.chains[0].r_final)
+    if args.checkpoint:
+        ck_path = smcio.save_checkpoint(args.checkpoint, state, cfg,
+                                        stream_seed=seed)
+        print(f"Full ensemble state checkpointed to {ck_path}")
     return 0
 
 
 def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
-                rw_grid) -> int:
+                rw_grid, ck=None) -> int:
     """--temperatures: the ladder (tsweep, or parallel tempering with
     --pt-exchange), optional per-level tuning, optional MBAR reweighting;
-    with --wall-realizations the realizations ride the replica index."""
+    with --wall-realizations the realizations ride the replica index.
+    ck: a loaded checkpoint of a ladder to resume; --checkpoint writes the
+    final ladder state."""
     import numpy as np
+
+    from . import io as smcio
 
     from .state import fold_in, seed_words
     from .tsweep import simulate_temperature_sweep, write_tsweep_csv
@@ -410,8 +601,14 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
             print(f"  T {t:0.3f}: A = {lt.a_per_t[i]:0.4g} "
                   f"(gamma = {lt.gamma_per_t[i]:0.3g}, "
                   f"acceptance {lt.acceptance[i]:0.3f})")
+    state0 = None
+    if ck is not None:
+        state0 = ck.state
+        print(f"Resumed ladder state from {args.resume} "
+              f"({int(state0.sweeps[0])} sweeps done); chains are "
+              "thermalized — consider eqsteps 0.")
     kw = dict(chains_per_t=cpt, w=w_ladder, sampler=sampler,
-              a_per_t=a_per_t, device=args.device)
+              a_per_t=a_per_t, device=args.device, state0=state0)
     if args.pt_exchange:
         from .pt import simulate_parallel_tempering, write_pt_csv
 
@@ -421,7 +618,7 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
         else:
             print(f"Parallel tempering: exchange attempts every "
                   f"{args.pt_exchange} sweeps")
-        _, pt_res = simulate_parallel_tempering(
+        lstate, pt_res = simulate_parallel_tempering(
             cfg, params, temps, key, exchange_interval=args.pt_exchange,
             **kw)
         res = pt_res.tsweep
@@ -439,7 +636,11 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
                   f"({pt_res.swap_attempts[i]} attempts)")
         print(f"Written to {pt_path}")
     else:
-        _, res = simulate_temperature_sweep(cfg, params, temps, key, **kw)
+        lstate, res = simulate_temperature_sweep(cfg, params, temps, key,
+                                                 **kw)
+    if args.checkpoint:
+        ck_path = smcio.save_checkpoint(args.checkpoint, lstate, cfg)
+        print(f"Full ladder state checkpointed to {ck_path}")
     path = write_tsweep_csv(d, cfg, res)
     print(f"\n\nAggregate throughput: {res.sweeps_per_second:,.0f} "
           f"sweeps/s across {len(temps) * cpt} chains")

@@ -1,21 +1,29 @@
-"""Driver pieces shared by the ensemble run (counterpart of the subset of
-tpu_smc.driver that `simulate_ensemble` uses).
+"""The single-chain run and the driver pieces it shares with the ensemble
+run (counterpart of tpu_smc.driver without its TPU call chunking).
 
 A run is a sequence of storage windows (STORAGE_TIME, SMC.c:158-182); a
 window is a sequence of gathers; a gather is `gather_lapse` sweeps on the
 chosen engine followed by the observable pass. The host reads each
 gather's outputs; the sweeps themselves never return to the host.
+
+One chain is an ensemble of one: `simulate` runs the loop of
+driver_ensemble.simulate_ensemble and returns its chain 0. Windows are
+transactional: a device fault that a live CUDA context survives
+(`is_device_fault`) discards the window's partial gathers, restores the
+window-start host snapshot and replays it, bitwise, since every draw is
+keyed to the absolute sweep.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .config import SMCConfig
+from .config import RunParams, SMCConfig
 from .state import ChainState
 
 
@@ -25,6 +33,48 @@ def therm_chunk(cfg: SMCConfig, sampler: str = "torch") -> int:
     tpu_smc.driver.therm_chunk."""
     budget = 5e8 if sampler in ("dense", "zsorted") else 1e8
     return max(50, min(2000, int(budget / (cfg.n * cfg.n))))
+
+
+# cudaError codes after which the CUDA context is unusable (CUDA's
+# driver_types.h: IllegalAddress, LaunchTimeout, HardwareStackError,
+# IllegalInstruction, MisalignedAddress, InvalidAddressSpace, InvalidPc,
+# LaunchFailure)
+STICKY_CUDA_ERRORS = frozenset({700, 702, 714, 715, 716, 717, 718, 719})
+
+
+def is_device_fault(exc: BaseException) -> bool:
+    """Whether a window may be replayed after `exc`: a fault that leaves
+    the CUDA context usable. That is a launch error reported by a kernel
+    wrapper (kernels.sweep.KernelLaunchError: bad configuration, no
+    resources, allocation), or torch.cuda.OutOfMemoryError, after which
+    the caching allocator has released what it could.
+
+    Everything else re-raises at once: programming errors, and sticky
+    errors (an illegal address or instruction, a failed or timed-out
+    launch, found here by their cudaError codes or seen by torch at a
+    later synchronisation as a plain RuntimeError), after which every
+    CUDA call of the process fails and no in-process restore can
+    succeed."""
+    from .kernels.sweep import KernelLaunchError
+
+    if isinstance(exc, torch.cuda.OutOfMemoryError):
+        return True
+    return isinstance(exc, KernelLaunchError) \
+        and exc.code not in STICKY_CUDA_ERRORS
+
+
+def snapshot_to_host(state: ChainState) -> ChainState:
+    """A host copy of every leaf of `state`: the window-start snapshot a
+    faulted window replays from (device memory may hold a half-written
+    window by then)."""
+    return ChainState(**{f.name: getattr(state, f.name).detach().to(
+        "cpu", copy=True) for f in dataclasses.fields(ChainState)})
+
+
+def restore_from_host(snap: ChainState, device) -> ChainState:
+    """The snapshot's leaves copied back onto `device`."""
+    return ChainState(**{f.name: getattr(snap, f.name).to(device, copy=True)
+                         for f in dataclasses.fields(ChainState)})
 
 
 def _sync(state: ChainState) -> ChainState:
@@ -84,3 +134,29 @@ class SimResults(NamedTuple):
     zprofile: Optional[np.ndarray]
     therm_acceptance: float
     sweeps_per_second: float
+
+
+def simulate(cfg: SMCConfig, params: RunParams, state: ChainState,
+             w: torch.Tensor, opts: ObservableOptions = ObservableOptions(),
+             on_window=None, acf_mode: str = "reference",
+             max_fault_retries: int = 2) -> tuple[ChainState, SimResults]:
+    """The full single-chain run, the reference's sMC (SMC.c:21-267):
+    thermalization with A doubled, the windowed main loop and the
+    post-processing, for a one-chain `state` (chain axis 1).
+
+    on_window(window_index, state, outs) is the host I/O hook, called
+    after each storage window; returning "stop" ends the run there.
+    max_fault_retries: consecutive device faults tolerated per window,
+    each replaying it from the window-start host snapshot (0: none).
+    Returns (state, SimResults). A one-chain run is bitwise chain 0 of a
+    simulate_ensemble run from the same seeded start (batch_chain_state),
+    as the draws of a chain depend on its index only."""
+    from . import driver_ensemble
+
+    if state.n_chains != 1:
+        raise ValueError(f"simulate runs one chain, got {state.n_chains}; "
+                         "use driver_ensemble.simulate_ensemble")
+    state, agg = driver_ensemble.simulate_ensemble(
+        cfg, params, state, w, opts=opts, on_window=on_window,
+        acf_mode=acf_mode, max_fault_retries=max_fault_retries)
+    return state, agg.chains[0]

@@ -1,6 +1,7 @@
-"""Ensemble driver: thermalization, the windowed gather loop and the
-per-chain / pooled post-processing (counterpart of
-tpu_smc.driver_ensemble without its device mesh and fault replay).
+"""Ensemble driver: thermalization, the windowed gather loop with fault
+replay and the per-chain / pooled post-processing (counterpart of
+tpu_smc.driver_ensemble without its device mesh). The single-chain run
+(driver.simulate) is this loop with one chain.
 
 Outputs keep the reference's per-rank naming with rank = chain index
 (SMC.c:66-96), plus the cross-chain aggregation it left to offline
@@ -16,7 +17,9 @@ import numpy as np
 import torch
 
 from .config import RunParams, SMCConfig
-from .driver import GatherOut, ObservableOptions, SimResults, _sync, therm_chunk
+from .driver import (GatherOut, ObservableOptions, SimResults, _sync,
+                     is_device_fault, restore_from_host, snapshot_to_host,
+                     therm_chunk)
 from .ensemble import (ensemble_sweeps, ensemble_sweeps_dense,
                        ensemble_sweeps_zsorted)
 from .observables import (autocorrelation, cluster_histograms_chains,
@@ -106,12 +109,20 @@ class EnsembleResults(NamedTuple):
 def simulate_ensemble(cfg: SMCConfig, params: RunParams, state: ChainState,
                       w: torch.Tensor,
                       opts: ObservableOptions = ObservableOptions(),
-                      on_window=None):
+                      on_window=None, acf_mode: str = "reference",
+                      max_fault_retries: int = 2):
     """Ensemble run: thermalization + windowed main loop + per-chain and
     pooled post-processing. `state` carries the chain axis. on_window(
     widx, state, outs) runs after each storage window; returning "stop"
     ends the run there. `w` is the shared wall table or per-chain tables
-    [C, M*M, 2] (quenched disorder). Returns (state, EnsembleResults)."""
+    [C, M*M, 2] (quenched disorder). acf_mode: autocorrelation's mode
+    ("reference", "circular" or "unbiased").
+
+    Each window is a transaction: on a fault that `driver.is_device_fault`
+    deems retryable, its partial gathers are dropped, the state restored
+    from the window-start host snapshot and the window replayed, at most
+    max_fault_retries times in a row (0: no snapshots, every error
+    re-raises). Returns (state, EnsembleResults)."""
     lapse = params.gather_lapse
     gather_steps = params.gather_steps
     n_chains = state.n_chains
@@ -136,21 +147,38 @@ def simulate_ensemble(cfg: SMCConfig, params: RunParams, state: ChainState,
     prod_moves = np.zeros((n_chains,), np.int64)
     state = state.replace(accepted=torch.zeros_like(state.accepted))
     outs: list[GatherOut] = []
-    done = widx = 0
+    done = widx = faults = 0
+    snap = snapshot_to_host(state) if max_fault_retries else None
     t1 = time.perf_counter()
     while done < gather_steps:
         g = min(cfg.storage_time, gather_steps - done)
-        window = []
-        for k in range(g):
-            state, out = _gather_step_batched(state, w, cfg, lapse, done + k,
-                                              opts)
-            prod_moves += state.accepted.cpu().numpy()
-            state = state.replace(accepted=torch.zeros_like(state.accepted))
-            window.append(out)
+        try:
+            window, moves_w = [], np.zeros_like(prod_moves)
+            for k in range(g):
+                state, out = _gather_step_batched(state, w, cfg, lapse,
+                                                  done + k, opts)
+                moves_w += state.accepted.cpu().numpy()
+                state = state.replace(
+                    accepted=torch.zeros_like(state.accepted))
+                window.append(out)
+        except Exception as exc:  # noqa: BLE001 - classified, else re-raised
+            if snap is None or faults >= max_fault_retries \
+                    or not is_device_fault(exc):
+                raise
+            faults += 1
+            print(f"\n[elastic] device fault in window {widx} "
+                  f"(retry {faults}/{max_fault_retries}): "
+                  f"{str(exc).splitlines()[0][:120]}", flush=True)
+            state = restore_from_host(snap, state.r.device)
+            continue
+        faults = 0
+        prod_moves += moves_w
         outs += window
         done += g
         verdict = on_window(widx, state, window) if on_window else None
         widx += 1
+        if snap is not None:
+            snap = snapshot_to_host(state)
         if verdict == "stop":
             gather_steps = done
             break
@@ -181,7 +209,7 @@ def simulate_ensemble(cfg: SMCConfig, params: RunParams, state: ChainState,
         if e_traces.size:
             e_full = np.concatenate([[e_begin[ci] + kinetic], e_traces[:, ci]])
             me, ve = float(np.mean(e_full)), float(np.var(e_full))
-            acf = autocorrelation(e_full, cfg.kmax)
+            acf = autocorrelation(e_full, cfg.kmax, mode=acf_mode)
             tau = integrated_autocorrelation_time(acf)
             if not np.isfinite(tau):
                 tau = 0.0   # zero-variance trace: the ACF is 0/0

@@ -16,17 +16,25 @@ byte-identical headers and names, rank = chain index (SMC.c:66-96):
 
 Formatting is Python's, except the positions rows (numpy digits,
 byte-identical: `fixed3_csv`).
+
+Full-state checkpoints (`save_checkpoint` / `load_checkpoint`) are
+tpu_smc's `.npz` files: the same leaves and `__config__` JSON, readable
+by either package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import json
+import os
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 
 from .config import RunParams, SMCConfig
+from .state import ChainState, state_from_arrays
 
 
 def run_dir(cfg: SMCConfig, base: str | Path = "Data") -> Path:
@@ -306,3 +314,92 @@ def load_last_state(d: Path, cfg: SMCConfig) -> Optional[np.ndarray]:
     if len(vals) != 3 * cfg.n:
         raise ValueError(f"{p} holds {len(vals)} values, expected {3 * cfg.n}")
     return np.asarray(vals).reshape(cfg.n, 3)
+
+
+# ----------------------------------------------------------------------
+# Full-state checkpoints (tpu_smc.io's format)
+# ----------------------------------------------------------------------
+
+# SMCConfig fields of tpu_smc that only its TPU drivers read (the
+# watchdog's call chunking); a checkpoint's values are dropped
+TPU_ONLY_FIELDS = ("max_gathers_per_call",)
+_LEAVES = ("r", "energy", "key", "sweeps", "accepted", "rbin", "density",
+           "mobility")
+
+
+def atomic_savez(path: Path, **arrays) -> None:
+    """Crash-safe np.savez with one-generation rotation: write a temp
+    file beside `path`, move an existing checkpoint to `<stem>.prev.npz`,
+    then rename the temp into place, so a complete checkpoint exists at
+    every instant (tpu_smc.io.atomic_savez)."""
+    tmp = path.with_name(path.name + ".tmp")
+    with open(tmp, "wb") as fh:
+        np.savez(fh, **arrays)
+    if path.exists():
+        os.replace(path, path.with_name(path.stem + ".prev.npz"))
+    os.replace(tmp, path)
+
+
+def save_checkpoint(path: str | Path, state: ChainState, cfg: SMCConfig,
+                    chain_axis: bool = True,
+                    stream_seed: int | None = None) -> Path:
+    """Persist the complete state and config; returns the path written
+    (".npz" appended when missing, as np.savez would do silently).
+
+    chain_axis=False writes a one-chain state without its chain axis,
+    tpu_smc's layout of a single-chain run. Counters are written as the
+    port holds them (int64), the key words as uint32. stream_seed, the
+    run seed of the per-sweep streams, rides along as `stream_seed` (a
+    field tpu_smc's loader ignores) so that a resumed run draws the
+    streams the uninterrupted one would have."""
+    path = Path(path)
+    if path.suffix != ".npz":
+        path = path.with_name(path.name + ".npz")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if not chain_axis and state.n_chains != 1:
+        raise ValueError(f"chain_axis=False needs one chain, got "
+                         f"{state.n_chains}")
+    arrays = {}
+    for name in _LEAVES:
+        a = getattr(state, name).detach().cpu().numpy()
+        arrays[name] = a if chain_axis else a[0]
+    arrays["key"] = arrays["key"].astype(np.uint32)
+    if stream_seed is not None:
+        arrays["stream_seed"] = np.asarray(stream_seed, np.int64)
+    cfg_json = json.dumps(dataclasses.asdict(cfg))
+    atomic_savez(path, __config__=np.frombuffer(cfg_json.encode(),
+                                                dtype=np.uint8), **arrays)
+    return path
+
+
+class Checkpoint(NamedTuple):
+    state: ChainState          # with a chain axis
+    cfg: SMCConfig
+    batched: bool              # False: a single chain's checkpoint
+    stream_seed: int | None    # None in tpu_smc's checkpoints
+
+
+def load_checkpoint(path: str | Path, device="cuda") -> Checkpoint:
+    """Read a checkpoint of either package onto `device`. A single
+    chain's leaves (no chain axis) gain one; uint32/int32 counters of
+    tpu_smc load as int64 (state.state_from_arrays, the carry-across of
+    from_jax_state). tpu_smc's TPU-only config fields are dropped with
+    a note; any other unknown field raises."""
+    with np.load(path) as data:
+        fields = json.loads(bytes(data["__config__"]).decode())
+        arrays = {name: data[name] for name in _LEAVES}
+        seed = (int(data["stream_seed"]) if "stream_seed" in data.files
+                else None)
+    for f in TPU_ONLY_FIELDS:
+        if f in fields:
+            print(f"Note: checkpoint field {f} = {fields.pop(f)} is "
+                  "tpu_smc's TPU call chunking; dropped.")
+    unknown = set(fields) - {f.name for f in dataclasses.fields(SMCConfig)}
+    if unknown:
+        raise ValueError(f"{path}: unknown config fields {sorted(unknown)}")
+    cfg = SMCConfig(**fields)
+    batched = np.ndim(arrays["r"]) == 3
+    if not batched:
+        arrays = {k: np.asarray(v)[None] for k, v in arrays.items()}
+    return Checkpoint(state_from_arrays(arrays, cfg, device), cfg, batched,
+                      seed)

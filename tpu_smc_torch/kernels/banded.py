@@ -264,8 +264,7 @@ def banded_sweep_block(x, y, z, e, wa, wb, margin, words, cfg: SMCConfig, a,
             cfg.m, int(cfg.use_walls), int(words[0]), int(words[1]),
             int(window), float(d_z), *ks._geometry(cfg),
             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"smc_banded_launch failed: cudaError {err}")
+    ks._raise_on("smc_banded_launch", err)
     ks._count("banded", cfg, a, None, 0, None, None, None)
     if diag is not None:
         diag["rows"] = rows

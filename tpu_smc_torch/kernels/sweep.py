@@ -55,6 +55,20 @@ _BUILD = Path(__file__).resolve().parents[1] / "_build"
 _MASK32 = 0xFFFFFFFF
 
 
+class KernelLaunchError(RuntimeError):
+    """A launcher of csrc/sweep.cu returned the cudaError `code` of
+    cudaGetLastError() after its launch."""
+
+    def __init__(self, launcher: str, code: int):
+        super().__init__(f"{launcher} failed: cudaError {code}")
+        self.code = code
+
+
+def _raise_on(launcher: str, err: int) -> None:
+    if err != 0:
+        raise KernelLaunchError(launcher, err)
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
@@ -838,8 +852,7 @@ def _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
             w_stride, int(cfg.pbc_z), int(cfg.use_walls),
             int(cfg.reference_noise), xslices if xs else 0, *_geometry(cfg),
             xcut(cfg), stream)
-    if err != 0:
-        raise RuntimeError(f"smc_sweep_launch failed: cudaError {err}")
+    _raise_on("smc_sweep_launch", err)
     _count("xskip" if xs else "zskip" if zskip else "dense", cfg, a,
            temperature, w_stride, diag, visited, u_dump, cycles)
     return xo, yo, zo, eo, e_tr, a_tr
@@ -869,8 +882,7 @@ def _sweep_block_stream_cuda(x, y, z, e, wa, wb, offsets, seeds,
             _ptr(visited), _ptr(u_dump), _ptr(cycles), cfg.n, n_pad, c,
             n_sweeps, cfg.m,
             w_stride, int(cfg.use_walls), *_geometry(cfg), stream)
-    if err != 0:
-        raise RuntimeError(f"smc_sweep_stream_launch failed: cudaError {err}")
+    _raise_on("smc_sweep_stream_launch", err)
     _count("stream", cfg, a, temperature, w_stride, diag, visited, u_dump,
            cycles)
     return (*chain_major(xc, yc, zc), eo, e_tr, a_tr)
@@ -950,8 +962,7 @@ def debug_reference_noise(words, n: int, c: int, s2a: float, device="cuda"):
         err = lib.smc_debug_reference_noise(
             out.data_ptr(), rows, c, int(words[0]), int(words[1]),
             float(s2a), torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"smc_debug_reference_noise failed: cudaError {err}")
+    _raise_on("smc_debug_reference_noise", err)
     sweep_block.launches["debug_reference_noise"] += 1
     return out
 

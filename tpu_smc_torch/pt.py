@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from .config import RunParams, SMCConfig
-from .state import ChainState, fold_in, init_ensemble_state
+from .state import ChainState, fold_in
 from .tsweep import TSweepResults, _ladder_block, _pressure, ladder_stats
 
 _EXCHANGE_SALT = 0x9C0FFEE
@@ -160,6 +160,7 @@ def simulate_parallel_tempering(
     sampler: str = "torch",
     a_per_t=None,
     device="cuda",
+    state0: ChainState | None = None,
 ) -> tuple[ChainState, PTResults]:
     """The ladder with replica exchange every `exchange_interval` sweeps
     ("auto": measure the swap acceptance on a 40-cycle probe after
@@ -167,8 +168,12 @@ def simulate_parallel_tempering(
     choose_exchange_interval). eqsteps / maxsteps round up to whole
     cycles; swap statistics count production attempts only; per-T
     statistics follow tsweep's. The mobility (a_per_t or gamma*T)
-    belongs to the temperature slot, like T."""
+    belongs to the temperature slot, like T. state0: resume from a
+    ladder state (tsweep's); exchange attempts are numbered from its
+    absolute sweep counter, so a resumed run at a cycle boundary
+    continues the uninterrupted one's exchanges."""
     from .driver import therm_chunk
+    from .tsweep import ladder_start
 
     temps = np.asarray(temps, dtype=np.float64)
     n_t = len(temps)
@@ -178,7 +183,7 @@ def simulate_parallel_tempering(
                          f"got {exchange_interval!r}")
     interval = 10 if auto else max(1, int(exchange_interval))
     c = n_t * chains_per_t
-    state, w_t = init_ensemble_state(cfg, key, c, r0=r0, w=w, device=device)
+    state, w_t = ladder_start(cfg, key, c, r0, w, device, state0)
     f64 = dict(dtype=torch.float64, device=device)
     temps_c = torch.as_tensor(np.repeat(temps, chains_per_t), **f64)
     betas_t = torch.as_tensor(1.0 / temps, dtype=cfg.torch_dtype,
@@ -223,7 +228,8 @@ def simulate_parallel_tempering(
 
     # thermalization: A doubled (SMC.c:110, 125); exchanges run but are
     # not counted
-    state, *_, cyc = run_phase(state, params.eqsteps, 2.0, 0)
+    state, *_, cyc = run_phase(state, params.eqsteps, 2.0,
+                               int(state.sweeps[0]) // interval)
     probe_acc = None
     if auto:
         state, acc_p, att_p, *_, cyc = run_phase(state, 40 * interval, 1.0,

@@ -147,14 +147,25 @@ def init_ensemble_state(cfg: SMCConfig, key: torch.Tensor, n_chains: int,
     return batch_chain_state(state, n_chains), w_t
 
 
-def from_jax_state(arrays: dict, w, cfg: SMCConfig,
-                   device="cuda") -> tuple[ChainState, torch.Tensor]:
-    """Carry a tpu_smc ensemble state across: `arrays` holds its leaves as
-    numpy (r, energy, sweeps, accepted, rbin, density, mobility, and
-    `key` = jax.random.key_data of the chain keys, [C, 2] uint32), `w`
-    the [M*M, 2] wall table, onto `device` (the card by default, as
-    every entry point; pass "cpu" for the CPU). Returns (ChainState,
-    wall table tensor)."""
+def broadcast_resumed_chain(state: ChainState, n_chains: int) -> ChainState:
+    """Broadcast a RESUMED one-chain state to `n_chains` chains, like
+    batch_chain_state, but with the cumulative voxel counters kept in
+    chain 0 only: plain replication would count the pre-resume history
+    n_chains times in the pooled density/mobility CSVs (as
+    tpu_smc.state.broadcast_resumed_chain)."""
+    batched = batch_chain_state(state, n_chains)
+    density, mobility = batched.density.clone(), batched.mobility.clone()
+    density[1:] = 0
+    mobility[1:] = 0
+    return batched.replace(density=density, mobility=mobility)
+
+
+def state_from_arrays(arrays: dict, cfg: SMCConfig,
+                      device="cuda") -> ChainState:
+    """A ChainState on `device` from numpy leaves with a chain axis (r
+    [C, N, 3], energy, sweeps and accepted [C], rbin [C, N], density and
+    mobility [C, Nc], key [C, 2] of uint32 values), in any integer dtype:
+    positions and energy in cfg's float dtype, the rest int64."""
     dtype = cfg.torch_dtype
     i64 = dict(dtype=torch.int64, device=device)
 
@@ -163,7 +174,7 @@ def from_jax_state(arrays: dict, w, cfg: SMCConfig,
             np.float64 if kw["dtype"].is_floating_point else np.int64),
             **kw)
 
-    state = ChainState(
+    return ChainState(
         r=f("r", dtype=dtype, device=device),
         energy=f("energy", dtype=dtype, device=device),
         key=f("key", **i64).reshape(-1, 2),
@@ -173,4 +184,16 @@ def from_jax_state(arrays: dict, w, cfg: SMCConfig,
         density=f("density", **i64),
         mobility=f("mobility", **i64),
     )
-    return state, torch.as_tensor(np.array(w), dtype=dtype, device=device)
+
+
+def from_jax_state(arrays: dict, w, cfg: SMCConfig,
+                   device="cuda") -> tuple[ChainState, torch.Tensor]:
+    """Carry a tpu_smc ensemble state across: `arrays` holds its leaves as
+    numpy (r, energy, sweeps, accepted, rbin, density, mobility, and
+    `key` = jax.random.key_data of the chain keys, [C, 2] uint32), `w`
+    the [M*M, 2] wall table, onto `device` (the card by default, as
+    every entry point; pass "cpu" for the CPU). Returns (ChainState,
+    wall table tensor)."""
+    return (state_from_arrays(arrays, cfg, device),
+            torch.as_tensor(np.array(w), dtype=cfg.torch_dtype,
+                            device=device))

@@ -26,6 +26,7 @@ import torch
 
 from .config import RunParams, SMCConfig
 from .state import ChainState, init_ensemble_state
+from .system import build_walls
 
 
 class TSweepResults(NamedTuple):
@@ -93,6 +94,21 @@ def ladder_stats(e_t: np.ndarray, moves: np.ndarray, sweeps: int,
     return mean_e, err_e, np.asarray(acc), np.asarray(cv)
 
 
+def ladder_start(cfg: SMCConfig, key: torch.Tensor, c: int, r0, w, device,
+                 state0: ChainState | None):
+    """(state, wall tensor) of a ladder of c chains: a fresh ensemble, or
+    the resumed state0 after checking its chain count."""
+    if state0 is None:
+        return init_ensemble_state(cfg, key, c, r0=r0, w=w, device=device)
+    if state0.n_chains != c:
+        raise ValueError(f"resumed ladder state has {state0.n_chains} "
+                         f"chains; this ladder needs {c}")
+    if w is None:
+        w = build_walls(cfg)[0]
+    return state0, torch.as_tensor(np.asarray(w), dtype=cfg.torch_dtype,
+                                   device=state0.r.device)
+
+
 def simulate_temperature_sweep(
     cfg: SMCConfig,
     params: RunParams,
@@ -104,6 +120,7 @@ def simulate_temperature_sweep(
     sampler: str = "torch",
     a_per_t=None,
     device="cuda",
+    state0: ChainState | None = None,
 ) -> tuple[ChainState, TSweepResults]:
     """The full ladder: thermalization (A doubled) + production, energies
     sampled at the gather cadence and (pressure, energy) pairs at each
@@ -112,13 +129,15 @@ def simulate_temperature_sweep(
     w: the shared wall table, or per-chain tables [C, M*M, 2] (quenched
     disorder; the realization lives in the replica index). a_per_t [n_t]:
     per-level mobility overriding gamma*T (tuning.tune_mobility_ladder),
-    held fixed through the run."""
+    held fixed through the run. state0: resume from a ladder state
+    (io.load_checkpoint of an earlier ladder's final state, the same
+    temperature-major layout; usually with eqsteps 0)."""
     from .driver import _sync, therm_chunk
 
     temps = np.asarray(temps, dtype=np.float64)
     n_t = len(temps)
     c = n_t * chains_per_t
-    state, w_t = init_ensemble_state(cfg, key, c, r0=r0, w=w, device=device)
+    state, w_t = ladder_start(cfg, key, c, r0, w, device, state0)
     f64 = dict(dtype=torch.float64, device=device)
     temps_c = torch.as_tensor(np.repeat(temps, chains_per_t), **f64)
     a_c = (None if a_per_t is None else torch.as_tensor(
