@@ -10,10 +10,12 @@ walls), the disordered ensemble (N = 108 x 512, 8 walls), the large-N
 confined ensemble on the streamed kernel (N = 32768 x 128 chains, through
 simulate_ensemble and through the CLI), the bulk fluid (N = 4000 x 128
 and N = 32 x 512 through the CLI), the bug-compatible reference-noise
-ensemble (N = 108 x 512), a 10 x 10 wall grid (N = 108 x 512), and the
+ensemble (N = 108 x 512), a 10 x 10 wall grid (N = 108 x 512), the
 two experimental engines, zsorted with the 2-D x-slice skip (K1-xs) and
 the z-banded random-scan kernel (K4), held with zsorted against dense at
-N = 1024 x 256 chains.
+N = 1024 x 256 chains, and the measurement layer: g(r), rho(z), P_N/P_T
+and Widom on the N = 1024 x 512 ensemble, the N = 108 PT ladder with
+paired fields and MBAR, and umbrella windows with replica exchange.
 
     python3 chip_smoke.py
 
@@ -52,7 +54,23 @@ Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
   3. the main path: `tpu_smc_torch.cli.main` at N = 1024 x 512 chains
      (auto -> zsorted, z-skip launches) and N = 108 x 512 (auto -> dense),
      each reproducing the mean energy and acceptance recorded for it
-     exactly; then the single chain: the main.c run `2000 8000 400 1.10`
+     exactly (the per-chain CSVs through the C++ formatters, "after" in
+     the wall-time split); then the measurement layer: the N = 1024 x 512
+     run again with --gr-bins 64 --z-bins 64 --ptensor-bins 32 --widom 64
+     --widom-bins 32 --nonuniform-z, bitwise the same mean E and
+     acceptance, its gr / zprofile / ptensor / widom CSVs, int rho(z) dz
+     L^2 = N to 1e-4, mu_ex finite, mean_b (P_N + 2 P_T)/3 = rho T + pair
+     virial on chain 0's final state (float32, 1e-4), the measurements'
+     per-gather cost beside the sweeps'; the N = 108 PT ladder (4 x 128,
+     PT every 16) with --z-bins 32 --gr-bins 32 --sk-kmax 4 --widom 32 and
+     MBAR (reweight mu_ex column, rho(z; T), g(r; T), S(k; T) finite, the
+     PMF finite where rho(z; T) > 0, per-level mu_ex within 3 combined SE
+     of tpu_smc's runs, REF_WIDOM); the umbrella windows at N = 108 (8
+     centers -99..-92 x 8 replicas, REUS every 10, 200 + 800 sweeps) on
+     the plain engine's CUDA-graph sweeps (no kernel launched): window and
+     swap acceptances in (0, 1], the PMF finite over >= 80 % of its bins
+     and within 3 combined SE of tpu_smc's runs (REF_UMBRELLA), chain-
+     sweeps/s; then the single chain: the main.c run `2000 8000 400 1.10`
      (N = 108, dense; tpu_smc's nine CSVs, finite results, mean E within
      4 combined SE of a 64-chain run, the chain's SE from its own tau)
      and one chain at N = 1024 (zsorted), each with its wall-time split;
@@ -951,6 +969,272 @@ def drive_disorder_ensemble(n: int, chains: int, k: int, card: str):
     return launches, dt
 
 
+# ----------------------------------------------------------------------
+# Phase 3: the measurement layer (g(r), rho(z), P_N/P_T, S(k), Widom,
+# umbrella sampling with window exchange)
+# ----------------------------------------------------------------------
+
+# tpu_smc's runs on the CPU (XLA engine, jax.random streams) of the
+# measurement ladder and of the umbrella windows below, one per seed:
+# `python scripts/measurement_reference.py`. Per level (per PMF bin) the
+# mean over the seeds and the standard deviation across them, the scatter
+# of a single run; the umbrella PMFs on UMBRELLA_GRID, shifted to zero
+# mean. A port run passes within 3 combined SE of the mean: its own SE
+# is the larger of its bootstrap SE and that scatter (the umbrella's
+# replica bootstrap understates it several-fold), the mean's is the
+# scatter over sqrt(seeds). The umbrella's seeds 17 and 19 are left out:
+# in each a frozen dimer kept one configuration far from every window,
+# where tpu_smc's PMF on the grid fails (PERF.md §7).
+REF_WIDOM = {
+    "T": [1.0, 1.2, 1.4, 1.6], "seeds": 4,
+    "mu_ex": [-0.0230865, -0.012596, -0.013291500000000001, -0.00933475],
+    "sd": [0.011084434296195125, 0.007532218973627006, 0.005880183132068818,
+           0.0011483661944983689]}
+REF_UMBRELLA = {
+    "seeds": 6,
+    "F": [-0.2592321426330457, -0.22369781983252954, -0.2605681483537927,
+          0.036529064658552456, 0.0684593958875228, 0.08363007893046964,
+          0.10369230348213433, 0.07795944148659818, 0.1195866485654704,
+          0.07887988013528825, 0.046422888491877645, 0.0646677441748177,
+          0.06594707338351397, 0.046381670497223804, 0.02090711108737588,
+          -0.06956518996147697],
+    "sd": [0.23989637555199222, 0.14847794825646032, 0.12374830657367507,
+           0.059616723355595765, 0.053612610326904155, 0.08975116141909313,
+           0.03610527684313603, 0.07227646857237167, 0.11020089587749267,
+           0.138667991232286, 0.10998254600281546, 0.0651695337434036,
+           0.07649122643968508, 0.12556177830497522, 0.08949328132975229,
+           0.10306846254800589]}
+UMBRELLA_GRID = (-99.5, -91.5, 16)
+UMBRELLA_BOOT = 64
+MEASURE_FLAGS = ["--gr-bins", "64", "--z-bins", "64", "--ptensor-bins", "32",
+                 "--widom", "64", "--widom-bins", "32", "--nonuniform-z"]
+PTENSOR_RTOL = 1e-4    # mean_b (P_N + 2 P_T)/3 against rho T + pair virial
+
+
+def gather_timer(de, names):
+    """Synchronised host-clock timers of driver_ensemble functions, split
+    into time inside the gather loop and outside it. Returns (patches for
+    `patched(de, ...)`, spent in the loop, calls in the loop)."""
+    spent = {k: 0.0 for k in names}
+    calls = {k: 0 for k in names}
+    in_loop = [False]
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            if in_loop[0]:
+                spent[name] += time.perf_counter() - t0
+                calls[name] += 1
+            return out
+        return run
+
+    step = de._gather_step_batched
+
+    def gather(*args, **kw):
+        in_loop[0] = True
+        try:
+            return step(*args, **kw)
+        finally:
+            in_loop[0] = False
+
+    patches = {k: timed(k, getattr(de, k)) for k in names}
+    patches["_gather_step_batched"] = gather
+    return patches, spent, calls
+
+
+def drive_cli_measure(device, card: str):
+    """Phase 3's N = 1024 x 512 CLI run with every per-gather measurement
+    (MEASURE_FLAGS): mean E and acceptance exactly the recorded values
+    (the observables read the state, never change it), the gr, zprofile,
+    ptensor and widom CSVs, int rho(z) dz L^2 = N to 1e-4, mu_ex finite,
+    and on chain 0's final state mean_b (P_N + 2 P_T)/3 = rho T + the
+    pair virial in float32 to PTENSOR_RTOL. Prints the per-gather cost of
+    the measurements apart from the sweeps (synchronised host clock).
+    Returns the run's launch counts."""
+    from tpu_smc_torch import driver_ensemble as de
+    from tpu_smc_torch.config import SMCConfig
+    from tpu_smc_torch.observables import pressure_tensor_profile
+    from tpu_smc_torch.potentials import pair_virial_pressure
+
+    n, c, eq, mx, num = 1024, 512, 64, 192, 3
+    patches, spent, calls = gather_timer(
+        de, ("_advance", "structure_observables"))
+    with tempfile.TemporaryDirectory() as tmp, patched(de, **patches):
+        out, launches, dt, sim = run_main(
+            [str(eq), str(mx), str(num), "1.1", "--n", str(n), "--chains",
+             str(c), "--sampler", "auto", "--seed", "2024", "--lca-time",
+             "2"] + MEASURE_FLAGS + ["--data-dir", tmp])
+        cfg = SMCConfig.for_n(n, nonuniform_z=True)
+        d = Path(tmp) / cfg.run_name()
+        key = cfg.file_key()
+        check_ensemble_files(d, cfg, c, num)
+        _, zp = read_csv(d / f"zprofile_{key}_rank0.csv")
+        heads = {stem: read_csv(d / f"{stem}_{key}{sfx}.csv")[0]
+                 for stem, sfx in (("gr", "_rank0"), ("zprofile", "_rank0"),
+                                   ("ptensor", ""))}
+        widom = (d / f"widom_{key}_rank0.csv").read_text().splitlines()
+    check(heads == {"gr": "r, g", "zprofile": "z, density",
+                    "ptensor": "z, p_n, p_t"}, f"measurement CSVs {heads}")
+    check(widom[1] == "z, mu_ex, err, insertions" and len(widom) == 2 + 32,
+          f"widom CSV {widom[:2]}")
+    mean_e = summary_value(out, "Mean energy:")
+    acc = summary_value(out, "Average acceptance ratio:")
+    check((mean_e, acc) == ("1590.673720", "0.789075"),
+          f"measurement run: mean energy {mean_e}, acceptance {acc}; the "
+          "observables changed the trajectory")
+    n_int = float(zp[:, 1].sum()) * cfg.box_lz / 64 * cfg.box_l ** 2
+    check(abs(n_int / n - 1) <= 1e-4, f"int rho(z) dz L^2 = {n_int}")
+    mu = float(summary_value(out, "mu_ex ="))
+    check(math.isfinite(mu), f"mu_ex {mu}")
+    r0 = torch.as_tensor(sim["agg"].chains[0].r_final, device=device)[None]
+    _, pn, pt = pressure_tensor_profile(r0, cfg, nbins=32)
+    mech = float(((pn.double() + 2.0 * pt.double()) / 3.0).mean())
+    scalar = cfg.rho * cfg.temperature + float(pair_virial_pressure(r0, cfg))
+    check(abs(mech / scalar - 1) <= PTENSOR_RTOL,
+          f"P_N/P_T identity: {mech} against {scalar}")
+    g = calls["structure_observables"]
+    print(f"  N={n} x {c} with {' '.join(MEASURE_FLAGS)}: {dt:.1f} s, mean "
+          f"E {mean_e}, acceptance {acc} (bitwise the run without them), "
+          f"mu_ex {mu}, int rho(z) dz L^2 = {n_int:.4f}, (P_N + 2 P_T)/3 "
+          f"{mech:.7g} vs rho T + virial {scalar:.7g} ({card})", flush=True)
+    print(f"  N={n} measurement cost per gather: "
+          f"{spent['structure_observables'] / g:.3f} s (g(r), rho(z), Widom "
+          f"64, P_N/P_T) beside {spent['_advance'] / g:.3f} s of sweeps "
+          f"({mx // num} per gather), {g} gathers ({card})", flush=True)
+    print_split(n, mx, c, dt, sim)
+    return launches
+
+
+def drive_measure_ladder(card: str):
+    """The N = 108 PT ladder with the paired fields: per-T results finite
+    and swap acceptance in (0, 1], tpu_smc's reweight columns with mu_ex
+    finite, the reweighted rho(z; T), g(r; T), S(k; T) finite, the PMF
+    F(z; T) finite wherever rho(z; T) > 0, and the per-level mu_ex within
+    3 combined SE of tpu_smc's runs (REF_WIDOM). Returns (launches, s)."""
+    from tpu_smc_torch.config import SMCConfig
+
+    argv = ["200", "800", "8", "1.1", "--n", "108", "--temperatures",
+            "1.0,1.2,1.4,1.6", "--chains-per-t", "128", "--pt-exchange",
+            "16", "--reweight", "1.0:1.6:7", "--z-bins", "32", "--gr-bins",
+            "32", "--sk-kmax", "4", "--widom", "32", "--seed", "2024"]
+    with tempfile.TemporaryDirectory() as tmp:
+        out, launches, dt, _ = run_main(argv + ["--data-dir", tmp])
+        cfg = SMCConfig.for_n(108)
+        d = Path(tmp) / cfg.run_name()
+        tabs = {}
+        for stem in ("tsweep", "pt", "reweight", "reweight_zprofile",
+                     "reweight_gr", "reweight_sk", "reweight_pmf"):
+            path = d / f"{stem}_{cfg.file_key()}.csv"
+            check(path.exists(), f"measurement ladder: no {path.name}")
+            tabs[stem] = read_csv(path)
+    head, rw = tabs["reweight"]
+    check(head == "T, E_mean, E_err, cv, cv_err, P, P_err, mu_ex, mu_ex_err,"
+          " ess, f", f"measurement ladder: reweight header {head!r}")
+    check(np.isfinite(rw).all(), "measurement ladder: reweight not finite")
+    ts, sw = tabs["tsweep"][1], tabs["pt"][1][:, 2]
+    check(np.isfinite(ts).all() and bool(((sw > 0) & (sw <= 1)).all()),
+          f"measurement ladder: per-T results or swaps {sw}")
+    for stem in ("reweight_zprofile", "reweight_gr", "reweight_sk"):
+        check(np.isfinite(tabs[stem][1]).all(),
+              f"measurement ladder: {stem} not finite")
+    zp, pmf = tabs["reweight_zprofile"][1], tabs["reweight_pmf"][1]
+    occupied = zp[:, 2] > 0
+    check(bool(np.isfinite(pmf[occupied, 2:]).all()) and len(
+        np.unique(pmf[np.isfinite(pmf[:, 2]), 0])) == 7,
+          "measurement ladder: the PMF is not finite where rho(z; T) > 0")
+    rows = re.findall(r"T ([0-9.]+): mu_ex = (-?[0-9.]+) ± ([0-9.]+)", out)
+    mu = np.asarray([[float(v) for v in row] for row in rows])
+    check(mu.shape == (4, 3) and np.allclose(mu[:, 0], REF_WIDOM["T"]),
+          f"measurement ladder: per-level mu_ex lines {rows}")
+    ref, sd = np.asarray(REF_WIDOM["mu_ex"]), np.asarray(REF_WIDOM["sd"])
+    z = (mu[:, 1] - ref) / np.hypot(np.maximum(mu[:, 2], sd),
+                                    sd / math.sqrt(REF_WIDOM["seeds"]))
+    print(f"  measurement ladder N=108 4 x 128, PT every 16, fields: "
+          f"{dt:.1f} s, launches {launches}; per-level mu_ex "
+          f"{mu[:, 1].tolist()} ± {mu[:, 2].tolist()}, tpu_smc "
+          f"{np.round(ref, 6).tolist()} (mean of {REF_WIDOM['seeds']} seeds, "
+          f"scatter {np.round(sd, 6).tolist()}): {np.round(z, 2).tolist()} "
+          f"combined SE; "
+          f"MBAR mu_ex(T) {np.round(rw[:, 7], 5).tolist()}; PMF finite "
+          f"over {int(np.isfinite(pmf[:, 2]).sum())}/{len(pmf)} (T, z) "
+          f"bins ({card})", flush=True)
+    check_later(np.abs(z).max() <= 3.0, f"measurement ladder: mu_ex "
+                f"{np.abs(z).max():.2f} combined SE from tpu_smc's run")
+    return launches, dt
+
+
+def drive_umbrella(card: str):
+    """`--umbrella=-99:-92:8` at N = 108 (the lower wall's contact region;
+    the wall is at z = -100) with 8 replicas and REUS every 10 sweeps,
+    200 + 800 sweeps, on the plain engine: window and swap acceptances in
+    (0, 1], the CLI's PMF finite over >= 80 % of its bins, and the PMF of
+    the same samples on tpu_smc's grid (UMBRELLA_GRID) within 3 combined
+    SE of the mean of tpu_smc's runs (REF_UMBRELLA) in every bin both
+    resolve, after removing each PMF's mean over those bins (F is
+    defined up to a constant). Prints chain-sweeps/s. Returns (launches,
+    s)."""
+    from tpu_smc_torch import umbrella as tum
+    from tpu_smc_torch.config import SMCConfig
+
+    seen = {}
+    simulate = tum.simulate_umbrella
+
+    def capture(*args, **kw):
+        seen["out"] = simulate(*args, **kw)
+        torch.cuda.synchronize()
+        return seen["out"]
+
+    argv = ["200", "800", "80", "1.1", "--umbrella=-99:-92:8",
+            "--umbrella-replicas", "8", "--umbrella-exchange", "10",
+            "--umbrella-bins", "32", "--seed", "2024"]
+    with tempfile.TemporaryDirectory() as tmp, \
+            patched(tum, simulate_umbrella=capture):
+        out, launches, dt, _ = run_main(argv + ["--data-dir", tmp])
+        cfg = SMCConfig.for_n(108)
+        lines = (Path(tmp) / cfg.run_name() / f"umbrella_pmf_"
+                 f"{cfg.file_key()}.csv").read_text().splitlines()
+    check("Ensemble sweep engine: torch (plain engine, umbrella bias)" in out,
+          "umbrella: no plain-engine line")
+    check(lines[0] == "z, F, err" and len(lines) == 1 + 32 + 1 + 8,
+          f"umbrella CSV {lines[:2]}")
+    f_cli = np.asarray([float(v.split(",")[1]) for v in lines[1:33]])
+    res = seen["out"][1]
+    acc, sw = res.acceptance, res.swap_acceptance
+    check(bool(((acc > 0) & (acc <= 1)).all())
+          and bool(((sw > 0) & (sw <= 1)).all()),
+          f"umbrella acceptances {acc}, swaps {sw}")
+    lo, hi, nb = UMBRELLA_GRID
+    try:
+        ours = tum.umbrella_pmf(res, n_bins=nb, z_range=(lo, hi),
+                                n_boot=UMBRELLA_BOOT, seed=0)
+    except ValueError as exc:     # every MBAR weight outside the grid
+        raise Failure(f"umbrella PMF on tpu_smc's grid: {exc}")
+    ref_f = np.asarray(REF_UMBRELLA["F"], np.float64)
+    ref_sd = np.asarray(REF_UMBRELLA["sd"], np.float64)
+    both = np.isfinite(ours.pmf) & np.isfinite(ref_f) & np.isfinite(
+        ours.err_pmf)
+    dev = (ours.pmf - ours.pmf[both].mean()) - (ref_f - ref_f[both].mean())
+    zs = dev[both] / np.hypot(np.maximum(ours.err_pmf[both], ref_sd[both]),
+                              ref_sd[both] / math.sqrt(REF_UMBRELLA["seeds"]))
+    fin = float(np.isfinite(f_cli).mean())
+    print(f"  umbrella N=108, 8 windows z0 -99..-92 x 8 replicas, REUS every "
+          f"10: {dt:.1f} s, {res.sweeps_per_second:,.1f} chain-sweeps/s in "
+          f"production ({res.sweeps_per_second / 64:.2f} sweeps/s per chain,"
+          f" plain engine), launches {launches}; window acceptance "
+          f"{np.round(acc, 4).tolist()}, swap acceptance "
+          f"{np.round(sw, 3).tolist()}; CLI PMF finite over {fin:.0%} of 32 "
+          f"bins; against tpu_smc on {int(both.sum())} shared bins: "
+          f"max {np.abs(zs).max():.2f} combined SE ({card})", flush=True)
+    check_later(fin >= 0.8, f"umbrella PMF finite over {fin:.0%} of bins")
+    check_later(both.sum() >= 0.8 * nb and np.abs(zs).max() <= 3.0,
+                f"umbrella PMF {np.abs(zs).max():.2f} combined SE from "
+                f"tpu_smc's over {int(both.sum())} bins")
+    return launches, dt
+
+
 # tpu_smc's large-N run (scripts/validate_stream.py:105-115, its record
 # docs/EVIDENCE_STREAM.json "n32768_rho_matched", a TPU v5 lite chip):
 # the x/y box scaled to the N = 1024 density, 16 + 32 sweeps at cadence 8
@@ -982,14 +1266,14 @@ def large_n_config():
 
     n = 32768
     return SMCConfig(n=n, box_l=math.sqrt(n / (5.7e-3 * 240.0)),
-                     box_lz=240.0, dtype="float32", lca_time=3)
+                     box_lz=240.0, dtype="float32", lca_time=2)
 
 
 def drive_large_n(device, card: str):
     """simulate_ensemble at tpu_smc's large-N width: the density-matched
-    N = 32768 box x 128 chains, 16 warm-up + 48 production sweeps at
-    sort cadence 8 (3 gathers of 16, CNA at the third), as a main-path
-    run. Gates: every per-gather value finite, carried vs exact energy
+    N = 32768 box x 128 chains, 16 warm-up + 32 production sweeps at
+    sort cadence 8 (2 gathers of 16, CNA at the second; the length of
+    tpu_smc's run), as a main-path run. Gates: every per-gather value finite, carried vs exact energy
     within LARGE_N_DRIFT at every resync, the streamed kernel launched
     (and no other), CNA run. Prints E/N and acceptance beside tpu_smc's,
     peak device memory, and where the wall time went, the gather loop's
@@ -1000,7 +1284,7 @@ def drive_large_n(device, card: str):
     from tpu_smc_torch.state import init_ensemble_state, seed_words
 
     cfg, c = large_n_config(), 128
-    params = RunParams(16, 48, 3)
+    params = RunParams(16, 32, 2)
     spent = {k: 0.0 for k in ("sweeps", "recompute", "pressure", "voxels",
                               "cna")}
     loop_spent = dict(spent)
@@ -2067,6 +2351,18 @@ def main() -> int:
     phase_line("main path, ensembles", t0)
 
     t0 = time.perf_counter()
+    lmeas = drive_cli_measure(device, card)
+    check(lmeas["zskip"] > 0 and lmeas["dense"] == lmeas["stream"] == 0,
+          f"measurement run launches {lmeas}")
+    lmlad, _ = drive_measure_ladder(card)
+    check(lmlad["dense"] > 0 and lmlad["per_chain_at"] == lmlad["dense"],
+          f"measurement ladder launches {lmlad}: dense, per-chain (A, T)")
+    lumb, _ = drive_umbrella(card)
+    check(not any(lumb.values()), f"umbrella launches {lumb}: the windows "
+          "run on the plain engine")
+    phase_line("main path, measurement layer (fields, Widom, umbrella)", t0)
+
+    t0 = time.perf_counter()
     lsingle = drive_main_c(device, card)
     drive_single_vs_ensemble(device, card)
     ldrill = resume_drill(
@@ -2145,10 +2441,11 @@ def main() -> int:
         ("sweep_dense", 108, False, {}, "tpu_smc/kernels/sweep_pallas.py:992",
          launches["dense"]["dense"] + lsingle["dense"]),
         ("sweep_zskip", 1024, True, {}, "tpu_smc/kernels/sweep_pallas.py:306",
-         launches["zskip"]["zskip"] + lsingle["zskip"]),
+         launches["zskip"]["zskip"] + lsingle["zskip"] + lmeas["zskip"]),
         ("sweep_per_chain_at", 108, False, {"at": True},
          "tpu_smc/kernels/sweep_pallas.py:475",
-         la["per_chain_at"] + lb["per_chain_at"] + ld["per_chain_at"]),
+         la["per_chain_at"] + lb["per_chain_at"] + ld["per_chain_at"]
+         + lmlad["per_chain_at"]),
         ("sweep_per_chain_w", 108, False, {"walls": 8},
          "tpu_smc/kernels/sweep_pallas.py:1064",
          lb["per_chain_w"] + lc["per_chain_w"]))

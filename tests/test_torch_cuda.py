@@ -637,3 +637,122 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path):
         got, want = getattr(ck.state, f), getattr(state, f)
         assert got.is_cuda and got.dtype == want.dtype, f
         assert torch.equal(got, want), f
+
+
+def _cluster_on(device, c=3, n=256, seed=0):
+    """A dense jittered cluster on the lower wall (float32)."""
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(n ** (1 / 3)))
+    g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3)[:n] * 1.15
+    r = g[None] - np.array([4.0, 4.0, 98.8]) \
+        + rng.normal(0.0, 0.08, (c, n, 3))
+    return torch.as_tensor(r, dtype=torch.float32, device=device)
+
+
+def test_structure_observables_on_card_match_cpu(cuda):
+    """g(r) (the same integer pair counts), rho(z), P_N/P_T(z) and S(k)
+    on the card against the CPU on the same float32 positions: counts
+    equal, profiles within 1e-5 of their largest value."""
+    from tpu_smc_torch import observables as tobs
+
+    cfg = SMCConfig.for_n(256)
+    r = _cluster_on(cuda)
+    rc = r.cpu()
+    np.testing.assert_array_equal(
+        tobs.radial_distribution(r, cfg, nbins=32)[1].cpu().numpy(),
+        tobs.radial_distribution(rc, cfg, nbins=32)[1].numpy())
+    vol = cfg.box_l ** 2 * cfg.box_lz / 40      # the counts, then rho(z)
+    zg = tobs.z_density_profile(r, cfg, nbins=40)[1].cpu().numpy()
+    zc = tobs.z_density_profile(rc, cfg, nbins=40)[1].numpy()
+    np.testing.assert_array_equal(np.rint(zg * vol), np.rint(zc * vol))
+    np.testing.assert_allclose(zg, zc, rtol=1e-6)
+    for fn in (lambda x: tobs.pressure_tensor_profile(x, cfg, nbins=24)[1],
+               lambda x: tobs.pressure_tensor_profile(x, cfg, nbins=24)[2],
+               lambda x: tobs.structure_factor(x, cfg, n_kmax=4)[1]):
+        a, b = fn(r).cpu().numpy(), fn(rc).numpy()
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-5 * np.abs(b).max())
+
+
+def test_widom_delta_u_on_card_matches_cpu(cuda):
+    """The ghost stream and the ghost energies on the card against the
+    CPU (float32): the same ghosts, energies within 1e-4 relative where
+    finite, per-chain walls included."""
+    from tpu_smc_torch import widom
+    from tpu_smc_torch.system import build_wall_ensemble, build_walls
+
+    cfg = SMCConfig.for_n(256)
+    r = _cluster_on(cuda, seed=1)
+    key = torch.tensor([[1, 2], [3, 4], [5, 6]], device=cuda)
+    g = widom.ghost_positions(key, 9, cfg, 500)
+    gc = widom.ghost_positions(key.cpu(), 9, cfg, 500)
+    assert torch.equal(g.cpu(), gc)
+    g[:, :50] = r[:, :50] + 0.9        # ghosts inside the cluster
+    for w_np in (build_walls(cfg)[0], build_wall_ensemble(cfg, 3)[0]):
+        w = torch.as_tensor(w_np, dtype=torch.float32)
+        du = widom.widom_delta_u(r, w.to(cuda), cfg, g).cpu().numpy()
+        du_c = widom.widom_delta_u(r.cpu(), w, cfg, g.cpu()).numpy()
+        ok = np.isfinite(du_c)
+        np.testing.assert_array_equal(np.isfinite(du), ok)
+        np.testing.assert_allclose(du[ok], du_c[ok], rtol=1e-4, atol=1e-6)
+
+
+def test_native_formatters_build_on_the_card_machine(tmp_path):
+    """The C++ formatters build with this machine's g++ and write the
+    plain twins' bytes (runs with or without a card)."""
+    from tpu_smc_torch import io as tio
+    from tpu_smc_torch import native
+
+    native.build()
+    rng = np.random.default_rng(0)
+    v = rng.normal(0.0, 50.0, 3000).astype(np.float32)
+    assert native.format_positions_row(v) == (tio.fixed3_csv(v)
+                                              + "\n").encode()
+    d = rng.integers(0, 10 ** 6, 33 * 33 * 33)
+    assert native.format_local_rows(d, d[::-1], 33, 33) == \
+        tio.local_rows_plain(d, d[::-1], 33, 33).encode()
+
+
+@pytest.mark.parametrize("mode", ["plain", "umbrella", "ladder_walls"])
+def test_sweep_graph_replays_the_eager_sweep(cuda, mode):
+    """The plain engine on the card (ensemble_sweeps: each sweep a
+    replayed CUDA graph, sampler.SweepGraph) is bitwise the eager sweeps
+    under the same injected draws over several calls: uniform (A, T), the
+    umbrella bias, per-chain (A, T) rows with per-chain walls; one graph
+    per (shape, w, A, T, umbrella)."""
+    from tpu_smc_torch import ensemble as en
+    from tpu_smc_torch import sampler as tsam
+    from tpu_smc_torch.system import build_wall_ensemble
+
+    cfg = SMCConfig.for_n(108)
+    c, s_n = 16, 3
+    st, w = init_ensemble_state(cfg, seed_words(3), c, device=cuda)
+    kw, bias = {}, None
+    if mode == "umbrella":
+        bias = (0, 4.0, torch.linspace(-20.0, 20.0, c, device=cuda))
+    if mode == "ladder_walls":
+        w = torch.as_tensor(np.repeat(build_wall_ensemble(cfg, 4)[0], 4, 0),
+                            dtype=torch.float32, device=cuda)
+        t = torch.linspace(1.0, 1.6, c, dtype=torch.float64, device=cuda)
+        kw = dict(a_per_chain=cfg.gamma * t, t_per_chain=t)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    en._GRAPHS.clear()
+    graph_st = eager = st
+    for call in range(2):
+        draws = (0.5 * torch.randn((s_n, c, cfg.n, 3), generator=gen),
+                 torch.rand((s_n, c, cfg.n), generator=gen),
+                 [7 * call + k for k in range(s_n)])
+        draws = (draws[0].to(cuda), draws[1].to(cuda), draws[2])
+        graph_st, _ = en.ensemble_sweeps(graph_st, w, cfg, cfg.proposal_a,
+                                         s_n, draws=draws, umbrella=bias,
+                                         **kw)
+        a, t = en._chain_at(cfg.proposal_a, cfg, kw.get("a_per_chain"),
+                            kw.get("t_per_chain"))
+        for k in range(s_n):
+            eager, _ = tsam.sweep_state(eager, w, cfg, a, draws[0][k],
+                                        draws[1][k], draws[2][k],
+                                        temperature=t, umbrella=bias)
+    for f in ("r", "energy", "accepted", "sweeps"):
+        assert torch.equal(getattr(graph_st, f), getattr(eager, f)), f
+    assert len(en._GRAPHS) == 1

@@ -65,17 +65,21 @@ def test_cli_covers_every_jax_option():
         "--target-acceptance", "--reweight", "--wall-seed",
         "--wall-realizations", "--bulk", "--rho", "--lj-cutoff",
         "--checkpoint", "--resume", "--acf-mode", "--auto-checkpoint",
-        "--fault-retries", "--health-checks"}
+        "--fault-retries", "--health-checks", "--nonuniform-z", "--gr-bins",
+        "--z-bins", "--ptensor-bins", "--sk-kmax", "--widom", "--widom-bins",
+        "--umbrella", "--umbrella-spring", "--umbrella-tag",
+        "--umbrella-replicas", "--umbrella-bins", "--umbrella-exchange"}
 
 
 @pytest.mark.parametrize("flag", ["--bulk", "--temperatures=1.0,1.2",
                                   "--profile-dir", "--gr-bins=8"])
 def test_cli_refuses_unported_options(flag, capsys):
-    """Unported options exit 2 by name; so does a ported mode (the
-    temperature ladder, the bulk fluid) combined with one (--sk-kmax,
-    --widom)."""
-    extra = {"--temperatures=1.0,1.2": ["--sk-kmax=4"],
-             "--bulk": ["--widom=4"]}.get(flag, [])
+    """Unported options exit 2 by name; so does a ported mode or option
+    (the temperature ladder, the bulk fluid, g(r)) combined with one
+    (--global-ladder, --npt, --gcmc)."""
+    extra = {"--temperatures=1.0,1.2": ["--global-ladder"],
+             "--bulk": ["--npt=0.7"],
+             "--gr-bins=8": ["--gcmc=-7.5"]}.get(flag, [])
     with pytest.raises(SystemExit) as exc:
         tcli.main(["1", "2", "1", "1.1", "--device", "cpu", flag] + extra)
     assert exc.value.code == 2
@@ -130,11 +134,14 @@ def test_port_imports_without_jax():
             for name in names:
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "tpu_smc"), (f, name)
+    # every module, and every subpackage through its __init__ (native)
     mods = sorted(
-        "tpu_smc_torch." + ".".join(p.relative_to(ROOT / "tpu_smc_torch")
-                                    .with_suffix("").parts)
+        "tpu_smc_torch." + ".".join(
+            (p.parent if p.name == "__init__.py" else p.with_suffix(""))
+            .relative_to(ROOT / "tpu_smc_torch").parts)
         for p in (ROOT / "tpu_smc_torch").rglob("*.py")
-        if p.name not in ("__init__.py", "__main__.py"))
+        if p.name != "__main__.py"
+        and p != ROOT / "tpu_smc_torch" / "__init__.py")
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'tpu_smc'):\n"
             "    sys.modules[m] = None\n"

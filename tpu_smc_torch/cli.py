@@ -3,11 +3,15 @@ tpu_smc.cli (the reference's main.c), its NVT chain ensembles,
 temperature ladders (tsweep, parallel tempering, tuned mobility, MBAR
 reweighting), quenched wall disorder and the bulk LJ fluid (--bulk, the
 SMC_noMPI_noWall.c variant), with full-state checkpoints, resume,
-graceful stop on SIGINT/SIGTERM, fault replay and health checks.
+graceful stop on SIGINT/SIGTERM, fault replay and health checks; and the
+measurement layer: g(r), rho(z), P_N/P_T(z) and S(k) (--gr-bins,
+--z-bins, --ptensor-bins, --sk-kmax), Widom insertion (--widom) and
+umbrella sampling with replica exchange between windows (--umbrella).
 
     python -m tpu_smc_torch EQSTEPS MAXSTEPS NUMDATA T [options]
     python -m tpu_smc_torch EQSTEPS MAXSTEPS NUMDATA T --chains C [options]
     python -m tpu_smc_torch EQSTEPS MAXSTEPS NUMDATA T --temperatures T1,T2,..
+    python -m tpu_smc_torch EQSTEPS MAXSTEPS NUMDATA T --umbrella=Z1:Z2:K
 
 Runs on the CUDA device unless `--device cpu` is given. Options of the JAX
 CLI that this port does not have yet are recognised and refused by name.
@@ -22,15 +26,11 @@ import time
 
 # Options of `python -m tpu_smc` that are not ported yet.
 NOT_PORTED = (
-    "--gr-bins", "--z-bins",
-    "--widom", "--widom-bins", "--ptensor-bins", "--gcmc", "--gcmc-cap",
+    "--gcmc", "--gcmc-cap",
     "--gcmc-exchanges", "--gcmc-grid", "--npt", "--npt-grid", "--npt-dlnv",
     "--gibbs", "--gibbs-transfers", "--gibbs-cap", "--gibbs-temps",
-    "--npt-reweight", "--sk-kmax", "--profile-dir", "--platform", "--x64",
-    "--umbrella", "--umbrella-spring",
-    "--umbrella-tag", "--umbrella-replicas", "--umbrella-bins",
-    "--umbrella-exchange", "--coordinator", "--num-processes",
-    "--process-id", "--global-ladder", "--nonuniform-z",
+    "--npt-reweight", "--profile-dir", "--platform", "--x64",
+    "--coordinator", "--num-processes", "--process-id", "--global-ladder",
 )
 
 
@@ -135,6 +135,48 @@ def build_parser() -> argparse.ArgumentParser:
                    help="quenched wall disorder: K wall realizations as "
                         "per-chain wall tables (chains, or replicas per "
                         "temperature, split evenly)")
+    p.add_argument("--nonuniform-z", action="store_true",
+                   help="non-uniform z voxel binning: layer_depth layers at"
+                        " the walls, 3 thick central layers (createZRange,"
+                        " SMC.c:1153-1169)")
+    p.add_argument("--gr-bins", type=int, default=0, help="accumulate g(r)")
+    p.add_argument("--z-bins", type=int, default=0,
+                   help="accumulate the z-density profile")
+    p.add_argument("--ptensor-bins", type=int, default=0, metavar="B",
+                   help="accumulate the normal/tangential pressure profile "
+                        "P_N(z)/P_T(z) (Harasima midpoint convention) and "
+                        "report the wall tension 1/2 int (P_N - P_T) dz; "
+                        "writes ptensor_*.csv")
+    p.add_argument("--sk-kmax", type=int, default=0, metavar="K",
+                   help="with --temperatures and --reweight: sample the "
+                        "in-plane structure factor S(k) on |n|_inf <= K and "
+                        "reweight it to S(k; T) (reweight_sk_*.csv)")
+    p.add_argument("--widom", type=int, default=0, metavar="K",
+                   help="Widom test-particle insertion: K ghost insertions "
+                        "per chain per gather; prints mu_ex and writes "
+                        "widom_*.csv with mu_ex(z). Trajectories are "
+                        "unaffected")
+    p.add_argument("--widom-bins", type=int, default=64, metavar="B",
+                   help="z bins of the mu_ex(z) profile (default 64)")
+    p.add_argument("--umbrella", default=None, metavar="Z0MIN:Z0MAX:K",
+                   help="umbrella sampling: K harmonic windows restraining a "
+                        "tagged particle's z at centers spanning the range "
+                        "(inclusive linspace, or a comma list; use the = "
+                        "form for a negative start), windows x replicas in "
+                        "one ensemble on the plain engine; MBAR stitches "
+                        "the unbiased PMF F(z) (umbrella_pmf_*.csv)")
+    p.add_argument("--umbrella-spring", type=float, default=4.0,
+                   metavar="K", help="harmonic bias spring constant")
+    p.add_argument("--umbrella-tag", type=int, default=0, metavar="I",
+                   help="index of the restrained particle")
+    p.add_argument("--umbrella-replicas", type=int, default=4, metavar="R",
+                   help="independent chains per window")
+    p.add_argument("--umbrella-bins", type=int, default=48, metavar="B",
+                   help="z bins of the unbiased PMF grid")
+    p.add_argument("--umbrella-exchange", type=int, default=None,
+                   metavar="K",
+                   help="replica exchange between adjacent windows every K "
+                        "sweeps (REUS); per-pair swap acceptance reported")
     for flag in NOT_PORTED:
         p.add_argument(flag, nargs="?", const=True, default=None,
                        help=argparse.SUPPRESS)
@@ -209,6 +251,7 @@ def main(argv=None) -> int:
         raise SystemExit("--rho sets the bulk box; it needs --bulk (the slab "
                          "geometry is fixed by --n/--m)")
     wall_k = max(1, args.wall_realizations)
+    centers = _umbrella_refusals(args, wall_k) if args.umbrella else None
     if wall_k > 1:
         if args.bulk:
             raise SystemExit("--wall-realizations: bulk mode has no walls")
@@ -259,6 +302,8 @@ def main(argv=None) -> int:
                   f"(N={cfg.n}, T={cfg.temperature}); CLI values ignored.")
     else:
         gkw = {} if args.gamma is None else {"gamma": args.gamma}
+        if args.nonuniform_z:
+            gkw["nonuniform_z"] = True
         if args.lca_time is not None:
             gkw["lca_time"] = args.lca_time
         if args.storage_time is not None:
@@ -297,6 +342,13 @@ def main(argv=None) -> int:
         seed = ck.stream_seed
     if args.reweight and not args.temperatures:
         print("Note: --reweight needs the --temperatures ladder; ignored.")
+    if args.sk_kmax and not (args.temperatures and args.reweight):
+        # no per-gather S(k) for output nothing consumes
+        print("Note: --sk-kmax needs --temperatures AND --reweight; "
+              "ignored.")
+        args.sk_kmax = 0
+    if centers is not None:
+        return _run_umbrella(args, cfg, params, d, w_np, seed, centers)
     if args.temperatures:
         return _run_ladder(args, cfg, params, d, w_np, w_k, sampler, seed,
                            rw_grid, ck)
@@ -411,7 +463,10 @@ def _options(args, sampler: str, seed: int, state, w, cfg):
     from .driver import ObservableOptions
 
     opts = ObservableOptions(collect_sweep_trace=not args.no_trace,
-                             sampler=sampler, stream_seed=seed)
+                             sampler=sampler, stream_seed=seed,
+                             gr_bins=args.gr_bins, z_bins=args.z_bins,
+                             widom_k=args.widom,
+                             ptensor_bins=args.ptensor_bins)
     if args.target_acceptance:
         import dataclasses
 
@@ -480,6 +535,8 @@ def _run_single(args, cfg, params, d, state, w, sampler: str,
     smcio.write_autocorrelation_csv(d, cfg, res.acf)
     smcio.write_info_csv(d, cfg, params, res)
     smcio.write_last_state(d, cfg, res.r_final)
+    _write_measurements(args, cfg, d, res.gr, res.zprofile, res.widom_du,
+                        res.widom_z, res.pn, res.pt)
     if args.checkpoint:
         ck_path = smcio.save_checkpoint(args.checkpoint, state, cfg,
                                         chain_axis=False, stream_seed=seed)
@@ -545,6 +602,19 @@ def _run_ensemble(args, cfg, params, d, state, w, sampler: str,
         se = np.std(e_k, ddof=1) / np.sqrt(k_real)
         print(f"Disorder-averaged energy: {e_k.mean():f} ± {se:f} "
               "(between-realization SE)")
+        # disorder-resolved structure: per-realization profiles (the
+        # pooled gr / zprofile CSVs are their average)
+        for prof, stem, axis, centers, what in (
+                (agg.zprofile_chains, "zprofile_disorder", "z", _z_centers,
+                 "z profiles"),
+                (agg.gr_chains, "gr_disorder", "r", _gr_centers, "g(r)")):
+            if prof is not None:
+                pth = smcio.write_disorder_profile_csv(
+                    d, cfg, stem, axis, centers(cfg, prof.shape[-1]),
+                    prof.reshape(k_real, -1, prof.shape[-1]).mean(axis=1))
+                print(f"Per-realization {what} written to {pth}")
+    _write_measurements(args, cfg, d, agg.gr, agg.zprofile, agg.widom_du,
+                        agg.widom_z, agg.pn, agg.pt)
     smcio.write_ensemble_data_csv(d, cfg, agg.chains, params.gather_lapse)
     smcio.write_info_csv(d, cfg, params, agg.chains[0])
     smcio.write_last_state(d, cfg, agg.chains[0].r_final)
@@ -552,6 +622,169 @@ def _run_ensemble(args, cfg, params, d, state, w, sampler: str,
         ck_path = smcio.save_checkpoint(args.checkpoint, state, cfg,
                                         stream_seed=seed)
         print(f"Full ensemble state checkpointed to {ck_path}")
+    return 0
+
+
+def _z_centers(cfg, nbins: int):
+    """Bin centers of the uniform z grid of nbins over [-Lz/2, Lz/2]."""
+    import numpy as np
+
+    dz = cfg.box_lz / nbins
+    return -cfg.box_lz / 2 + dz * (np.arange(nbins) + 0.5)
+
+
+def _gr_centers(cfg, nbins: int):
+    """g(r)'s bin centers in the run's dtype (tpu_smc writes those of
+    radial_distribution on the final configuration)."""
+    from .observables import gr_edges
+
+    return gr_edges(cfg, nbins, dtype=cfg.torch_dtype)[1].numpy()
+
+
+def _write_measurements(args, cfg, d, gr, zprofile, widom_du, widom_z, pn,
+                        pt) -> None:
+    """The measurement layer's files of a single-chain or ensemble run:
+    gr_*.csv, zprofile_*.csv, widom_*.csv and ptensor_*.csv, each when
+    its samples exist (tpu_smc/cli.py:1293-1335)."""
+    from . import io as smcio
+
+    if gr is not None:
+        smcio.write_profile_csv(d, cfg, "gr", _gr_centers(cfg, args.gr_bins),
+                                gr, "r, g")
+    if zprofile is not None:
+        smcio.write_profile_csv(d, cfg, "zprofile",
+                                _z_centers(cfg, args.z_bins), zprofile,
+                                "z, density")
+    if widom_du is not None:
+        _report_widom(d, cfg, widom_du, widom_z, args.widom_bins)
+    if pn is not None:
+        _report_ptensor(d, cfg, pn, pt, args.ptensor_bins)
+
+
+def _report_ptensor(d, cfg, pn, pt, nbins: int) -> None:
+    """Write ptensor_*.csv and print the wall-tension integral."""
+    import numpy as np
+
+    from . import io as smcio
+
+    dz = cfg.box_lz / nbins
+    centers = _z_centers(cfg, nbins)
+    p = smcio._fname(d, "ptensor", cfg)
+    with open(p, "w") as f:
+        f.write("z, p_n, p_t\n")
+        for i in range(nbins):
+            f.write(f"{centers[i]:0.6f}, {pn[i]:0.9f}, {pt[i]:0.9f}\n")
+    gamma = 0.5 * float(np.sum(pn - pt) * dz)
+    print(f"Pressure-tensor profile written to {p}")
+    print(f"Wall tension (per wall): gamma = 1/2 int (P_N - P_T) dz = "
+          f"{gamma:0.6f}")
+
+
+def _report_widom(d, cfg, du, z, nbins: int) -> None:
+    """Print the scalar mu_ex and write the widom_*.csv profile."""
+    from . import io as smcio
+    from . import widom
+
+    mu, merr = widom.mu_ex(du, cfg.temperature)
+    print(f"Widom excess chemical potential: mu_ex = {mu:f} ± {merr:f} "
+          f"({du.size} insertions, volume-averaged)")
+    centers, muz, ez, cnts = widom.mu_ex_profile(du, z, cfg.temperature, cfg,
+                                                 nbins=nbins)
+    pth = smcio.write_widom_csv(d, cfg, centers, muz, ez, cnts, mu, merr)
+    print(f"mu_ex(z) profile written to {pth}")
+
+
+def _umbrella_refusals(args, wall_k: int):
+    """--umbrella's refusals (tpu_smc/cli.py:838-860, and an explicit
+    kernel sampler, which cannot carry the bias); returns the parsed
+    window centers."""
+    from .umbrella import parse_centers
+
+    if args.temperatures:
+        raise SystemExit("--umbrella and --temperatures are separate run "
+                         "modes")
+    if args.bulk:
+        raise SystemExit("--umbrella needs the confined geometry (walls)")
+    if wall_k > 1:
+        raise SystemExit("--umbrella does not combine with "
+                         "--wall-realizations yet")
+    if args.resume:
+        raise SystemExit("--umbrella does not support --resume yet (rerun "
+                         "the windows; they rethermalize inside their own "
+                         "restraints)")
+    if args.target_acceptance:
+        raise SystemExit("--umbrella does not support --target-acceptance")
+    if args.chains > 1:
+        raise SystemExit("--umbrella sizes its own ensemble (windows x "
+                         "--umbrella-replicas); drop --chains")
+    if args.sampler in ("dense", "zsorted"):
+        raise SystemExit(f"--umbrella runs on the plain engine (the bias "
+                         f"enters the acceptance, which the CUDA kernels do "
+                         f"not carry); drop --sampler {args.sampler}")
+    try:
+        return parse_centers(args.umbrella)
+    except ValueError as exc:
+        raise SystemExit(f"--umbrella: {exc}")
+
+
+def _run_umbrella(args, cfg, params, d, w_np, seed: int, centers) -> int:
+    """--umbrella: K windows x replicas on the plain engine, optional REUS,
+    the MBAR-unbiased PMF (tpu_smc/cli.py:838-900)."""
+    import numpy as np
+
+    from . import io as smcio
+    from .state import seed_words
+    from .system import fcc_lattice
+    from .umbrella import simulate_umbrella, umbrella_pmf, write_umbrella_csv
+
+    for flag, name in ((args.widom, "--widom"),
+                       (args.ptensor_bins, "--ptensor-bins")):
+        if flag:
+            print(f"Note: {name} does not apply to umbrella runs; ignored.")
+    print(f"Umbrella sampling: {len(centers)} windows x "
+          f"{args.umbrella_replicas} replicas, spring "
+          f"{args.umbrella_spring}, tagged particle {args.umbrella_tag} "
+          "(one ensemble)")
+    print("Ensemble sweep engine: torch (plain engine, umbrella bias)")
+    r0 = smcio.load_last_state(d, cfg)
+    if r0 is None:
+        r0 = fcc_lattice(cfg)
+    try:
+        lstate, ures = simulate_umbrella(
+            cfg, params, centers, seed_words(seed),
+            k_spring=args.umbrella_spring, tag=args.umbrella_tag,
+            replicas=args.umbrella_replicas, r0=r0, w=w_np,
+            exchange_interval=args.umbrella_exchange, device=args.device,
+            stream_seed=seed)
+    except ValueError as exc:
+        raise SystemExit(str(exc))
+    ures = umbrella_pmf(ures, n_bins=args.umbrella_bins, seed=seed)
+    print(f"\nUmbrella throughput: {ures.sweeps_per_second:,.1f} "
+          f"chain-sweeps/s across {len(centers) * args.umbrella_replicas} "
+          "chains (production)")
+    print("\n###  Umbrella windows  ###")
+    print("z0        f_window   acceptance")
+    for i, z0 in enumerate(ures.centers):
+        print(f"{z0:8.3f}  {ures.window_f[i]:9.4f}   "
+              f"{ures.acceptance[i]:0.4f}")
+    if ures.swap_acceptance is not None:
+        print("\nWindow-exchange swap acceptance (REUS, every "
+              f"{ures.exchange_interval} sweeps):")
+        for i in range(len(ures.swap_acceptance)):
+            print(f"  z0 {ures.centers[i]:0.2f} <-> "
+                  f"{ures.centers[i + 1]:0.2f}: "
+                  f"{ures.swap_acceptance[i]:0.3f}")
+    path = write_umbrella_csv(d, cfg, ures)
+    fin = np.isfinite(ures.pmf)
+    print(f"\nPMF resolved over {fin.sum()}/{len(fin)} bins "
+          f"(z in [{ures.z_grid[fin].min():0.2f}, "
+          f"{ures.z_grid[fin].max():0.2f}]); barrier "
+          f"{np.nanmax(ures.pmf):0.3f} T-units")
+    print(f"Written to {path}")
+    if args.checkpoint:
+        ck = smcio.save_checkpoint(args.checkpoint, lstate, cfg,
+                                   stream_seed=seed)
+        print(f"Full ensemble state checkpointed to {ck}")
     return 0
 
 
@@ -567,7 +800,8 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
     from . import io as smcio
 
     from .state import fold_in, seed_words
-    from .tsweep import simulate_temperature_sweep, write_tsweep_csv
+    from .tsweep import (FieldOptions, simulate_temperature_sweep,
+                         write_tsweep_csv)
 
     temps = [float(v) for v in args.temperatures.split(",")]
     cpt = args.chains_per_t
@@ -608,7 +842,9 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
               f"({int(state0.sweeps[0])} sweeps done); chains are "
               "thermalized — consider eqsteps 0.")
     kw = dict(chains_per_t=cpt, w=w_ladder, sampler=sampler,
-              a_per_t=a_per_t, device=args.device, state0=state0)
+              a_per_t=a_per_t, device=args.device, state0=state0,
+              fields=FieldOptions(args.gr_bins, args.z_bins, args.sk_kmax,
+                                  args.widom, args.ptensor_bins))
     if args.pt_exchange:
         from .pt import simulate_parallel_tempering, write_pt_csv
 
@@ -650,6 +886,13 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
         print(f"{t:0.3f}  {res.mean_energy[i]:10.4f}  "
               f"{res.err_energy[i]:8.4f}  {res.acceptance[i]:0.4f}  "
               f"{res.cv[i]:8.4f}")
+    if args.widom and res.widom_samples is not None:
+        from .widom import mu_ex
+
+        print("\n###  Widom mu_ex per level  ###")
+        for i, t in enumerate(res.temps):
+            mu_l, me_l = mu_ex(res.widom_samples[:, i], float(t))
+            print(f"T {t:0.3f}: mu_ex = {mu_l:f} ± {me_l:f}")
     print(f"\nWritten to {path}")
     if rw_grid is None:
         return 0
@@ -672,16 +915,65 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
               "bootstrap draws)  ###")
     rw_path = write_reweight_csv(d, cfg, rw)
     has_p = rw.pressure is not None
+    has_mu = rw.mu_ex is not None
     print("T        E_mean     +-err       cv   "
-          + ("      P      " if has_p else "") + "   ESS       f")
+          + ("      P      " if has_p else "")
+          + ("    mu_ex    " if has_mu else "") + "   ESS       f")
     for i, t in enumerate(rw.temps):
         pcol = f"{rw.pressure[i]:12.6g} " if has_p else ""
+        mcol = f"{rw.mu_ex[i]:12.6g} " if has_mu else ""
         print(f"{t:0.3f}  {rw.mean_energy[i]:10.4f}  "
               f"{rw.err_energy[i]:8.4f}  "
-              f"{rw.cv[i]:8.4f} {pcol} {rw.ess[i]:8.1f}  "
+              f"{rw.cv[i]:8.4f} {pcol}{mcol} {rw.ess[i]:8.1f}  "
               f"{rw.free_energy[i]:8.4f}")
     print(f"\nWritten to {rw_path}")
+    _write_reweighted_fields(args, cfg, d, rw, lstate)
     return 0
+
+
+def _write_reweighted_fields(args, cfg, d, rw, lstate) -> None:
+    """The reweighted fields on the T grid (tpu_smc/cli.py:1133-1196):
+    P_N/P_T(z; T) and the wall tension gamma(T), rho(z; T) and its PMF
+    F(z; T) = -T ln rho(z; T), g(r; T) and S(k; T)."""
+    from .reweight import pmf_from_profile, write_reweight_profile_csv
+
+    if rw.pn is not None:
+        zc_p = _z_centers(cfg, args.ptensor_bins)
+        pn_path = write_reweight_profile_csv(d, cfg, "reweight_pn", "z",
+                                             zc_p, rw, rw.pn, None)
+        pt_path = write_reweight_profile_csv(d, cfg, "reweight_pt", "z",
+                                             zc_p, rw, rw.pt, None)
+        print(f"P_N(z; T) / P_T(z; T) surfaces written to {pn_path} / "
+              f"{pt_path}")
+        print("Wall tension gamma(T) = 1/2 int (P_N - P_T) dz:")
+        for gi, tv in enumerate(rw.temps):
+            err = (f" ± {rw.err_gamma[gi]:0.6f}"
+                   if rw.err_gamma is not None else "")
+            print(f"  T {tv:0.3f}: gamma = {rw.gamma[gi]:0.6f}{err}")
+    if rw.zprofile is not None:
+        zc = _z_centers(cfg, args.z_bins)
+        zp_path = write_reweight_profile_csv(d, cfg, "reweight_zprofile", "z",
+                                             zc, rw, rw.zprofile,
+                                             rw.err_zprofile)
+        print(f"rho(z; T) surface written to {zp_path}")
+        pmf, pmf_err = pmf_from_profile(rw.temps, rw.zprofile,
+                                        rw.err_zprofile)
+        pmf_path = write_reweight_profile_csv(d, cfg, "reweight_pmf", "z", zc,
+                                              rw, pmf, pmf_err)
+        print(f"F(z; T) PMF surface written to {pmf_path}")
+    if rw.gr is not None:
+        gr_path = write_reweight_profile_csv(
+            d, cfg, "reweight_gr", "r", _gr_centers(cfg, args.gr_bins), rw,
+            rw.gr, rw.err_gr)
+        print(f"g(r; T) surface written to {gr_path}")
+    if rw.sk is not None:
+        from .observables import structure_factor
+
+        kc = structure_factor(lstate.r[:1], cfg,
+                              n_kmax=args.sk_kmax)[0].cpu().numpy()
+        sk_path = write_reweight_profile_csv(d, cfg, "reweight_sk", "k", kc,
+                                             rw, rw.sk, rw.err_sk)
+        print(f"S(k; T) surface written to {sk_path}")
 
 
 if __name__ == "__main__":

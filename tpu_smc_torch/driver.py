@@ -93,6 +93,13 @@ class GatherOut(NamedTuple):
     l1: np.ndarray            # [C] bonded pairs (0 off the LCA cadence)
     l2: np.ndarray            # [C, 7] num2 histogram
     l3: np.ndarray            # [C, 7] num3 histogram
+    # the measurement layer's per-gather samples (None when disabled):
+    gr: np.ndarray | None = None        # [C, gr_bins] g(r)
+    zprof: np.ndarray | None = None     # [C, z_bins] rho(z)
+    widom_du: np.ndarray | None = None  # [C, widom_k] ghost energies
+    widom_z: np.ndarray | None = None   # [C, widom_k] ghost z
+    pn: np.ndarray | None = None        # [C, ptensor_bins] P_N(z)
+    pt: np.ndarray | None = None        # [C, ptensor_bins] P_T(z)
 
 
 @dataclass(frozen=True)
@@ -106,6 +113,12 @@ class ObservableOptions:
     stream_seed: int | None = None
     # production mobility A (tuning.tune_mobility); None = gamma*T
     proposal_a: float | None = None
+    gr_bins: int = 0          # g(r) bins per gather (0: off)
+    z_bins: int = 0           # z-density profile bins (0: off)
+    # Widom ghost insertions per chain per gather (0: off); the ghosts'
+    # stream folds the absolute gather index (widom.py)
+    widom_k: int = 0
+    ptensor_bins: int = 0     # P_N(z)/P_T(z) bins (0: off)
 
 
 class SimResults(NamedTuple):
@@ -134,6 +147,12 @@ class SimResults(NamedTuple):
     zprofile: Optional[np.ndarray]
     therm_acceptance: float
     sweeps_per_second: float
+    # Widom samples [gathers, 1, widom_k] and the pressure-tensor
+    # profiles [ptensor_bins] (None unless sampled)
+    widom_du: Optional[np.ndarray] = None
+    widom_z: Optional[np.ndarray] = None
+    pn: Optional[np.ndarray] = None
+    pt: Optional[np.ndarray] = None
 
 
 def simulate(cfg: SMCConfig, params: RunParams, state: ChainState,
@@ -159,4 +178,6 @@ def simulate(cfg: SMCConfig, params: RunParams, state: ChainState,
     state, agg = driver_ensemble.simulate_ensemble(
         cfg, params, state, w, opts=opts, on_window=on_window,
         acf_mode=acf_mode, max_fault_retries=max_fault_retries)
-    return state, agg.chains[0]
+    return state, agg.chains[0]._replace(
+        gr=agg.gr, zprofile=agg.zprofile, widom_du=agg.widom_du,
+        widom_z=agg.widom_z, pn=agg.pn, pt=agg.pt)

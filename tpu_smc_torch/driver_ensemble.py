@@ -24,7 +24,10 @@ from .ensemble import (ensemble_sweeps, ensemble_sweeps_dense,
                        ensemble_sweeps_zsorted)
 from .observables import (autocorrelation, cluster_histograms_chains,
                           density_mobility_update,
-                          integrated_autocorrelation_time, wall_obs_chains)
+                          integrated_autocorrelation_time,
+                          pressure_tensor_profile, radial_distribution,
+                          vmap_chains_bounded, wall_obs_chains,
+                          z_density_profile)
 from .potentials import total_pressure
 from .sampler import recompute_energy
 from .state import ChainState
@@ -51,12 +54,44 @@ def _mobility(cfg: SMCConfig, opts: ObservableOptions) -> float:
     return cfg.proposal_a if opts.proposal_a is None else opts.proposal_a
 
 
+def structure_observables(state: ChainState, w, cfg: SMCConfig,
+                          opts: ObservableOptions, gather_lapse: int) -> dict:
+    """The measurement layer's per-gather samples of every chain, as host
+    arrays keyed like GatherOut's fields: g(r), rho(z), Widom ghost
+    energies and heights, P_N/P_T(z), each when its option is on. The
+    all-pairs ones run in chain batches and row chunks within
+    potentials.PAIR_BUDGET; the Widom stream folds the absolute gather
+    state.sweeps // gather_lapse (widom.py). Reads the state, never
+    changes it."""
+    out = {}
+    n = cfg.n
+    if opts.gr_bins:
+        out["gr"] = vmap_chains_bounded(
+            lambda rb: radial_distribution(rb, cfg, nbins=opts.gr_bins)[1],
+            state.r, n)
+    if opts.z_bins:
+        out["zprof"] = z_density_profile(state.r, cfg, nbins=opts.z_bins)[1]
+    if opts.widom_k:
+        from .widom import ghost_positions, widom_delta_u
+
+        ghosts = ghost_positions(state.key, state.sweeps // gather_lapse,
+                                 cfg, opts.widom_k)
+        out["widom_du"] = widom_delta_u(state.r, w, cfg, ghosts)
+        out["widom_z"] = ghosts[..., 2]
+    if opts.ptensor_bins:
+        out["pn"], out["pt"] = vmap_chains_bounded(
+            lambda rb: pressure_tensor_profile(
+                rb, cfg, nbins=opts.ptensor_bins)[1:], state.r, n)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
 def _gather_step_batched(state: ChainState, w, cfg: SMCConfig,
                          gather_lapse: int, gather_index: int,
                          opts: ObservableOptions):
     """One gather for every chain: gather_lapse sweeps, the exact-energy
     resync, pressure, voxel density/mobility and (at the LCA cadence) the
-    cluster analysis. Returns (state, GatherOut)."""
+    cluster analysis, then the measurement layer's samples
+    (structure_observables). Returns (state, GatherOut)."""
     state, trace = _advance(state, w, cfg, _mobility(cfg, opts), gather_lapse,
                             opts, opts.collect_sweep_trace)
     c = state.n_chains
@@ -92,7 +127,9 @@ def _gather_step_batched(state: ChainState, w, cfg: SMCConfig,
     else:
         e_tr = np.zeros((0, c))
         a_tr = np.zeros((0, c), np.int64)
-    return state, GatherOut(e_tr, a_tr, p.cpu().numpy(), l1, l2, l3)
+    fields = structure_observables(state, w, cfg, opts, gather_lapse)
+    return state, GatherOut(e_tr, a_tr, p.cpu().numpy(), l1, l2, l3,
+                            **fields)
 
 
 class EnsembleResults(NamedTuple):
@@ -104,6 +141,18 @@ class EnsembleResults(NamedTuple):
     acceptance_ratio: float
     therm_acceptance: float
     sweeps_per_second: float        # aggregate across chains
+    # the measurement layer (None unless sampled): ensemble-pooled g(r)
+    # and rho(z), their gather means per chain [C, bins] (per-
+    # realization profiles of a disorder run), the Widom samples
+    # [gathers, C, widom_k] and the pooled P_N/P_T(z)
+    gr: np.ndarray | None = None
+    zprofile: np.ndarray | None = None
+    gr_chains: np.ndarray | None = None
+    zprofile_chains: np.ndarray | None = None
+    widom_du: np.ndarray | None = None
+    widom_z: np.ndarray | None = None
+    pn: np.ndarray | None = None
+    pt: np.ndarray | None = None
 
 
 def simulate_ensemble(cfg: SMCConfig, params: RunParams, state: ChainState,
@@ -240,6 +289,14 @@ def simulate_ensemble(cfg: SMCConfig, params: RunParams, state: ChainState,
             zprofile=None, therm_acceptance=therm_acc,
             sweeps_per_second=sps / n_chains))
 
+    def stacked(name):
+        vals = [getattr(o, name) for o in outs]
+        if not vals or vals[0] is None:
+            return None
+        return np.stack(vals)                             # [G, C, ...]
+
+    gr_all, zp_all = stacked("gr"), stacked("zprof")
+    pn_all, pt_all = stacked("pn"), stacked("pt")
     chain_means = np.asarray([r.mean_energy for r in per_chain])
     chain_ps = np.asarray([r.mean_pressure for r in per_chain])
     return state, EnsembleResults(
@@ -250,4 +307,11 @@ def simulate_ensemble(cfg: SMCConfig, params: RunParams, state: ChainState,
         std_pressure=float(np.std(chain_ps)),
         acceptance_ratio=float(np.mean([r.acceptance_ratio
                                         for r in per_chain])),
-        therm_acceptance=therm_acc, sweeps_per_second=sps)
+        therm_acceptance=therm_acc, sweeps_per_second=sps,
+        gr=None if gr_all is None else gr_all.mean(axis=(0, 1)),
+        zprofile=None if zp_all is None else zp_all.mean(axis=(0, 1)),
+        gr_chains=None if gr_all is None else gr_all.mean(axis=0),
+        zprofile_chains=None if zp_all is None else zp_all.mean(axis=0),
+        widom_du=stacked("widom_du"), widom_z=stacked("widom_z"),
+        pn=None if pn_all is None else pn_all.mean(axis=(0, 1)),
+        pt=None if pt_all is None else pt_all.mean(axis=(0, 1)))

@@ -4,7 +4,8 @@ Three engines advance every chain of a ChainState by n sweeps, and a
 fourth, experimental one, by n random-scan sweeps:
 
   * `ensemble_sweeps` — the plain PyTorch engine (sampler.sweep over the
-    chain batch, one visiting order shared by all chains);
+    chain batch, one visiting order shared by all chains; on the card
+    each sweep is a replayed CUDA graph);
   * `ensemble_sweeps_dense` — the whole-sweep CUDA kernel
     (kernels/sweep.py), one launch per call;
   * `ensemble_sweeps_zsorted` — the same kernel with exact z-block
@@ -42,7 +43,7 @@ import torch
 from .config import SMCConfig
 from .kernels import banded as kb
 from .kernels import sweep as ks
-from .sampler import SweepStats, sweep_state
+from .sampler import SweepGraph, SweepStats, sweep_state
 from .state import ChainState, fold_in, seed_words
 
 
@@ -79,12 +80,17 @@ def _chain_at(a, cfg: SMCConfig, a_per_chain, t_per_chain):
 def ensemble_sweeps(state: ChainState, w: torch.Tensor, cfg: SMCConfig,
                     a: float, n_sweeps: int, collect_trace: bool = False,
                     stream_seed=None, draws=None, a_per_chain=None,
-                    t_per_chain=None):
+                    t_per_chain=None, umbrella=None):
     """n_sweeps sweeps of every chain on the plain PyTorch engine.
 
     draws: None = the kernel's Philox draws of each sweep (with
     cfg.reference_noise its pair plane, by particle); or injected
     (noise [S, C, N, 3] by particle, unif [S, C, N] by move, offsets [S]).
+    umbrella: the window bias (tag, k_spring, z0 [C]) of sampler.sweep,
+    which only this engine takes (umbrella.py).
+    On a CUDA state each sweep replays a CUDA graph captured once per
+    (shape, w, A, T, umbrella) (sampler.SweepGraph): bitwise the eager
+    sweep, without the host's cost of its ~170 launches per move.
     Returns (state, SweepStats [S, C] or None)."""
     if draws is None:
         words, offsets = _per_sweep_randomness(state, cfg, stream_seed,
@@ -111,14 +117,37 @@ def ensemble_sweeps(state: ChainState, w: torch.Tensor, cfg: SMCConfig,
                 unif = unif.T
         else:
             noise, unif = draws[0][s], draws[1][s]
-        state, st = sweep_state(state, w, cfg, a, noise, unif, off,
-                                temperature=t)
+        if state.r.is_cuda:
+            g = _sweep_graph(state, w, cfg, a, t, umbrella)
+            r, e, acc = g(state.r, state.energy, noise, unif, off)
+            state = state.replace(r=r, energy=e, sweeps=state.sweeps + 1,
+                                  accepted=state.accepted + acc)
+            st = SweepStats(energy=e, accepted=acc)
+        else:
+            state, st = sweep_state(state, w, cfg, a, noise, unif, off,
+                                    temperature=t, umbrella=umbrella)
         if collect_trace:
             e_tr.append(st.energy)
             a_tr.append(st.accepted)
     if not collect_trace:
         return state, None
     return state, SweepStats(torch.stack(e_tr), torch.stack(a_tr))
+
+
+_GRAPHS: list = []      # the plain engine's captured sweeps, newest last
+
+
+def _sweep_graph(state: ChainState, w, cfg: SMCConfig, a, t, umbrella):
+    """The SweepGraph of this call's (shape, w, A, T, umbrella), captured
+    on first use; the four most recent are kept."""
+    for g in _GRAPHS:
+        if g.matches(state.r, w, cfg, a, t, umbrella):
+            return g
+    g = SweepGraph(state.r, state.energy, w, cfg, a, temperature=t,
+                   umbrella=umbrella)
+    _GRAPHS.append(g)
+    del _GRAPHS[:-4]
+    return g
 
 
 def _kernel_inputs(state: ChainState, w: torch.Tensor, cfg: SMCConfig):

@@ -14,8 +14,14 @@ byte-identical headers and names, rank = chain index (SMC.c:66-96):
   info_<key>.csv                 run summary               main.c:138-159
   last_state_<key>.csv           3N doubles %0.12f         main.c:163-171
 
-Formatting is Python's, except the positions rows (numpy digits,
-byte-identical: `fixed3_csv`).
+and the measurement layer's files (no reference counterpart): the g(r)
+and z-profile CSVs (`write_profile_csv`), the per-realization profiles
+of a disorder run (`write_disorder_profile_csv`) and the Widom mu_ex(z)
+profile (`write_widom_csv`).
+
+The positions, voxel and last_state rows go through the C++ formatters
+of `native` (tpu_smc's, byte-identical); `fixed3_csv` and
+`local_rows_plain` are their plain twins, kept for the tests.
 
 Full-state checkpoints (`save_checkpoint` / `load_checkpoint`) are
 tpu_smc's `.npz` files: the same leaves and `__config__` JSON, readable
@@ -85,17 +91,20 @@ class PositionsWriter:
             f.write("".join(f"x{n+1},y{n+1},z{n+1}," for n in range(cfg.n)) + "\n")
 
     def append(self, r: np.ndarray) -> None:
-        with open(self.path, "a") as f:
-            f.write(fixed3_csv(r) + "\n")
+        from . import native
+
+        with open(self.path, "ab") as f:
+            f.write(native.format_positions_row(r))
 
 
 def fixed3_csv(values) -> str:
-    """'%0.3f,' of every value, concatenated: byte-identical to Python's
-    f"{v:0.3f}," but formatted as numpy arrays of digits. The thousandths
-    are rint(v * 1000) in float64, which rounds like Python's exact
-    decimal conversion except within float64 error of a tie (v * 1000 is
-    exact for float32 inputs); those values, non-finite ones and
-    |v| >= 2^31 / 1000 go through Python's own formatting."""
+    """The plain twin of native.format_positions_row (without its
+    newline): '%0.3f,' of every value, concatenated: byte-identical to
+    Python's f"{v:0.3f}," but formatted as numpy arrays of digits. The
+    thousandths are rint(v * 1000) in float64, which rounds like Python's
+    exact decimal conversion except within float64 error of a tie
+    (v * 1000 is exact for float32 inputs); those values, non-finite
+    ones and |v| >= 2^31 / 1000 go through Python's own formatting."""
     v = np.asarray(values, np.float64).reshape(-1)
     with np.errstate(invalid="ignore"):
         t = v * 1000.0
@@ -143,13 +152,21 @@ class LocalWriter:
             f.write("nx, ny, nz, n, mu\n")
 
     def append(self, density: np.ndarray, mobility: np.ndarray) -> None:
+        from . import native
+
         cfg = self.cfg
-        prefixes = _voxel_prefixes(cfg.ncx, cfg.ncz)
-        dv = np.asarray(density).reshape(-1).tolist()
-        mv = np.asarray(mobility).reshape(-1).tolist()
-        with open(self.path, "a") as f:
-            f.write("".join(f"{p}{d}, {m}\n"
-                            for p, d, m in zip(prefixes, dv, mv)))
+        with open(self.path, "ab") as f:
+            f.write(native.format_local_rows(density, mobility, cfg.ncx,
+                                             cfg.ncz))
+
+
+def local_rows_plain(density, mobility, ncx: int, ncz: int) -> str:
+    """The plain twin of native.format_local_rows: the voxel rows
+    'i, j, k, n, mu' formatted by Python."""
+    prefixes = _voxel_prefixes(ncx, ncz)
+    dv = np.asarray(density).reshape(-1).tolist()
+    mv = np.asarray(mobility).reshape(-1).tolist()
+    return "".join(f"{p}{d}, {m}\n" for p, d, m in zip(prefixes, dv, mv))
 
 
 @functools.lru_cache(maxsize=4)
@@ -249,6 +266,52 @@ def write_ensemble_data_csv(
     return p
 
 
+def write_profile_csv(
+    d: Path, cfg: SMCConfig, stem: str, centers: np.ndarray,
+    values: np.ndarray, header: str, rank: int = 0,
+) -> Path:
+    """g(r) / z-profile CSVs: `header`, then 'center, value' rows
+    (tpu_smc.io.write_profile_csv's schema; no reference counterpart)."""
+    p = _fname(d, stem, cfg, rank)
+    with open(p, "w") as f:
+        f.write(header + "\n")
+        for c, v in zip(np.asarray(centers), np.asarray(values)):
+            f.write(f"{c:0.6f}, {v:0.9f}\n")
+    return p
+
+
+def write_disorder_profile_csv(d: Path, cfg: SMCConfig, stem: str,
+                               axis_name: str, centers, prof) -> Path:
+    """Long-format per-realization profile of a wall-disorder run: one
+    row per (realization k, bin), header `k, <axis>, value`
+    (zprofile_disorder / gr_disorder)."""
+    p = _fname(d, stem, cfg)
+    prof = np.asarray(prof)
+    with open(p, "w") as f:
+        f.write(f"k, {axis_name}, value\n")
+        for k in range(prof.shape[0]):
+            for b in range(prof.shape[1]):
+                f.write(f"{k}, {centers[b]:0.6f}, {prof[k, b]:0.9f}\n")
+    return p
+
+
+def write_widom_csv(
+    d: Path, cfg: SMCConfig, centers: np.ndarray, mu: np.ndarray,
+    err: np.ndarray, counts: np.ndarray, mu_global: float,
+    err_global: float, rank: int = 0,
+) -> Path:
+    """The Widom mu_ex(z) profile, the volume-averaged scalar in a
+    comment header (tpu_smc.io.write_widom_csv's schema)."""
+    p = _fname(d, "widom", cfg, rank)
+    with open(p, "w") as f:
+        f.write(f"# mu_ex_global, {mu_global:0.9f}, {err_global:0.9f}\n")
+        f.write("z, mu_ex, err, insertions\n")
+        for zc, m, e, n in zip(np.asarray(centers), np.asarray(mu),
+                               np.asarray(err), np.asarray(counts)):
+            f.write(f"{zc:0.6f}, {m:0.9f}, {e:0.9f}, {int(n)}\n")
+    return p
+
+
 def write_info_csv(
     d: Path, cfg: SMCConfig, params: RunParams, results, gamma: float | None = None
 ) -> Path:
@@ -297,10 +360,11 @@ def write_info_csv(
 
 def write_last_state(d: Path, cfg: SMCConfig, r: np.ndarray) -> Path:
     """last_state csv: single row of 3N %0.12f doubles (main.c:163-171)."""
+    from . import native
+
     p = _fname(d, "last_state", cfg)
-    flat = np.asarray(r).reshape(-1)
-    with open(p, "w") as f:
-        f.write("".join(f"{v:0.12f}," for v in flat))
+    with open(p, "wb") as f:
+        f.write(native.format_last_state(r))
     return p
 
 

@@ -1,8 +1,10 @@
-"""Observables of the NVT ensemble gather step (counterpart of the
-subset of tpu_smc.observables that the ensemble driver uses): voxel
-density/mobility (SMC.c:912-927), common neighbour analysis
-(SMC.c:971-1045, corrected as in the JAX package), and the host-side
-autocorrelation and variance statistics (SMC.c:1055-1142).
+"""Observables of the gather step (counterpart of tpu_smc.observables):
+voxel density/mobility (SMC.c:912-927), common neighbour analysis
+(SMC.c:971-1045, corrected as in the JAX package), the structure
+observables that have no reference counterpart (the z-density profile,
+g(r), the Harasima pressure-tensor profile P_N(z)/P_T(z) and the
+in-plane structure factor S(k)), and the host-side autocorrelation and
+variance statistics (SMC.c:1055-1142).
 
 Device observables take positions [C, N, 3]; O(N^2) ones run over chain
 batches (`vmap_chains_bounded`) and row chunks so that their pair
@@ -14,6 +16,7 @@ The statistics are numpy on host traces.
 
 from __future__ import annotations
 
+import math
 import warnings
 from typing import NamedTuple, Tuple
 
@@ -252,6 +255,172 @@ def cluster_histograms_chains(r: torch.Tensor, cfg: SMCConfig,
         l2[ci] = torch.bincount(num2.clamp(0, nbins - 1), minlength=nbins)
         l3[ci] = torch.bincount(num3.clamp(0, nbins - 1), minlength=nbins)
     return l1, l2, l3
+
+
+# ----------------------------------------------------------------------
+# Structure observables: rho(z), g(r), P_N/P_T(z), S(k)
+# ----------------------------------------------------------------------
+# tpu_smc bins g(r) by compare-and-reduce (`_bincount_rows`) because TPU
+# scatters serialize; here the counts are a scatter_add_ of the same
+# integer bin indices, so they are the same integers.
+
+def _bin_counts(idx: torch.Tensor, nbins: int) -> torch.Tensor:
+    """Per-row histograms [B, nbins] (int64) of bin indices idx [B, ...];
+    indices outside [0, nbins) land in a dropped overflow bin."""
+    flat = idx.reshape(idx.shape[0], -1)
+    flat = torch.where((flat >= 0) & (flat < nbins), flat, nbins)
+    out = torch.zeros((idx.shape[0], nbins + 1), dtype=torch.int64,
+                      device=idx.device)
+    return out.scatter_add_(1, flat, torch.ones_like(flat))[:, :nbins]
+
+
+def z_density_profile(r: torch.Tensor, cfg: SMCConfig, nbins: int = 128
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Number density against the wall-normal z in [-Lz/2, Lz/2] of every
+    chain of r [C, N, 3]: (centers [nbins], rho [C, nbins])."""
+    lz = cfg.box_lz
+    z = r[..., 2].clamp(-lz / 2, lz / 2)
+    b = ((z / lz + 0.5) * nbins).to(torch.int64).clamp(0, nbins - 1)
+    dz = lz / nbins
+    centers = -lz / 2 + dz * (torch.arange(nbins, device=r.device,
+                                           dtype=r.dtype) + 0.5)
+    return centers, _bin_counts(b, nbins).to(r.dtype) / (
+        cfg.box_l * cfg.box_l * dz)
+
+
+def gr_rmax(cfg: SMCConfig) -> float:
+    """g(r)'s default range: the pair cutoff, or L/2 when shorter."""
+    return cfg.lj_cutoff if cfg.lj_cutoff < cfg.box_l / 2 else cfg.box_l / 2
+
+
+def gr_edges(cfg: SMCConfig, nbins: int, rmax: float | None = None,
+             dtype=torch.float32, device=None):
+    """g(r)'s bin edges [nbins + 1] over [0, rmax] (default gr_rmax) and
+    centers [nbins]."""
+    rmax = gr_rmax(cfg) if rmax is None else rmax
+    edges = torch.linspace(0.0, rmax, nbins + 1, dtype=dtype, device=device)
+    return edges, 0.5 * (edges[:-1] + edges[1:])
+
+
+def _pair_d_rows(R: torch.Tensor, r0: int, r1: int, cfg: SMCConfig):
+    """(dx, dy, dz) [B, r1 - r0, N] of rows r0..r1-1 to every particle:
+    r_i - r_j, min-image in x and y (z too when pbc_z); the components
+    of potentials._pair_dr2_rows."""
+    out = []
+    for k, period in ((0, cfg.box_l), (1, cfg.box_l),
+                      (2, cfg.box_lz if cfg.pbc_z else None)):
+        dk = R[:, r0:r1, k].unsqueeze(-1) - R[:, :, k].unsqueeze(-2)
+        out.append(dk - period * torch.round(dk / period) if period else dk)
+    return out
+
+
+def radial_distribution(r: torch.Tensor, cfg: SMCConfig, nbins: int = 128,
+                        rmax: float | None = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """g(r) of every chain of r [C, N, 3] over the unique pairs, bins of
+    int(dr / rmax * nbins) as tpu_smc.observables.radial_distribution,
+    over row chunks within potentials.PAIR_BUDGET. Returns (centers
+    [nbins], g [C, nbins])."""
+    c, n = r.shape[0], r.shape[1]
+    rmax = gr_rmax(cfg) if rmax is None else rmax
+    edges, centers = gr_edges(cfg, nbins, rmax, r.dtype, r.device)
+    hist = torch.zeros((c, nbins), dtype=torch.int64, device=r.device)
+    step = pair_row_chunk(c, n)
+    cols = torch.arange(n, device=r.device)
+    for r0 in range(0, n, step):
+        r1 = min(n, r0 + step)
+        dr = torch.sqrt(potentials._pair_dr2_rows(r, r0, r1, cfg)[0])
+        q = (dr / rmax * nbins).to(torch.int64).clamp(0, nbins)
+        q = torch.where(cols[r0:r1, None] < cols, q, nbins)   # i < j only
+        hist += _bin_counts(q, nbins)
+    shell = (4.0 / 3.0) * math.pi * (edges[1:] ** 3 - edges[:-1] ** 3)
+    return centers, hist.to(r.dtype) / (cfg.rho * shell * n / 2.0)
+
+
+def pressure_tensor_profile(r: torch.Tensor, cfg: SMCConfig,
+                            nbins: int = 64, include_ideal: bool = True):
+    """Normal and tangential pressure profiles P_N(z), P_T(z) of every
+    chain of r [C, N, 3] (Harasima: each pair's virial in the bin of its
+    midpoint z), as tpu_smc.observables.pressure_tensor_profile:
+    mean_b (P_N + 2 P_T)/3 equals rho T + the pair virial pressure. The
+    bins accumulate in float64 over row chunks within PAIR_BUDGET.
+    include_ideal=False returns the virial parts alone (the ladders add
+    rho(z; T') T' after reweighting). Returns (centers [nbins], P_N
+    [C, nbins], P_T [C, nbins])."""
+    c, n = r.shape[0], r.shape[1]
+    lz = cfg.box_lz
+    dzb = lz / nbins
+    vb = cfg.box_l * cfg.box_l * dzb
+    pn = torch.zeros((c, nbins), dtype=torch.float64, device=r.device)
+    pt = torch.zeros_like(pn)
+    step = pair_row_chunk(c, n)
+    cols = torch.arange(n, device=r.device)
+    for r0 in range(0, n, step):
+        r1 = min(n, r0 + step)
+        dx, dy, dz = _pair_d_rows(r, r0, r1, cfg)
+        dr2 = dx * dx + dy * dy + dz * dz
+        mask = (dr2 < cfg.cutoff2) & (cols[r0:r1, None] != cols)
+        inv2 = 1.0 / torch.where(mask, dr2, torch.ones_like(dr2))
+        inv6 = inv2 * inv2 * inv2
+        dv = torch.where(mask, (48.0 * inv6 * inv6 - 24.0 * inv6) * inv2,
+                         torch.zeros_like(inv2))
+        tang = dv * (dx * dx + dy * dy)
+        norm = dv * (dz * dz)
+        zmid = r[:, r0:r1, 2].unsqueeze(-1) - 0.5 * dz
+        if cfg.pbc_z:
+            zmid = zmid - lz * torch.round(zmid / lz)
+        b = ((zmid / lz + 0.5) * nbins).to(torch.int64).clamp(0, nbins - 1)
+        b = b.reshape(c, -1)
+        pn.scatter_add_(1, b, norm.reshape(c, -1).double())
+        pt.scatter_add_(1, b, tang.reshape(c, -1).double())
+    pn = (0.5 * pn / vb).to(r.dtype)            # unique pairs
+    pt = (0.5 * pt / (2.0 * vb)).to(r.dtype)
+    centers = -lz / 2 + dzb * (torch.arange(nbins, device=r.device,
+                                            dtype=r.dtype) + 0.5)
+    if not include_ideal:
+        return centers, pn, pt
+    ideal = z_density_profile(r, cfg, nbins=nbins)[1] * cfg.temperature
+    return centers, ideal + pn, ideal + pt
+
+
+def _sk_grid(n_kmax: int):
+    """In-plane k grid of structure_factor: one of each +-k pair,
+    0 < |n|_inf <= n_kmax, its shells of equal |n|^2 and the shell of
+    each vector."""
+    ns = np.arange(-n_kmax, n_kmax + 1)
+    nx, ny = np.meshgrid(ns, ns, indexing="ij")
+    grid = np.stack([nx.ravel(), ny.ravel()], axis=1)
+    n2 = (grid ** 2).sum(axis=1)
+    keep = (n2 > 0) & ((grid[:, 0] > 0)
+                       | ((grid[:, 0] == 0) & (grid[:, 1] > 0)))
+    shells, shell_idx = np.unique(n2[keep], return_inverse=True)
+    return grid[keep], shells, shell_idx
+
+
+def structure_factor(r: torch.Tensor, cfg: SMCConfig, n_kmax: int = 8
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """In-plane S(k) = |sum_j exp(i k . r_j)|^2 / N on k = (2 pi / L)
+    (nx, ny), pooled over shells of equal |n|^2, for every chain of r
+    [C, N, 3] (tpu_smc.observables.structure_factor), chains batched so
+    that the [B, N, nk] phases stay within PAIR_BUDGET. Returns
+    (|k| [shells], S [C, shells])."""
+    grid, shells, shell_idx = _sk_grid(n_kmax)
+    kvecs = torch.as_tensor(grid.T, dtype=r.dtype, device=r.device)
+    idx = torch.as_tensor(shell_idx, device=r.device)
+    counts = torch.as_tensor(np.bincount(shell_idx), dtype=r.dtype,
+                             device=r.device)
+
+    def batch(rb):
+        ph = (2.0 * math.pi / cfg.box_l) * (rb[..., :2] @ kvecs)
+        s_k = (torch.cos(ph).sum(1) ** 2 + torch.sin(ph).sum(1) ** 2) / cfg.n
+        pooled = torch.zeros((rb.shape[0], len(shells)), dtype=s_k.dtype,
+                             device=r.device)
+        return pooled.index_add_(1, idx, s_k) / counts
+
+    b = max(1, potentials.PAIR_BUDGET // max(r.shape[1] * len(grid), 1))
+    k_mag = (2.0 * np.pi / cfg.box_l) * np.sqrt(shells)
+    return (torch.as_tensor(k_mag, dtype=r.dtype, device=r.device),
+            vmap_chains_bounded(batch, r, r.shape[1], batch=b))
 
 
 # ----------------------------------------------------------------------

@@ -164,10 +164,12 @@ def wall_site_positions(cfg: SMCConfig, dtype=None, device=None) -> torch.Tensor
     """In-plane coordinates of the M*M wall sites at (i*L/M, j*L/M),
     m = i*M + j ordering (SMC.c:748-751). Returns [M*M, 2]."""
     dw = cfg.box_l / cfg.m
-    ii, jj = torch.meshgrid(torch.arange(cfg.m), torch.arange(cfg.m),
-                            indexing="ij")
-    s = torch.stack([ii.reshape(-1) * dw, jj.reshape(-1) * dw], dim=-1)
-    return s.to(dtype=dtype or cfg.torch_dtype, device=device)
+    # i * dw in the run's dtype, as tpu_smc computes it: an integer index
+    # times a float32 default would round L/M to float32 in float64 runs
+    # (made on `device`: no host copy, so a CUDA graph can capture it)
+    idx = torch.arange(cfg.m, dtype=dtype or cfg.torch_dtype, device=device)
+    ii, jj = torch.meshgrid(idx, idx, indexing="ij")
+    return torch.stack([ii.reshape(-1) * dw, jj.reshape(-1) * dw], dim=-1)
 
 
 def _site_coeffs(W: torch.Tensor, dr2: torch.Tensor):

@@ -31,7 +31,8 @@ import torch
 
 from .config import RunParams, SMCConfig
 from .state import ChainState, fold_in
-from .tsweep import TSweepResults, _ladder_block, _pressure, ladder_stats
+from .tsweep import (FieldOptions, TSweepResults, _fields, _ladder_block,
+                     _pressure, ladder_stats, stack_fields)
 
 _EXCHANGE_SALT = 0x9C0FFEE
 
@@ -161,6 +162,7 @@ def simulate_parallel_tempering(
     a_per_t=None,
     device="cuda",
     state0: ChainState | None = None,
+    fields: FieldOptions = FieldOptions(),
 ) -> tuple[ChainState, PTResults]:
     """The ladder with replica exchange every `exchange_interval` sweeps
     ("auto": measure the swap acceptance on a 40-cycle probe after
@@ -171,7 +173,8 @@ def simulate_parallel_tempering(
     belongs to the temperature slot, like T. state0: resume from a
     ladder state (tsweep's); exchange attempts are numbered from its
     absolute sweep counter, so a resumed run at a cycle boundary
-    continues the uninterrupted one's exchanges."""
+    continues the uninterrupted one's exchanges. fields: the paired
+    field samples taken with each (P, E) pair (tsweep._fields)."""
     from .driver import therm_chunk
     from .tsweep import ladder_start
 
@@ -204,7 +207,7 @@ def simulate_parallel_tempering(
         acc = np.zeros((max(n_t - 1, 0),), np.int64)
         att = np.zeros_like(acc)
         moves = np.zeros((c,), np.int64)
-        samples, p_samples, e_at_p = [], [], []
+        samples, p_samples, e_at_p, f_samples = [], [], [], []
         done = sweep0 = 0
         while done < cycles:
             k = min(group, cycles - done)
@@ -221,10 +224,12 @@ def simulate_parallel_tempering(
                 sweep0 += e_blk.shape[0]
                 p_samples.append(_pressure(cfg, state.r, w_t))
                 e_at_p.append(state.energy.cpu().numpy())
+                if fields.any():
+                    f_samples.append(_fields(cfg, state, w_t, fields, lapse))
             state = state.replace(accepted=torch.zeros_like(state.accepted))
             done += k
         return (state, acc, att, samples, moves, p_samples, e_at_p,
-                cycle0 + cycles)
+                f_samples, cycle0 + cycles)
 
     # thermalization: A doubled (SMC.c:110, 125); exchanges run but are
     # not counted
@@ -239,7 +244,7 @@ def simulate_parallel_tempering(
 
     lapse = max(1, params.gather_lapse)
     t0 = time.perf_counter()
-    state, acc, att, samples, moves, p_s, e_p, _ = run_phase(
+    state, acc, att, samples, moves, p_s, e_p, f_s, _ = run_phase(
         state, params.maxsteps, 1.0, cyc, collect=True, lapse=lapse)
     prod_sweeps = -(-params.maxsteps // interval) * interval
     prod_sps = prod_sweeps * c / max(time.perf_counter() - t0, 1e-9)
@@ -254,7 +259,7 @@ def simulate_parallel_tempering(
         acceptance=acc_moves, cv=cv, energy_samples=e_t,
         pressure_samples=np.stack(p_s).reshape(shape_t) if p_s else None,
         energy_at_pressure=np.stack(e_p).reshape(shape_t) if e_p else None,
-        sweeps_per_second=prod_sps)
+        sweeps_per_second=prod_sps, **stack_fields(f_s, n_t, chains_per_t))
     return state, PTResults(
         tsweep=ts, pair_t_lo=temps[:-1], pair_t_hi=temps[1:],
         swap_acceptance=acc / np.maximum(att, 1), swap_attempts=att,

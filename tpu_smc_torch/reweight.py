@@ -1,10 +1,13 @@
 """MBAR reweighting across the temperature ladder (counterpart of
-tpu_smc.reweight without the field / PMF parts).
+tpu_smc.reweight).
 
 The ladder drivers (tsweep.py, pt.py) collect per-gather potential-energy
 samples at every temperature at once; MBAR (Shirts & Chodera 2008)
-combines them into E(T), c_v(T), f(T) and, from paired (P, E) samples,
-P(T) at ANY temperature inside or near the ladder. The self-consistent
+combines them into E(T), c_v(T), f(T) and, from paired samples taken at
+engine-call boundaries, P(T), the fields g(r; T), rho(z; T), S(k; T),
+P_N/P_T(z; T) with the wall tension gamma(T), and the Widom mu_ex(T), at
+ANY temperature inside or near the ladder; rho(z; T) also gives the
+potential of mean force F(z; T) = -T ln rho(z; T). The self-consistent
 equations are a dense [K states x M samples] log-sum-exp fixed point,
 solved in float32 with plain torch ops, as the JAX package solves them.
 
@@ -41,6 +44,22 @@ class ReweightResults(NamedTuple):
     # P(T) incl. ideal rho*T from paired (P, E) samples
     pressure: np.ndarray | None = None     # [G]
     err_pressure: np.ndarray | None = None  # [G]
+    # fields from paired per-configuration samples (None unless sampled)
+    gr: np.ndarray | None = None           # [G, gr_bins]
+    zprofile: np.ndarray | None = None     # [G, z_bins]
+    err_gr: np.ndarray | None = None
+    err_zprofile: np.ndarray | None = None
+    sk: np.ndarray | None = None           # [G, shells]
+    err_sk: np.ndarray | None = None
+    # P_N/P_T(z; T) with the ideal term at the target T, and the wall
+    # tension gamma(T) = 1/2 int (P_N - P_T) dz
+    pn: np.ndarray | None = None           # [G, nb]
+    pt: np.ndarray | None = None           # [G, nb]
+    gamma: np.ndarray | None = None        # [G]
+    err_gamma: np.ndarray | None = None
+    # Widom mu_ex(T) (widom.mu_ex_reweighted)
+    mu_ex: np.ndarray | None = None        # [G]
+    err_mu_ex: np.ndarray | None = None
 
 
 def _mbar_fixed_point(u_kn: torch.Tensor, log_n_k: torch.Tensor, tol: float,
@@ -152,6 +171,52 @@ def reweight_paired_observable(e_k: Sequence[np.ndarray],
                        for t in t_grid])
 
 
+def reweight_paired_field(e_k: Sequence[np.ndarray],
+                          f_k: Sequence[np.ndarray], temps,
+                          t_grid) -> np.ndarray:
+    """<F(x)>(T) on `t_grid` of a vector observable: f_k[k] [M_k, B] with
+    row m the field (a rho(z) or g(r) histogram) measured on the
+    configuration of e_k[k][m]. Returns [G, B]: the scalar case's MBAR
+    weights applied to every bin at once (one [G, M] x [M, B] product)."""
+    temps = np.asarray(temps, np.float64)
+    t_grid = np.atleast_1d(np.asarray(t_grid, np.float64))
+    _, log_denom, e_shifted, _, _ = mbar_free_energies(e_k, 1.0 / temps)
+    f_pooled = torch.cat([torch.as_tensor(np.asarray(f, np.float64),
+                                          dtype=_F32).reshape(
+                                              -1, np.shape(f)[-1])
+                          for f in f_k])                       # [M, B]
+    betas = torch.as_tensor(1.0 / t_grid, dtype=_F32)
+    logw = -betas[:, None] * e_shifted[None, :] - log_denom[None, :]
+    logw = logw - torch.logsumexp(logw, dim=1, keepdim=True)
+    return (torch.exp(logw) @ f_pooled).double().numpy()    # [G, B]
+
+
+def pmf_from_profile(temps, field, err=None):
+    """Potential of mean force F(x; T) = -T ln rho(x; T) of a density
+    surface [G, B], shifted so min_x F = 0 per T; empty bins (rho <= 0)
+    are NaN. err_F = T err_rho / rho (delta method). Returns (pmf [G, B],
+    err_pmf [G, B] or None)."""
+    temps = np.atleast_1d(np.asarray(temps, np.float64))
+    field = np.asarray(field, np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        pmf = np.where(field > 0.0,
+                       -temps[:, None] * np.log(np.where(field > 0.0,
+                                                         field, 1.0)),
+                       np.nan)
+        if np.isnan(pmf).all(axis=1).any():
+            raise ValueError("a target temperature has an all-empty "
+                             "density profile; cannot form a PMF")
+        pmf = pmf - np.nanmin(pmf, axis=1, keepdims=True)
+        err_pmf = None
+        if err is not None:
+            err = np.asarray(err, np.float64)
+            err_pmf = np.where(field > 0.0,
+                               temps[:, None] * err
+                               / np.where(field > 0.0, field, 1.0),
+                               np.nan)
+    return pmf, err_pmf
+
+
 def reweight_from_ladder(res, cfg: SMCConfig, t_grid, n_boot: int = 0,
                          seed: int = 0) -> ReweightResults:
     """Reweight from a TSweepResults / PTResults carrying energy_samples
@@ -163,23 +228,54 @@ def reweight_from_ladder(res, cfg: SMCConfig, t_grid, n_boot: int = 0,
     ts = getattr(res, "tsweep", res)
     if ts.energy_samples is None or ts.energy_samples.size == 0:
         raise ValueError("ladder results carry no energy samples")
-    e_s = ts.energy_samples
-    p_s, e_p = ts.pressure_samples, ts.energy_at_pressure
-    have_p = p_s is not None and e_p is not None and p_s.size > 0
+    e_s = ts.energy_samples                     # [gathers, n_t, R]
+    e_p = ts.energy_at_pressure
+
+    def paired(arr):
+        return arr is not None and e_p is not None and arr.size > 0
+
+    have_p = paired(ts.pressure_samples)
+    fields = [(name, arr) for name, arr in (
+        ("gr", ts.gr_samples), ("zprofile", ts.zprofile_samples),
+        ("sk", ts.sk_samples)) if paired(arr)]
+    have_wd = paired(ts.widom_samples)
+    have_pt2 = paired(ts.ptensor_n_samples)
     t_grid = np.atleast_1d(np.asarray(t_grid, np.float64))
     ideal = cfg.rho * t_grid   # ideal-gas term, like data.csv (SMC.c:207)
 
     def split(arr, idx=None):
         a = arr if idx is None else arr[:, :, idx]
-        return [a[:, k].reshape(-1) for k in range(a.shape[1])]
+        tail = a.shape[3:]     # field samples carry a trailing [bins] axis
+        return [a[:, k].reshape((-1,) + tail) for k in range(a.shape[1])]
 
     def estimate(idx=None):
         out = reweight_observables(split(e_s, idx), ts.temps, t_grid,
                                    cfg=cfg)
+        ep = split(e_p, idx) if e_p is not None else None
         if have_p:
-            pv = reweight_paired_observable(split(e_p, idx), split(p_s, idx),
-                                            ts.temps, t_grid)
+            pv = reweight_paired_observable(
+                ep, split(ts.pressure_samples, idx), ts.temps, t_grid)
             out = out._replace(pressure=pv + ideal)
+        for name, arr in fields:
+            out = out._replace(**{name: reweight_paired_field(
+                ep, split(arr, idx), ts.temps, t_grid)})
+        if have_wd:
+            from .widom import mu_ex_reweighted
+
+            out = out._replace(mu_ex=mu_ex_reweighted(
+                split(ts.widom_samples, idx), ep, ts.temps, t_grid)[0])
+        if have_pt2:
+            # the virial parts reweight as fields; the ideal term is
+            # rho(z; T') T' at the TARGET temperature
+            pn_g, pt_g, rho_g = (reweight_paired_field(
+                ep, split(arr, idx), ts.temps, t_grid) for arr in (
+                    ts.ptensor_n_samples, ts.ptensor_t_samples,
+                    ts.ptensor_rho_samples))
+            ideal_z = rho_g * t_grid[:, None]
+            pn_g, pt_g = ideal_z + pn_g, ideal_z + pt_g
+            dz = cfg.box_lz / pn_g.shape[1]
+            out = out._replace(pn=pn_g, pt=pt_g,
+                               gamma=0.5 * (pn_g - pt_g).sum(axis=1) * dz)
         return out
 
     out = estimate()
@@ -188,12 +284,16 @@ def reweight_from_ladder(res, cfg: SMCConfig, t_grid, n_boot: int = 0,
     r = e_s.shape[2]
     rng = np.random.default_rng(seed)
     draws = [estimate(rng.integers(0, r, size=r)) for _ in range(n_boot)]
+
+    def sd(name, have=True):
+        return (np.std([getattr(d, name) for d in draws], axis=0)
+                if have else None)
+
     return out._replace(
-        err_energy=np.std([d.mean_energy for d in draws], axis=0),
-        err_cv=np.std([d.cv for d in draws], axis=0),
-        err_f=np.std([d.free_energy for d in draws], axis=0),
-        err_pressure=(np.std([d.pressure for d in draws], axis=0)
-                      if have_p else None))
+        err_energy=sd("mean_energy"), err_cv=sd("cv"),
+        err_f=sd("free_energy"), err_pressure=sd("pressure", have_p),
+        err_mu_ex=sd("mu_ex", have_wd), err_gamma=sd("gamma", have_pt2),
+        **{f"err_{name}": sd(name) for name, _ in fields})
 
 
 def subset_ladder_replicas(res, sl):
@@ -205,9 +305,11 @@ def subset_ladder_replicas(res, sl):
     def cut(a):
         return None if a is None else a[:, :, sl]
 
-    return ts._replace(energy_samples=cut(ts.energy_samples),
-                       pressure_samples=cut(ts.pressure_samples),
-                       energy_at_pressure=cut(ts.energy_at_pressure))
+    from .tsweep import FIELD_NAMES
+
+    return ts._replace(**{name: cut(getattr(ts, name)) for name in (
+        "energy_samples", "pressure_samples", "energy_at_pressure")
+        + FIELD_NAMES})
 
 
 def reweight_disorder_ladder(res, cfg: SMCConfig, t_grid, k_real: int
@@ -240,6 +342,11 @@ def reweight_disorder_ladder(res, cfg: SMCConfig, t_grid, k_real: int
     cv, cv_se = avg_se("cv")
     f, f_se = avg_se("free_energy")
     p, p_se = avg_se("pressure")
+    gr, gr_se = avg_se("gr")
+    zp, zp_se = avg_se("zprofile")
+    sk, sk_se = avg_se("sk")
+    mu, mu_se = avg_se("mu_ex")
+    gm, gm_se = avg_se("gamma")
     combined = ReweightResults(
         temps=parts[0].temps, mean_energy=e, cv=cv,
         ess=np.stack([pt.ess for pt in parts]).sum(axis=0),
@@ -247,7 +354,10 @@ def reweight_disorder_ladder(res, cfg: SMCConfig, t_grid, k_real: int
         ladder_f=np.stack([pt.ladder_f for pt in parts]).mean(axis=0),
         iterations=max(pt.iterations for pt in parts),
         err_energy=e_se, err_cv=cv_se, err_f=f_se,
-        pressure=p, err_pressure=p_se)
+        pressure=p, err_pressure=p_se, gr=gr, err_gr=gr_se,
+        zprofile=zp, err_zprofile=zp_se, sk=sk, err_sk=sk_se,
+        pn=avg_se("pn")[0], pt=avg_se("pt")[0], gamma=gm, err_gamma=gm_se,
+        mu_ex=mu, err_mu_ex=mu_se)
     return combined, parts
 
 
@@ -287,6 +397,14 @@ def write_reweight_csv(d, cfg: SMCConfig, res: ReweightResults):
         cols.append(("P", res.pressure, "0.9f"))
         if res.err_pressure is not None:
             cols.append(("P_err", res.err_pressure, "0.9f"))
+    if res.mu_ex is not None:
+        cols.append(("mu_ex", res.mu_ex, "0.9f"))
+        if res.err_mu_ex is not None:
+            cols.append(("mu_ex_err", res.err_mu_ex, "0.9f"))
+    if res.gamma is not None:
+        cols.append(("gamma", res.gamma, "0.9f"))
+        if res.err_gamma is not None:
+            cols.append(("gamma_err", res.err_gamma, "0.9f"))
     cols += [("ess", res.ess, "0.1f"), ("f", res.free_energy, "0.9f")]
     with open(p, "w") as f:
         f.write(", ".join(name for name, _, _ in cols) + "\n")
@@ -303,15 +421,39 @@ def write_reweight_disorder_csv(d, cfg: SMCConfig, parts):
 
     p = _fname(d, "reweight_disorder", cfg)
     have_p = all(pt.pressure is not None for pt in parts)
+    have_mu = all(pt.mu_ex is not None for pt in parts)
     with open(p, "w") as f:
         f.write("k, T, E_mean, cv" + (", P" if have_p else "")
-                + ", ess, f\n")
+                + (", mu_ex" if have_mu else "") + ", ess, f\n")
         for k, pt in enumerate(parts):
             for g in range(len(pt.temps)):
                 row = (f"{k}, {pt.temps[g]:0.4f}, "
                        f"{pt.mean_energy[g]:0.9f}, {pt.cv[g]:0.9f}")
                 if have_p:
                     row += f", {pt.pressure[g]:0.9f}"
+                if have_mu:
+                    row += f", {pt.mu_ex[g]:0.9f}"
                 row += f", {pt.ess[g]:0.1f}, {pt.free_energy[g]:0.9f}"
+                f.write(row + "\n")
+    return p
+
+
+def write_reweight_profile_csv(d, cfg: SMCConfig, stem: str, axis_name: str,
+                               centers, res: ReweightResults,
+                               field: np.ndarray, err: np.ndarray | None):
+    """Long-format reweighted field, one row per (target T, bin), header
+    `T, <axis>, value[, err]` (reweight_zprofile, reweight_pmf, ...)."""
+    from .io import _fname
+
+    p = _fname(d, stem, cfg)
+    with open(p, "w") as f:
+        f.write(f"T, {axis_name}, value" + (", err" if err is not None
+                                            else "") + "\n")
+        for g in range(len(res.temps)):
+            for b in range(field.shape[1]):
+                row = (f"{res.temps[g]:0.4f}, {centers[b]:0.6f}, "
+                       f"{field[g, b]:0.9f}")
+                if err is not None:
+                    row += f", {err[g, b]:0.9f}"
                 f.write(row + "\n")
     return p

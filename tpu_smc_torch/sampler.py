@@ -56,7 +56,7 @@ def _wrap_proposal(rp: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
 
 def sweep(r: torch.Tensor, energy: torch.Tensor, w: torch.Tensor,
           cfg: SMCConfig, a, noise: torch.Tensor, unif: torch.Tensor,
-          offset: int, temperature=None):
+          offset: int, temperature=None, umbrella=None, order=None):
     """One sweep of every chain.
 
     r [C, N, 3], energy [C]; noise [C, N, 3] is the proposal noise
@@ -64,6 +64,19 @@ def sweep(r: torch.Tensor, energy: torch.Tensor, w: torch.Tensor,
     cfg.reference_noise), unif [C, N] the acceptance uniforms by move,
     offset the shared cyclic start (SMC.c:290). a, temperature: scalars
     or [C] (None = cfg.temperature); w [M*M, 2] or [C, M*M, 2].
+
+    umbrella = (tag, k_spring, z0): the harmonic bias b(z) = k/2 (z_tag -
+    z0)^2 on particle `tag`'s z, z0 a scalar or one window center per
+    chain [C] (umbrella.py). As in tpu_smc.sampler.sweep it enters only
+    the acceptance of the tagged particle's moves, -(b(z') - b(z))/T;
+    the force-biased proposal is unchanged, so each move is an exact
+    Metropolis-Hastings step for exp(-(U + b)/T), and the carried energy
+    stays the physical U.
+
+    order: the visiting order [N] (int64, on r's device) in place of
+    `offset`: particles are then read and written through index ops,
+    with no host read, so that the sweep can be captured in a CUDA graph
+    (SweepGraph); the results are bitwise those of the offset form.
     Returns (r, energy, n_accepted [C])."""
     n = cfg.n
     t = cfg.temperature if temperature is None else temperature
@@ -75,35 +88,122 @@ def sweep(r: torch.Tensor, energy: torch.Tensor, w: torch.Tensor,
     else:
         a, t = float(a), float(t)
         a_t = a / t
+    if umbrella is not None:
+        u_tag = int(umbrella[0])
+        u_k, u_z0 = (torch.as_tensor(v, dtype=r.dtype, device=r.device)
+                     for v in umbrella[1:])
     r = r.clone()
     acc = torch.zeros(r.shape[0], dtype=torch.int64, device=r.device)
     zero = torch.zeros((), dtype=r.dtype, device=r.device)
     for nn in range(n):
-        i = (nn + int(offset)) % n
-        ri = r[:, i]
+        if order is None:
+            i = (nn + int(offset)) % n
+            ri, noise_i = r[:, i], noise[:, i]
+        else:
+            sel = order[nn:nn + 1]
+            i = order[nn]
+            ri = r.index_select(1, sel)[:, 0]
+            noise_i = noise.index_select(1, sel)[:, 0]
         um, fm = energy_force_single(r, i, ri, w, cfg)
         # acceptance uses the UNWRAPPED delta, energies the wrapped
         # position (SMC.c:307-316)
-        delta = fm * a_t + noise[:, i]
+        delta = fm * a_t + noise_i
         rp = _wrap_proposal(ri + delta, cfg)
         un, fn = energy_force_single(r, i, rp, w, cfg)
         df = fn - fm
         dw = ((df * df).sum(-1) + 2.0 * (df * fm).sum(-1)) * a / (4.0 * t)
         log_ap = -(un - um + 0.5 * (delta * (fn + fm)).sum(-1) + dw) / t
+        if umbrella is not None and (order is not None or i == u_tag):
+            db = 0.5 * u_k * ((rp[:, 2] - u_z0) ** 2 - (ri[:, 2] - u_z0) ** 2)
+            if order is not None:       # x - 0/t == x: bitwise the branch
+                db = torch.where(i == u_tag, db, zero)
+            log_ap = log_ap - db / t
         accept = (unif[:, nn] < torch.exp(torch.clamp(log_ap, max=0.0))) \
             | (log_ap >= 0.0)
-        r[:, i] = torch.where(accept[:, None], rp, ri)
+        new = torch.where(accept[:, None], rp, ri)
+        if order is None:
+            r[:, i] = new
+        else:
+            r.index_copy_(1, sel, new[:, None])
         energy = energy + torch.where(accept, un - um, zero)
         acc += accept.to(torch.int64)
     return r, energy, acc
 
 
+class SweepGraph:
+    """One sweep of the plain engine captured in a CUDA graph: the ~170
+    small launches of each of the N sequential moves replay as one graph
+    launch, the host no longer in the loop. Inputs (positions, energy,
+    noise, uniforms, visiting order) are copied into static buffers and
+    the outputs copied out, so a replay is bitwise the eager sweep. The
+    graph holds w, A, T and the umbrella's window centers as captured:
+    `matches` says whether a call may reuse it."""
+
+    def __init__(self, r, energy, w, cfg: SMCConfig, a, temperature=None,
+                 umbrella=None):
+        dev = r.device
+        self.key = self._key(r, w, cfg, a, temperature, umbrella)
+        # every tensor the graph reads, and every tensor its key names,
+        # stays alive with it: the addresses it replays stay theirs, and
+        # no other tensor can take an id the key holds
+        self.held = (w, a, temperature, umbrella)
+        if umbrella is not None:
+            umbrella = (int(umbrella[0]),) + tuple(
+                torch.as_tensor(v, dtype=r.dtype, device=dev)
+                for v in umbrella[1:])
+        self.umbrella = umbrella
+        self.r, self.e = r.clone(), energy.clone()
+        c, n = r.shape[0], cfg.n
+        self.noise = torch.zeros((c, n, 3), dtype=r.dtype, device=dev)
+        self.unif = torch.zeros((c, n), dtype=r.dtype, device=dev)
+        self.order = torch.arange(n, dtype=torch.int64, device=dev)
+
+        def body():
+            return sweep(self.r, self.e, w, cfg, a, self.noise, self.unif, 0,
+                         temperature=temperature, umbrella=self.umbrella,
+                         order=self.order)
+
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            body()                       # warm-up outside the capture
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = body()
+
+    @staticmethod
+    def _key(r, w, cfg, a, temperature, umbrella):
+        def ident(v):
+            return (id(v), v.data_ptr()) if torch.is_tensor(v) else v
+
+        return (tuple(r.shape), r.dtype, str(r.device), cfg, ident(w),
+                ident(a), ident(temperature),
+                None if umbrella is None else tuple(ident(v)
+                                                    for v in umbrella))
+
+    def matches(self, r, w, cfg, a, temperature=None, umbrella=None) -> bool:
+        return self.key == self._key(r, w, cfg, a, temperature, umbrella)
+
+    def __call__(self, r, energy, noise, unif, offset: int):
+        n = self.order.shape[0]
+        self.r.copy_(r)
+        self.e.copy_(energy)
+        self.noise.copy_(noise)
+        self.unif.copy_(unif)
+        self.order.copy_((torch.arange(n, device=r.device) + int(offset))
+                         % n)
+        self.graph.replay()
+        return tuple(o.clone() for o in self.out)
+
+
 def sweep_state(state: ChainState, w: torch.Tensor, cfg: SMCConfig,
                 a, noise: torch.Tensor, unif: torch.Tensor,
-                offset: int, temperature=None):
-    """One sweep on a ChainState. Returns (state, SweepStats row)."""
+                offset: int, temperature=None, umbrella=None):
+    """One sweep on a ChainState (umbrella: see `sweep`). Returns (state,
+    SweepStats row)."""
     r, e, acc = sweep(state.r, state.energy, w, cfg, a, noise, unif, offset,
-                      temperature=temperature)
+                      temperature=temperature, umbrella=umbrella)
     new = state.replace(r=r, energy=e, sweeps=state.sweeps + 1,
                         accepted=state.accepted + acc)
     return new, SweepStats(energy=e, accepted=acc)

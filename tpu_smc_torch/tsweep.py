@@ -44,6 +44,17 @@ class TSweepResults(NamedTuple):
     energy_at_pressure: np.ndarray | None = None
     # production chain-sweeps/s across all ladder chains
     sweeps_per_second: float | None = None
+    # paired field samples at the same boundaries [B, T, chains_per_t,
+    # bins] (each None unless sampled): g(r), rho(z), S(k) shells, Widom
+    # ghost energies [.., widom_k], and the pressure tensor's VIRIAL parts
+    # with the rho(z) on its bins (reweight.py adds rho(z; T') T')
+    gr_samples: np.ndarray | None = None
+    zprofile_samples: np.ndarray | None = None
+    sk_samples: np.ndarray | None = None
+    widom_samples: np.ndarray | None = None
+    ptensor_n_samples: np.ndarray | None = None
+    ptensor_t_samples: np.ndarray | None = None
+    ptensor_rho_samples: np.ndarray | None = None
 
 
 def _ladder_block(state: ChainState, w, cfg: SMCConfig,
@@ -79,6 +90,73 @@ def _pressure(cfg: SMCConfig, r: torch.Tensor, w) -> np.ndarray:
 
     return wall_obs_chains(lambda rb, wb: total_pressure(rb, wb, cfg), r, w,
                            cfg.n).cpu().numpy()
+
+
+class FieldOptions(NamedTuple):
+    """The ladder's paired field samples (tpu_smc.tsweep._fields_fn's
+    arguments); 0 disables each."""
+    gr_bins: int = 0
+    z_bins: int = 0
+    sk_kmax: int = 0
+    widom_k: int = 0
+    ptensor_bins: int = 0
+
+    def any(self) -> bool:
+        return any(self)
+
+
+# TSweepResults' paired field samples
+FIELD_NAMES = ("gr_samples", "zprofile_samples", "sk_samples",
+               "widom_samples", "ptensor_n_samples", "ptensor_t_samples",
+               "ptensor_rho_samples")
+
+
+def _fields(cfg: SMCConfig, state: ChainState, w, fo: FieldOptions,
+            gather_lapse: int) -> dict:
+    """One boundary's paired field samples of every chain, host arrays
+    [C, bins] keyed by TSweepResults field: per-configuration g(r) and
+    rho(z), S(k), Widom ghost energies (their stream folds the absolute
+    gather state.sweeps // gather_lapse, widom.py) and the pressure
+    tensor's virial parts with rho(z) on its bins; the all-pairs ones in
+    chain batches within potentials.PAIR_BUDGET."""
+    from .observables import (pressure_tensor_profile, radial_distribution,
+                              structure_factor, vmap_chains_bounded,
+                              z_density_profile)
+
+    r, n, out = state.r, cfg.n, {}
+    if fo.gr_bins:
+        out["gr_samples"] = vmap_chains_bounded(
+            lambda rb: radial_distribution(rb, cfg, nbins=fo.gr_bins)[1],
+            r, n)
+    if fo.z_bins:
+        out["zprofile_samples"] = z_density_profile(r, cfg, fo.z_bins)[1]
+    if fo.sk_kmax:
+        out["sk_samples"] = structure_factor(r, cfg, n_kmax=fo.sk_kmax)[1]
+    if fo.widom_k:
+        from .widom import ghost_positions, widom_delta_u
+
+        ghosts = ghost_positions(state.key, state.sweeps // gather_lapse,
+                                 cfg, fo.widom_k)
+        out["widom_samples"] = widom_delta_u(r, w, cfg, ghosts)
+    if fo.ptensor_bins:
+        pn, pt = vmap_chains_bounded(
+            lambda rb: pressure_tensor_profile(
+                rb, cfg, nbins=fo.ptensor_bins, include_ideal=False)[1:],
+            r, n)
+        out["ptensor_n_samples"], out["ptensor_t_samples"] = pn, pt
+        out["ptensor_rho_samples"] = z_density_profile(
+            r, cfg, fo.ptensor_bins)[1]
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def stack_fields(samples: list, n_t: int, chains_per_t: int) -> dict:
+    """The boundaries' `_fields` dicts stacked into TSweepResults fields
+    [B, n_t, chains_per_t, bins]."""
+    if not samples:
+        return {}
+    return {k: np.stack([s[k] for s in samples]).reshape(
+        (-1, n_t, chains_per_t) + samples[0][k].shape[1:])
+        for k in samples[0]}
 
 
 def ladder_stats(e_t: np.ndarray, moves: np.ndarray, sweeps: int,
@@ -121,10 +199,12 @@ def simulate_temperature_sweep(
     a_per_t=None,
     device="cuda",
     state0: ChainState | None = None,
+    fields: FieldOptions = FieldOptions(),
 ) -> tuple[ChainState, TSweepResults]:
     """The full ladder: thermalization (A doubled) + production, energies
-    sampled at the gather cadence and (pressure, energy) pairs at each
-    engine-call boundary, pooled per temperature.
+    sampled at the gather cadence and (pressure, energy) pairs, with the
+    paired field samples `fields` asks for, at each engine-call boundary,
+    pooled per temperature.
 
     w: the shared wall table, or per-chain tables [C, M*M, 2] (quenched
     disorder; the realization lives in the replica index). a_per_t [n_t]:
@@ -156,7 +236,7 @@ def simulate_temperature_sweep(
     # from the cumulative counters (harvested every call).
     lapse = max(1, params.gather_lapse)
     chunk_g = max(lapse, (chunk // lapse) * lapse)
-    e_samples, p_samples, e_at_p = [], [], []
+    e_samples, p_samples, e_at_p, f_samples = [], [], [], []
     prod_moves = np.zeros((c,), np.int64)
     done = 0
     t0 = time.perf_counter()
@@ -167,6 +247,8 @@ def simulate_temperature_sweep(
         e_samples.append(stats.energy[lapse - 1::lapse].cpu().numpy())
         p_samples.append(_pressure(cfg, state.r, w_t))
         e_at_p.append(state.energy.cpu().numpy())
+        if fields.any():
+            f_samples.append(_fields(cfg, state, w_t, fields, lapse))
         prod_moves += state.accepted.cpu().numpy().astype(np.int64)
         state = state.replace(accepted=torch.zeros_like(state.accepted))
         done += k
@@ -181,7 +263,8 @@ def simulate_temperature_sweep(
         cv=cv, energy_samples=e_t,
         pressure_samples=np.stack(p_samples).reshape(shape_t),
         energy_at_pressure=np.stack(e_at_p).reshape(shape_t),
-        sweeps_per_second=prod_sps)
+        sweeps_per_second=prod_sps,
+        **stack_fields(f_samples, n_t, chains_per_t))
 
 
 def write_tsweep_csv(d, cfg: SMCConfig, res: TSweepResults):
