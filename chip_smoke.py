@@ -13,9 +13,11 @@ and N = 32 x 512 through the CLI), the bug-compatible reference-noise
 ensemble (N = 108 x 512), a 10 x 10 wall grid (N = 108 x 512), the
 two experimental engines, zsorted with the 2-D x-slice skip (K1-xs) and
 the z-banded random-scan kernel (K4), held with zsorted against dense at
-N = 1024 x 256 chains, and the measurement layer: g(r), rho(z), P_N/P_T
+N = 1024 x 256 chains, the measurement layer: g(r), rho(z), P_N/P_T
 and Widom on the N = 1024 x 512 ensemble, the N = 108 PT ladder with
-paired fields and MBAR, and umbrella windows with replica exchange.
+paired fields and MBAR, and umbrella windows with replica exchange, and
+the ensemble family: grand-canonical (N0 = 108 x 512), constant-pressure
+(N = 108 x 4096 isobars) and Gibbs-ensemble (N = 96 x 256) MC.
 
     python3 chip_smoke.py
 
@@ -109,7 +111,24 @@ Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
      scripts/validate_banded.py's contract: from the equilibrated N =
      1024 x 256 ensemble, 200 sweeps each through the dense, zsorted,
      zsorted + xsort 4 and banded engines, each within 4 combined SE of
-     dense in mean E and within 0.01 in acceptance;
+     dense in mean E and within 0.01 in acceptance; then the ensemble
+     family on the plain engine's CUDA graphs (no kernel launched, the
+     counts read back as 0): the slab GCMC `100 300 3 1.1 --gcmc MU
+     --chains 512 --z-bins 32` (N0 = 108, cap 216; N <= cap, tracked vs
+     exact energy within 1e-4 relative at every resync, acceptances in
+     (0, 1], T ln<rho> + in-run mu_ex within 0.1 of MU, tpu_smc's CSV
+     headers) and 100 + 50 sweeps, a checkpoint and 250 more bitwise its
+     final r and active; the Widom -> GCMC loop at tests/test_gcmc.py's
+     state point (N = 32, cap 64, 512 chains each); the isotherm
+     `--gcmc-grid=-9.5:-7:8 --bulk --n 32 --chains 512` (<N> rising);
+     the NPT isobars `--npt-grid 0.3:2.5:8 --npt-reweight 0.3:2.5:33 --n
+     108 --rho 0.3 --chains 512` (rho(P) rising, MBAR finite and
+     monotone, V never below (2 rc)^3), `--npt 0.7` and the NVT -> NPT
+     loop at N = 32 x 512 (<rho> = 0.300 ± 0.02); Gibbs at N = 96 x 256,
+     T = 0.75 (N1 + N2 = N every sweep, V1 + V2 to round-off, rho_hi > 3
+     rho_lo, rho_hi > 0.45, rho_lo < 0.15, |dmu| < 0.4) and the
+     coexistence curve `--gibbs-temps 0.7,2.0`; chain-sweeps/s and the
+     wall-time split of each run;
   4. at the main path's shapes (N = 108 x 512 dense, N = 1024 x 512
      z-skip): kernel vs plain as in phase 2, the plain time and the
      bound, for the uniform form and for per-chain (A, T) and per-chain
@@ -737,6 +756,23 @@ def patched(module, **fns):
 
 
 @contextlib.contextmanager
+def captured(module, name: str):
+    """module.name(...) recorded (its return value and host wall times)
+    for the duration of the block."""
+    fn, seen = getattr(module, name), {}
+
+    def wrapper(*args, **kw):
+        seen["t0"] = time.perf_counter()
+        seen["out"] = fn(*args, **kw)
+        torch.cuda.synchronize()
+        seen["t1"] = time.perf_counter()
+        return seen["out"]
+
+    with patched(module, **{name: wrapper}):
+        yield seen
+
+
+@contextlib.contextmanager
 def main_path():
     """A main-path run: the launch counts set to 0 just before it and
     copied into the yielded dict just after, the kernels' plain versions
@@ -1179,19 +1215,11 @@ def drive_umbrella(card: str):
     from tpu_smc_torch import umbrella as tum
     from tpu_smc_torch.config import SMCConfig
 
-    seen = {}
-    simulate = tum.simulate_umbrella
-
-    def capture(*args, **kw):
-        seen["out"] = simulate(*args, **kw)
-        torch.cuda.synchronize()
-        return seen["out"]
-
     argv = ["200", "800", "80", "1.1", "--umbrella=-99:-92:8",
             "--umbrella-replicas", "8", "--umbrella-exchange", "10",
             "--umbrella-bins", "32", "--seed", "2024"]
     with tempfile.TemporaryDirectory() as tmp, \
-            patched(tum, simulate_umbrella=capture):
+            captured(tum, "simulate_umbrella") as seen:
         out, launches, dt, _ = run_main(argv + ["--data-dir", tmp])
         cfg = SMCConfig.for_n(108)
         lines = (Path(tmp) / cfg.run_name() / f"umbrella_pmf_"
@@ -1549,20 +1577,21 @@ def drive_m10(card: str):
 
 
 def drive_cli_large(card: str):
-    """`python -m tpu_smc_torch 8 16 2 1.1 --n 32768 --chains 128 --seed 5
+    """`python -m tpu_smc_torch 8 8 1 1.1 --n 32768 --chains 128 --seed 5
     --lca-time 1` in the reference's default 33 x 33 x 240 box (dense:
     tpu_smc measured acceptance 0 there, so acceptance is not gated): the
     9-file set, finite pooled means, the streamed engine line, streamed
-    launches only."""
+    launches only. One gather of 8 sweeps (8 16 2 before the ensemble
+    family's phase: each gather's observables take ~35 s here)."""
     from tpu_smc_torch.config import SMCConfig
 
     n, c = 32768, 128
     with tempfile.TemporaryDirectory() as tmp:
         out, launches, dt, sim = run_main(
-            ["8", "16", "2", "1.1", "--n", str(n), "--chains", str(c),
+            ["8", "8", "1", "1.1", "--n", str(n), "--chains", str(c),
              "--seed", "5", "--lca-time", "1", "--data-dir", tmp])
         cfg = SMCConfig.for_n(n)
-        check_ensemble_files(Path(tmp) / cfg.run_name(), cfg, c, 2)
+        check_ensemble_files(Path(tmp) / cfg.run_name(), cfg, c, 1)
     check("Ensemble sweep engine: zsorted (streamed)" in out,
           "N=32768 CLI: no streamed engine line")
     check(launches["stream"] > 0 and launches["zskip"] == launches["dense"]
@@ -1572,7 +1601,7 @@ def drive_cli_large(card: str):
     print(f"  CLI N={n} x {c} (default box): {dt:.1f} s, mean E {mean_e}, "
           f"acceptance {summary_value(out, 'Average acceptance ratio:')}, "
           f"launches {launches} ({card})", flush=True)
-    print_split(n, 16, c, dt, sim)
+    print_split(n, 8, c, dt, sim)
     return launches
 
 
@@ -1940,6 +1969,344 @@ def resume_drill(label: str, common: list, card: str):
           f"{time.perf_counter() - t0:.1f} s, launches {counts} ({card})",
           flush=True)
     return counts
+
+
+# ----------------------------------------------------------------------
+# Phase 3, ensemble family: GCMC, NPT and Gibbs on the plain engine
+# ----------------------------------------------------------------------
+
+# MU of the slab GCMC run: T ln(N0 / V) + mu_ex at N0 = 108, T = 1.1, V =
+# 33 x 33 x 200, with mu_ex = -0.0066 interpolated between the per-level
+# Widom values that the measurement ladder below prints at T = 1.0 and
+# 1.2 (-0.00819, -0.00503), so that <N> lands near N0
+GCMC_MU = round(1.1 * math.log(108 / (33.0 * 33.0 * 200.0)) - 0.0066, 4)
+# sweeps of the ensemble-family runs (eq, max)
+ENS_DEPTH = {"gcmc": (100, 300), "gcmc_split": 150, "loop_nvt": (100, 300),
+             "loop_gcmc": (200, 400), "isotherm": (60, 200),
+             "isobars": (150, 300), "npt": (50, 100),
+             "loop_npt_nvt": (300, 600), "loop_npt": (500, 1000),
+             "gibbs": (600, 400), "gibbs_temps": (50, 100)}
+
+
+def ens_run(argv, module, name: str, label: str, card: str):
+    """One ensemble-family CLI run as a main-path run (kernel launches
+    counted, plain versions barred): (output, run dir, the driver's
+    (state, results), launches). Prints chain-sweeps/s and the wall-time
+    split around the driver."""
+    with captured(module, name) as seen:
+        out, launches, dt, sim = run_main(argv)
+    state, res = seen["out"]
+    check("Ensemble sweep engine: torch (plain engine, CUDA graphs)" in out,
+          f"{label}: no plain-engine line")
+    check(not any(launches.values()),
+          f"{label}: kernel launches {launches} (the ensemble family runs "
+          "on the plain engine)")
+    print(f"  {label}: {dt:.1f} s = {seen['t0'] - sim['start']:.3f} before "
+          f"the driver + {seen['t1'] - seen['t0']:.3f} driver + "
+          f"{sim['start'] + dt - seen['t1']:.3f} after (CSVs); "
+          f"{res.sweeps_per_second:,.1f} chain-sweeps/s in production "
+          f"({card})", flush=True)
+    return out, launches, state, res
+
+
+def csv_head(d: Path, stem: str, cfg, lines: int = 1):
+    """The first lines of the run's CSV `stem` (tpu_smc's name, with or
+    without its rank0 suffix)."""
+    paths = list(d.glob(f"{stem}_{cfg.file_key()}*.csv"))
+    check(len(paths) == 1, f"no single {stem}_{cfg.file_key()} CSV")
+    return paths[0].read_text().splitlines()[:lines]
+
+
+def drive_gcmc(card: str):
+    """The slab GCMC at the reference geometry, full width (N0 = 108,
+    cap 216, 512 chains, --z-bins 32): N <= cap in every trace, tracked
+    against exact energy within 1e-4 relative at every resync, the three
+    acceptances in (0, 1], T ln<rho> + mu_ex(in run) within 0.1 of MU,
+    tpu_smc's CSV names and headers; then 100 + 50 sweeps, a checkpoint
+    and 250 more: final r and active bitwise the unbroken run's."""
+    from tpu_smc_torch import gcmc as tg
+    from tpu_smc_torch.config import SMCConfig
+
+    eq, mx = ENS_DEPTH["gcmc"]
+    common = ["1.1", "--gcmc", str(GCMC_MU), "--chains", "512",
+              "--seed", "2024"]
+    cfg = SMCConfig.for_n(108)
+    with tempfile.TemporaryDirectory() as tmp:
+        out, _, st, res = ens_run(
+            [str(eq), str(mx), "3", *common, "--z-bins", "32",
+             "--data-dir", tmp], tg, "simulate_gcmc",
+            f"GCMC slab N0=108 cap 216 x 512, {eq} + {mx}", card)
+        d = Path(tmp) / cfg.run_name()
+        head = csv_head(d, "gcmc", cfg, 2)
+        zhead = csv_head(d, "gcmc_zprofile", cfg)
+        k = ENS_DEPTH["gcmc_split"] - eq
+        ck = str(Path(tmp) / "ck.npz")
+        ens_run([str(eq), str(k), "3", *common, "--checkpoint", ck,
+                 "--data-dir", tmp], tg, "simulate_gcmc",
+                f"GCMC slab, first {eq + k} sweeps", card)
+        _, _, st2, _ = ens_run(
+            ["0", str(mx - k), "3", *common, "--resume", ck, "--data-dir",
+             tmp], tg, "simulate_gcmc",
+            f"GCMC slab, resumed for {mx - k}", card)
+    cap = 216
+    rho = res.mean_density
+    mu_back = 1.1 * math.log(rho) + res.mu_ex
+    accs = (res.disp_acceptance, res.insert_acceptance,
+            res.delete_acceptance)
+    print(f"  GCMC slab: <N> {res.mean_n:.3f} ± {res.err_n:.3f} (N0 108), "
+          f"N in [{res.n_trace.min()}, {res.n_trace.max()}], acceptance "
+          f"displace/insert/delete {accs[0]:.4f} / {accs[1]:.4f} / "
+          f"{accs[2]:.4f}, in-run mu_ex {res.mu_ex:.5f}, T ln<rho> + mu_ex "
+          f"{mu_back:.5f} against MU {GCMC_MU}, resync drift "
+          f"{res.resync_drift:.3g}", flush=True)
+    check(res.n_trace.max() <= cap and res.n_trace.min() >= 0,
+          f"GCMC N outside [0, {cap}]")
+    check(not res.resync_drift > 1e-4, f"GCMC tracked vs exact energy "
+          f"{res.resync_drift:.3g} > 1e-4")
+    check(all(0 < a <= 1 for a in accs), f"GCMC acceptances {accs}")
+    check(head[0].startswith("# mu, ") and head[1] == "sweep, N_mean, E_mean"
+          and zhead == ["z, density"], f"GCMC CSV headers {head}, {zhead}")
+    check_later(abs(mu_back - GCMC_MU) < 0.1, f"GCMC in-run identity "
+                f"{mu_back:.4f} against MU {GCMC_MU}")
+    check(torch.equal(st.r, st2.r) and torch.equal(st.active, st2.active),
+          "GCMC resume: final r / active differ from the unbroken run")
+    print("  GCMC resume: final r and active bitwise the unbroken run's",
+          flush=True)
+
+
+def drive_gcmc_loop(card: str):
+    """Widom -> GCMC closed loop at tests/test_gcmc.py:97-136's state
+    point (bulk, T = 2, rho = 0.15, N = 32, cap 64), 512 chains each: the
+    port's NVT Widom on the plain engine measures mu = T ln rho + mu_ex,
+    GCMC at that mu brings the density back (that test's tolerance), and
+    its in-run identity closes within 0.1."""
+    from tpu_smc_torch import gcmc as tg
+    from tpu_smc_torch.config import RunParams, SMCConfig
+    from tpu_smc_torch.driver import ObservableOptions
+    from tpu_smc_torch.driver_ensemble import simulate_ensemble
+    from tpu_smc_torch.state import init_ensemble_state, seed_words
+    from tpu_smc_torch.widom import mu_ex
+
+    t, rho = 2.0, 0.15
+    cfg = SMCConfig.bulk(n=32, temperature=t, rho=rho)
+    eq, mx = ENS_DEPTH["loop_nvt"]
+    t0 = time.perf_counter()
+    with main_path() as launches:
+        st, w = init_ensemble_state(cfg, seed_words(5), 512)
+        st, nvt = simulate_ensemble(
+            cfg, RunParams(eq, mx, mx // 5), st, w,
+            opts=ObservableOptions(collect_sweep_trace=False, widom_k=64,
+                                   proposal_a=0.1, stream_seed=5),
+            max_fault_retries=0)
+        muex, muerr = mu_ex(nvt.widom_du, t)
+        mu = t * math.log(rho) + muex
+        eg, mg = ENS_DEPTH["loop_gcmc"]
+        _, res = tg.simulate_gcmc(cfg, mu, 64, eg, mg, seed_words(6),
+                                  n_chains=512, seed=6)
+    check(not any(launches.values()), f"Widom/GCMC loop launches {launches}")
+    v = tg.box_volume(cfg)
+    dn = res.n_trace.var() / t * muerr
+    tol = 4 * res.err_n + dn + 0.06 * rho * v
+    mu_back = t * math.log(res.mean_density) + res.mu_ex
+    print(f"  Widom -> GCMC loop N=32 bulk T=2 rho=0.15, 512 chains: NVT "
+          f"{eq} + {mx} (plain engine) mu_ex {muex:.5f} ± {muerr:.5f}, mu "
+          f"{mu:.5f}; GCMC {eg} + {mg}: <N> {res.mean_n:.3f} ± "
+          f"{res.err_n:.3f} against rho V {rho * v:.3f} (tolerance "
+          f"{tol:.3f}), mu_back {mu_back:.5f} (|dmu| "
+          f"{abs(mu_back - mu):.4f}); {time.perf_counter() - t0:.1f} s, "
+          f"GCMC {res.sweeps_per_second:,.1f} chain-sweeps/s ({card})",
+          flush=True)
+    check_later(abs(res.mean_n - rho * v) < tol,
+                f"Widom -> GCMC: <N> {res.mean_n:.3f} vs {rho * v:.3f}")
+    check_later(abs(mu_back - mu) < 0.1,
+                f"Widom -> GCMC: mu_back {mu_back:.4f} vs mu {mu:.4f}")
+
+
+def drive_isotherm(card: str):
+    """`--gcmc-grid=-9.5:-7:8 --bulk --n 32 --chains 512` at T = 2.0 (4096
+    chains): <N>(mu) strictly rising (tests/test_gcmc.py:154-178)."""
+    from tpu_smc_torch import gcmc as tg
+    from tpu_smc_torch.config import SMCConfig
+
+    eq, mx = ENS_DEPTH["isotherm"]
+    with tempfile.TemporaryDirectory() as tmp:
+        out, _, _, res = ens_run(
+            [str(eq), str(mx), "40", "2.0", "--gcmc-grid=-9.5:-7:8",
+             "--bulk", "--n", "32", "--chains", "512", "--seed", "6",
+             "--data-dir", tmp], tg, "simulate_gcmc",
+            f"GCMC isotherm N=32 bulk, 8 mu x 512, {eq} + {mx}", card)
+        cfg = SMCConfig.bulk(n=32, temperature=2.0)
+        head, rows = read_csv(Path(tmp) / cfg.run_name()
+                              / f"gcmc_isotherm_{cfg.file_key()}.csv")
+    print(f"  isotherm <N>(mu): {np.round(rows[:, 1], 3).tolist()}",
+          flush=True)
+    check(head == "mu, N_mean, N_err, density" and rows.shape == (8, 4),
+          f"isotherm CSV {head}, {rows.shape}")
+    check_later(bool(np.all(np.diff(rows[:, 1]) > 0)),
+                f"isotherm not strictly rising: {rows[:, 1]}")
+
+
+def drive_npt(card: str):
+    """NPT isobars at full width (`--npt-grid 0.3:2.5:8 --npt-reweight
+    0.3:2.5:33 --n 108 --rho 0.3 --gamma 0.02 --lj-cutoff 1.8 --chains
+    512`, T = 2.0; 4096 chains): rho(P) strictly rising, the MBAR curve
+    finite and monotone, the volume floor never crossed; the single
+    pressure `--npt 0.7` with its CSVs; then the NVT -> NPT closed loop
+    (tests/test_npt.py:376-406) at N = 32 with 512 chains: the NVT virial
+    pressure P_vir at rho0 = 0.3, NPT at P_vir + T/V0 gives <rho> = 0.300
+    ± 0.02."""
+    from tpu_smc_torch import ensemble as en
+    from tpu_smc_torch import npt as tn
+    from tpu_smc_torch.config import SMCConfig
+    from tpu_smc_torch.potentials import pair_virial_pressure
+    from tpu_smc_torch.state import init_ensemble_state, seed_words
+
+    eq, mx = ENS_DEPTH["isobars"]
+    kw = dict(n=108, temperature=2.0, rho=0.3, gamma=0.02, lj_cutoff=1.8,
+              lj_shift=True)
+    cfg = SMCConfig.bulk(**kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        out, _, _, res = ens_run(
+            [str(eq), str(mx), "50", "2.0", "--npt-grid", "0.3:2.5:8",
+             "--npt-reweight", "0.3:2.5:33", "--n", "108", "--rho", "0.3",
+             "--gamma", "0.02", "--lj-cutoff", "1.8", "--chains", "512",
+             "--seed", "9", "--data-dir", tmp], tn, "simulate_npt",
+            f"NPT isobars N=108, 8 P x 512, {eq} + {mx}", card)
+        d = Path(tmp) / cfg.run_name()
+        hi, iso = read_csv(d / f"npt_isobar_{cfg.file_key()}.csv")
+        hr, rw = read_csv(d / f"npt_reweight_{cfg.file_key()}.csv")
+        e1, m1 = ENS_DEPTH["npt"]
+        _, _, _, r1 = ens_run(
+            [str(e1), str(m1), "10", "2.0", "--npt", "0.7", "--n", "108",
+             "--rho", "0.3", "--gamma", "0.02", "--lj-cutoff", "1.8",
+             "--chains", "512", "--seed", "9", "--gr-bins", "32",
+             "--data-dir", tmp], tn, "simulate_npt",
+            f"NPT P=0.7 N=108 x 512, {e1} + {m1}", card)
+        h1 = csv_head(d, "npt", cfg, 2) + csv_head(d, "npt_gr", cfg)
+    floor = (2.0 * cfg.lj_cutoff) ** 3
+    vmin = res.volume_trace.min()
+    print(f"  isobars rho(P): {np.round(iso[:, 1], 5).tolist()}; MBAR rho "
+          f"on 33 points {rw[0, 1]:.5f} .. {rw[-1, 1]:.5f}, ess "
+          f"{rw[:, 5].min():.0f} .. {rw[:, 5].max():.0f}; smallest V "
+          f"{vmin:.4f} (floor {floor:.4f}); resync drift "
+          f"{res.resync_drift:.3g}; P=0.7: rho {r1.mean_density:.5f} ± "
+          f"{r1.err_density:.5f}, acceptance {r1.disp_acceptance:.4f} / "
+          f"{r1.vol_acceptance:.4f}", flush=True)
+    check(hi == "P, rho_mean, rho_err, V_mean, kappa_T"
+          and hr == "P, rho, V_mean, kappa_T, H_conf, ess"
+          and iso.shape == (8, 5) and rw.shape == (33, 6),
+          f"NPT CSVs {hi}, {hr}")
+    check(h1[1] == "sweep, V_mean, rho_mean, E_mean" and h1[2] == "r, g",
+          f"NPT CSV headers {h1}")
+    check(vmin >= floor * (1 - 1e-6) and r1.volume_trace.min() >= floor
+          * (1 - 1e-6), f"NPT volume {vmin} below the floor {floor}")
+    check(np.isfinite(rw).all(), "NPT MBAR curve not finite")
+    check(not res.resync_drift > 1e-4, f"NPT resync drift "
+          f"{res.resync_drift}")
+    check_later(bool(np.all(np.diff(iso[:, 1]) > 0)),
+                f"isobars not strictly rising: {iso[:, 1]}")
+    check_later(bool(np.all(np.diff(rw[:, 1]) > 0)),
+                f"MBAR rho(P) not monotone: {rw[:, 1]}")
+
+    # the NVT -> NPT closed loop
+    t, rho0 = 2.0, 0.3
+    cfg32 = SMCConfig.bulk(**{**kw, "n": 32})
+    ne, nm = ENS_DEPTH["loop_npt_nvt"]
+    t0 = time.perf_counter()
+    with main_path() as launches:
+        st, w = init_ensemble_state(cfg32, seed_words(0), 512)
+        st, _ = en.ensemble_sweeps(st, w, cfg32, 2 * cfg32.proposal_a, ne,
+                                   stream_seed=0)
+        ps = []
+        for _ in range(nm // 15):
+            st, _ = en.ensemble_sweeps(st, w, cfg32, cfg32.proposal_a, 15,
+                                       stream_seed=0)
+            ps.append(pair_virial_pressure(st.r, cfg32).double().cpu())
+        chain_p = rho0 * t + torch.stack(ps).mean(0).numpy()
+        p_vir = float(chain_p.mean())
+        p_err = float(chain_p.std() / math.sqrt(len(chain_p) - 1))
+        v0 = cfg32.n / rho0
+        pe, pm = ENS_DEPTH["loop_npt"]
+        _, loop = tn.simulate_npt(cfg32, p_vir + t / v0, pe, pm,
+                                  seed_words(1), n_chains=512, dlnv=0.1,
+                                  seed=1)
+    check(not any(launches.values()), f"NVT -> NPT launches {launches}")
+    print(f"  NVT -> NPT loop N=32, 512 chains: NVT {ne} + {nm} (plain "
+          f"engine) P_vir {p_vir:.5f} ± {p_err:.5f}; NPT at P_vir + T/V0 "
+          f"{pe} + {pm}: <rho> {loop.mean_density:.5f} ± "
+          f"{loop.err_density:.5f} (rho0 0.3); {time.perf_counter() - t0:.1f}"
+          f" s, NPT {loop.sweeps_per_second:,.1f} chain-sweeps/s ({card})",
+          flush=True)
+    check_later(abs(loop.mean_density - rho0) < 0.02,
+                f"NVT -> NPT: <rho> {loop.mean_density:.4f} vs 0.3")
+
+
+def drive_gibbs(card: str):
+    """Gibbs at tests/test_gibbs.py:232-253's state point (`--gibbs --n 96
+    --rho 0.3 --lj-cutoff 1.8 --gibbs-transfers 24 --npt-dlnv 0.08` at T
+    = 0.75, 256 chains): N1 + N2 = N at every sweep, V1 + V2 conserved
+    to round-off, and that test's bifurcation gates; then the
+    coexistence curve `--gibbs-temps 0.7,2.0` (N = 48, 2 x 64 chains)."""
+    from tpu_smc_torch import gibbs as tgb
+    from tpu_smc_torch.config import SMCConfig
+
+    eq, mx = ENS_DEPTH["gibbs"]
+    with tempfile.TemporaryDirectory() as tmp:
+        out, _, st, res = ens_run(
+            [str(eq), str(mx), "50", "0.75", "--gibbs", "--n", "96", "--rho",
+             "0.3", "--lj-cutoff", "1.8", "--gibbs-transfers", "24",
+             "--npt-dlnv", "0.08", "--gamma", "0.02", "--chains", "256",
+             "--seed", "7", "--data-dir", tmp], tgb, "simulate_gibbs",
+            f"Gibbs N=96 T=0.75 x 256, {eq} + {mx}", card)
+        cfg = SMCConfig.bulk(n=96, temperature=0.75, rho=0.6, gamma=0.02,
+                             lj_cutoff=1.8, lj_shift=True)
+        head = csv_head(Path(tmp) / cfg.run_name(), "gibbs", cfg, 2)
+        e2, m2 = ENS_DEPTH["gibbs_temps"]
+        _, _, bst, bres = ens_run(
+            [str(e2), str(m2), "10", "1.0", "--gibbs", "--gibbs-temps",
+             "0.7,2.0", "--n", "48", "--rho", "0.3", "--gamma", "0.02",
+             "--chains", "64", "--seed", "15", "--data-dir", tmp], tgb,
+            "simulate_gibbs", f"Gibbs curve N=48, 2 T x 64, {e2} + {m2}",
+            card)
+        bcfg = SMCConfig.bulk(n=48, temperature=1.0, rho=0.6, gamma=0.02,
+                              lj_cutoff=min(2.5, 0.45 * (48 / 0.6) ** (1 / 3)),
+                              lj_shift=True)
+        hb, brows = read_csv(Path(tmp) / bcfg.run_name()
+                             / f"gibbs_binodal_{bcfg.file_key()}.csv")
+    vtot = 2.0 * cfg.box_l ** 3
+    vdev = float(np.abs((st.l.double() ** 3).sum(-1).cpu().numpy() - vtot)
+                 .max() / vtot)
+    dmu = abs(res.mu_box[0] - res.mu_box[1])
+    print(f"  Gibbs: rho_lo {res.rho_lo:.5f} ± {res.err_lo:.5f}, rho_hi "
+          f"{res.rho_hi:.5f} ± {res.err_hi:.5f}, mu_box "
+          f"{np.round(res.mu_box, 4).tolist()} (|dmu| {dmu:.4f}), "
+          f"acceptance {res.disp_acceptance:.4f} / {res.vol_acceptance:.4f}"
+          f" / {res.transfer_acceptance:.4f}; N1 + N2 = 96 at every sweep: "
+          f"{res.n_conserved}; |V1 + V2 - Vtot| / Vtot {vdev:.3g}; "
+          f"curve rows {brows.tolist()}", flush=True)
+    check(res.n_conserved and bres.n_conserved, "Gibbs: N1 + N2 != N")
+    check(vdev < 1e-5, f"Gibbs: V1 + V2 off by {vdev:.3g}")
+    check(head[0].startswith("# rho_lo, ") and head[1] ==
+          "sweep, N1_mean, V1_mean, rho_lo_mean, rho_hi_mean"
+          and hb == "T, rho_v, err_v, rho_l, err_l, dmu, two_phase"
+          and brows.shape == (2, 7), f"Gibbs CSVs {head}, {hb}")
+    check(not res.resync_drift > 1e-4, f"Gibbs resync drift "
+          f"{res.resync_drift}")
+    check_later(res.rho_hi > 3.0 * res.rho_lo and res.rho_hi > 0.45
+                and res.rho_lo < 0.15 and dmu < 0.4,
+                f"Gibbs bifurcation: rho {res.rho_lo:.4f} / "
+                f"{res.rho_hi:.4f}, |dmu| {dmu:.4f}")
+
+
+def phase_ensemble_family(card: str):
+    """Phase 3's ensemble family: every run on the plain engine's CUDA
+    graphs, no kernel launched."""
+    for drive in (drive_gcmc, drive_gcmc_loop, drive_isotherm, drive_npt,
+                  drive_gibbs):
+        t0 = time.perf_counter()
+        drive(card)
+        print(f"  ({drive.__name__}: {time.perf_counter() - t0:.1f} s)",
+              flush=True)
 
 
 # ----------------------------------------------------------------------
@@ -2434,6 +2801,10 @@ def main() -> int:
     t0 = time.perf_counter()
     lval = drive_validation(device, card)
     phase_line("main path, validation of the engines (K1-xs, K4)", t0)
+
+    t0 = time.perf_counter()
+    phase_ensemble_family(card)
+    phase_line("main path, ensemble family (GCMC, NPT, Gibbs)", t0)
 
     t0 = time.perf_counter()
     cycle_split(device, card)

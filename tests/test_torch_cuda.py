@@ -717,10 +717,10 @@ def test_native_formatters_build_on_the_card_machine(tmp_path):
 @pytest.mark.parametrize("mode", ["plain", "umbrella", "ladder_walls"])
 def test_sweep_graph_replays_the_eager_sweep(cuda, mode):
     """The plain engine on the card (ensemble_sweeps: each sweep a
-    replayed CUDA graph, sampler.SweepGraph) is bitwise the eager sweeps
+    replayed CUDA graph, sampler.run_step) is bitwise the eager sweeps
     under the same injected draws over several calls: uniform (A, T), the
     umbrella bias, per-chain (A, T) rows with per-chain walls; one graph
-    per (shape, w, A, T, umbrella)."""
+    per (shape, A, T, umbrella tag), w and the rows copied in."""
     from tpu_smc_torch import ensemble as en
     from tpu_smc_torch import sampler as tsam
     from tpu_smc_torch.system import build_wall_ensemble
@@ -737,7 +737,7 @@ def test_sweep_graph_replays_the_eager_sweep(cuda, mode):
         t = torch.linspace(1.0, 1.6, c, dtype=torch.float64, device=cuda)
         kw = dict(a_per_chain=cfg.gamma * t, t_per_chain=t)
     gen = torch.Generator(device="cpu").manual_seed(5)
-    en._GRAPHS.clear()
+    tsam._STEPS.clear()
     graph_st = eager = st
     for call in range(2):
         draws = (0.5 * torch.randn((s_n, c, cfg.n, 3), generator=gen),
@@ -755,4 +755,57 @@ def test_sweep_graph_replays_the_eager_sweep(cuda, mode):
                                         temperature=t, umbrella=bias)
     for f in ("r", "energy", "accepted", "sweeps"):
         assert torch.equal(getattr(graph_st, f), getattr(eager, f)), f
-    assert len(en._GRAPHS) == 1
+    assert len(tsam._STEPS) == 1
+
+
+@pytest.mark.parametrize("mode", ["gcmc_slab", "gcmc_mu_per_chain", "npt",
+                                  "npt_tp", "gibbs", "gibbs_temps"])
+def test_ensemble_family_graphs_replay_the_eager_sweeps(cuda, mode,
+                                                        monkeypatch):
+    """The ensemble family on the card (each sweep a replayed CUDA graph,
+    sampler.run_step, the box and masks copied in on every replay) is
+    bitwise the same sweeps run eagerly: GCMC in the slab and with a
+    per-chain mu, NPT with one pressure and with a per-chain (T, P) grid,
+    Gibbs with one temperature and a per-chain ladder; across a resync
+    and the thermalization / production switch of A."""
+    from tpu_smc_torch import gcmc as tg
+    from tpu_smc_torch import gibbs as tgb
+    from tpu_smc_torch import npt as tn
+    from tpu_smc_torch import sampler as tsam
+
+    c = 8
+    key = seed_words(4)
+
+    def run():
+        if mode.startswith("gcmc"):
+            cfg = (SMCConfig.for_n(32) if mode == "gcmc_slab" else
+                   SMCConfig.bulk(n=16, temperature=1.5, rho=0.05,
+                                  gamma=0.02))
+            mu = -8.0 if mode == "gcmc_slab" else np.linspace(-8, -5, c)
+            st, _ = tg.simulate_gcmc(cfg, mu, 48, 3, 5, key, n_chains=c,
+                                     chunk=4, z_bins=4, seed=4, device=cuda)
+            return st, ("r", "active", "energy", "boltz_sum", "ins_acc")
+        if mode.startswith("npt"):
+            cfg = SMCConfig.bulk(n=32, temperature=2.0, rho=0.3, gamma=0.02,
+                                 lj_cutoff=1.8, lj_shift=True)
+            temps = np.linspace(1.6, 2.4, c) if mode == "npt_tp" else None
+            st, _ = tn.simulate_npt(cfg, np.linspace(0.5, 1.5, c), 3, 5, key,
+                                    n_chains=c, dlnv=0.2, chunk=4,
+                                    temperatures=temps, seed=4, device=cuda)
+            return st, ("r", "l", "energy", "vol_acc")
+        cfg = SMCConfig.bulk(n=32, temperature=1.2, rho=0.6, gamma=0.02,
+                             lj_cutoff=1.5, lj_shift=True)
+        temps = np.linspace(0.8, 1.6, c) if mode == "gibbs_temps" else None
+        st, _ = tgb.simulate_gibbs(cfg, 3, 5, key, 32, n_chains=c, dlnv=0.2,
+                                   n_transfer=6, chunk=4, temperatures=temps,
+                                   seed=4, device=cuda)
+        return st, ("r", "active", "l", "energy", "boltz_sum", "tr_acc")
+
+    tsam._STEPS.clear()
+    graphed, fields = run()
+    assert tsam._STEPS, "no graph captured"
+    for mod in (tg, tn, tgb):
+        monkeypatch.setattr(mod, "run_step", lambda key, fn, args: fn(*args))
+    eager, _ = run()
+    for f in fields:
+        assert torch.equal(getattr(graphed, f), getattr(eager, f)), f

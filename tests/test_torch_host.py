@@ -68,7 +68,13 @@ def test_cli_covers_every_jax_option():
         "--fault-retries", "--health-checks", "--nonuniform-z", "--gr-bins",
         "--z-bins", "--ptensor-bins", "--sk-kmax", "--widom", "--widom-bins",
         "--umbrella", "--umbrella-spring", "--umbrella-tag",
-        "--umbrella-replicas", "--umbrella-bins", "--umbrella-exchange"}
+        "--umbrella-replicas", "--umbrella-bins", "--umbrella-exchange",
+        "--gcmc", "--gcmc-cap", "--gcmc-exchanges", "--gcmc-grid", "--npt",
+        "--npt-grid", "--npt-dlnv", "--npt-reweight", "--gibbs",
+        "--gibbs-transfers", "--gibbs-cap", "--gibbs-temps"}
+    assert set(tcli.NOT_PORTED) == {
+        "--profile-dir", "--platform", "--x64", "--coordinator",
+        "--num-processes", "--process-id", "--global-ladder"}
 
 
 @pytest.mark.parametrize("flag", ["--bulk", "--temperatures=1.0,1.2",
@@ -76,10 +82,10 @@ def test_cli_covers_every_jax_option():
 def test_cli_refuses_unported_options(flag, capsys):
     """Unported options exit 2 by name; so does a ported mode or option
     (the temperature ladder, the bulk fluid, g(r)) combined with one
-    (--global-ladder, --npt, --gcmc)."""
+    (--global-ladder, --x64, --coordinator)."""
     extra = {"--temperatures=1.0,1.2": ["--global-ladder"],
-             "--bulk": ["--npt=0.7"],
-             "--gr-bins=8": ["--gcmc=-7.5"]}.get(flag, [])
+             "--bulk": ["--x64"],
+             "--gr-bins=8": ["--coordinator=localhost:1"]}.get(flag, [])
     with pytest.raises(SystemExit) as exc:
         tcli.main(["1", "2", "1", "1.1", "--device", "cpu", flag] + extra)
     assert exc.value.code == 2

@@ -6,7 +6,10 @@ SMC_noMPI_noWall.c variant), with full-state checkpoints, resume,
 graceful stop on SIGINT/SIGTERM, fault replay and health checks; and the
 measurement layer: g(r), rho(z), P_N/P_T(z) and S(k) (--gr-bins,
 --z-bins, --ptensor-bins, --sk-kmax), Widom insertion (--widom) and
-umbrella sampling with replica exchange between windows (--umbrella).
+umbrella sampling with replica exchange between windows (--umbrella);
+and the ensemble family (cli_ensembles): grand-canonical MC (--gcmc,
+--gcmc-grid), constant pressure (--npt, --npt-grid, --npt-reweight) and
+the Gibbs ensemble (--gibbs, --gibbs-temps).
 
     python -m tpu_smc_torch EQSTEPS MAXSTEPS NUMDATA T [options]
     python -m tpu_smc_torch EQSTEPS MAXSTEPS NUMDATA T --chains C [options]
@@ -26,10 +29,7 @@ import time
 
 # Options of `python -m tpu_smc` that are not ported yet.
 NOT_PORTED = (
-    "--gcmc", "--gcmc-cap",
-    "--gcmc-exchanges", "--gcmc-grid", "--npt", "--npt-grid", "--npt-dlnv",
-    "--gibbs", "--gibbs-transfers", "--gibbs-cap", "--gibbs-temps",
-    "--npt-reweight", "--profile-dir", "--platform", "--x64",
+    "--profile-dir", "--platform", "--x64",
     "--coordinator", "--num-processes", "--process-id", "--global-ladder",
 )
 
@@ -177,6 +177,9 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="K",
                    help="replica exchange between adjacent windows every K "
                         "sweeps (REUS); per-pair swap acceptance reported")
+    from .cli_ensembles import add_arguments
+
+    add_arguments(p)
     for flag in NOT_PORTED:
         p.add_argument(flag, nargs="?", const=True, default=None,
                        help=argparse.SUPPRESS)
@@ -247,6 +250,11 @@ def main(argv=None) -> int:
                        "to the PyTorch package (use python -m tpu_smc)\n")
     if args.chains < 1:
         parser.exit(2, "tpu_smc_torch: --chains must be >= 1\n")
+    from . import cli_ensembles
+
+    mode = cli_ensembles.mode_of(args)
+    if mode:
+        cli_ensembles.refusals(args, mode)
     if args.rho is not None and not args.bulk:
         raise SystemExit("--rho sets the bulk box; it needs --bulk (the slab "
                          "geometry is fixed by --n/--m)")
@@ -292,7 +300,7 @@ def main(argv=None) -> int:
     from .system import build_wall_ensemble, build_walls, fcc_lattice
 
     ck = None
-    if args.resume:
+    if args.resume and not mode:
         # the checkpoint's config is authoritative: a resumed [N_ck] state
         # under the CLI's physics would be wrong
         ck = smcio.load_checkpoint(args.resume, device=args.device)
@@ -310,16 +318,19 @@ def main(argv=None) -> int:
             gkw["storage_time"] = args.storage_time
         if args.lj_cutoff is not None:
             gkw["lj_cutoff"] = args.lj_cutoff
+        if args.bulk and args.rho is not None:
+            gkw["rho"] = args.rho
+        if mode in ("npt", "gibbs"):
+            cli_ensembles.bulk_physics(args, gkw)
         if args.bulk:
-            if args.rho is not None:
-                gkw["rho"] = args.rho
             cfg = SMCConfig.bulk(n=args.n, temperature=args.temperature,
                                  dtype=args.dtype, **gkw)
         else:
             cfg = SMCConfig.for_n(args.n, temperature=args.temperature,
                                   dtype=args.dtype, m=args.m, **gkw)
     params = RunParams(args.eqsteps, args.maxsteps, args.numdata)
-    sampler = _resolve_sampler(args.sampler, cfg, args.device)
+    sampler = None if mode else _resolve_sampler(args.sampler, cfg,
+                                                 args.device)
 
     now = time.localtime()
     print(f"\n\n----  Starting the simulation at local time "
@@ -347,6 +358,8 @@ def main(argv=None) -> int:
         print("Note: --sk-kmax needs --temperatures AND --reweight; "
               "ignored.")
         args.sk_kmax = 0
+    if mode:
+        return cli_ensembles.run(mode, args, cfg, params, d, seed)
     if centers is not None:
         return _run_umbrella(args, cfg, params, d, w_np, seed, centers)
     if args.temperatures:

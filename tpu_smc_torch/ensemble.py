@@ -43,29 +43,76 @@ import torch
 from .config import SMCConfig
 from .kernels import banded as kb
 from .kernels import sweep as ks
-from .sampler import SweepGraph, SweepStats, sweep_state
+from .sampler import SweepStats, run_step, sweep, sweep_state
 from .state import ChainState, fold_in, seed_words
 
 
-def _base_words(state: ChainState, seed: int | None) -> torch.Tensor:
-    """Base seed words: the run seed, or chain 0's key when no seed is
-    given."""
+def stream_base(key: torch.Tensor, seed) -> torch.Tensor:
+    """Base seed words of a run's streams: the run seed's, or chain 0's
+    key (key [C, 2]) folded with 0x5EEDB1 when no seed is given."""
     if seed is None:
-        return fold_in(state.key[0].cpu(), [0x5EEDB1])[0]
+        return fold_in(key[0].cpu(), [0x5EEDB1])[0]
     return seed_words(seed)
+
+
+def stream_words(key: torch.Tensor, seed, s0: int, n_sweeps: int,
+                 rows: int, salts=()):
+    """Host-side words of the n_sweeps sweeps from absolute sweep s0:
+    the moves' seed words [S, 2] (31-bit, int64) and cyclic offsets [S]
+    (modulo `rows`), then, for each salt, the words [S, 2] of a stream of
+    its own, fold_in(fold_in(base, salt), s) (the ensemble family's
+    exchange, volume and transfer draws, gcmc.py)."""
+    base = stream_base(key, seed)
+    ids = torch.arange(s0, s0 + n_sweeps, dtype=torch.int64)
+    words = fold_in(base, ids) & 0x7FFFFFFF
+    offsets = fold_in(fold_in(base, [0x0FF5E7])[0], ids)[:, 0] % rows
+    return words, offsets, [fold_in(fold_in(base, [salt])[0], ids)
+                            & 0x7FFFFFFF for salt in salts]
 
 
 def _per_sweep_randomness(state: ChainState, cfg: SMCConfig, seed,
                           n_sweeps: int):
     """Per-sweep seed words [S, 2] (31-bit, int64) and cyclic offsets
     [S] for the sweeps starting at the state's absolute counter."""
-    base = _base_words(state, seed)
-    s0 = int(state.sweeps.reshape(-1)[0])
-    ids = torch.arange(s0, s0 + n_sweeps, dtype=torch.int64)
-    words = fold_in(base, ids) & 0x7FFFFFFF
-    okey = fold_in(base, [0x0FF5E7])[0]
-    offsets = fold_in(okey, ids)[:, 0] % cfg.n
+    words, offsets, _ = stream_words(state.key, seed,
+                                     int(state.sweeps.reshape(-1)[0]),
+                                     n_sweeps, cfg.n)
     return words, offsets
+
+
+def stream_uniforms(words: torch.Tensor, n_idx: int, c: int, tag: int,
+                    dtype) -> torch.Tensor:
+    """Uniforms [c, n_idx, 4] in (0, 1) of Philox counters (j, chain,
+    tag, 0) under one sweep's words, a tensor [2] on the chains' device
+    (no host read: a CUDA graph replays it with new words)."""
+    dev = words.device
+    j = torch.arange(n_idx, dtype=torch.int64, device=dev)[None, :]
+    ch = torch.arange(c, dtype=torch.int64, device=dev)[:, None]
+    j, ch = torch.broadcast_tensors(j, ch)
+    z = torch.zeros_like(j)
+    b = ks.philox4x32(j, ch, z + tag, z, words[0].expand_as(j),
+                      words[1].expand_as(j))
+    return ks.unit_uniform(torch.stack(b, dim=-1), dtype)
+
+
+def move_draws(words: torch.Tensor, rows: int, c: int, s2a,
+               order: torch.Tensor, dtype):
+    """One sweep's i.i.d. move draws, the kernel's: the Box-Muller noise
+    [c, rows, 3] by particle and the acceptance uniforms [c, rows] by
+    move, from the five uniforms of counters (move, chain, 0|1, 0) under
+    the sweep's words (a tensor [2]); move nn visits particle order[nn].
+    s2a: sqrt(2A), a scalar or [c]."""
+    u = stream_uniforms(words, rows, c, 0, dtype).transpose(0, 1)
+    u4 = stream_uniforms(words, rows, c, 1, dtype)[..., 0].T
+    g, unif = ks.box_muller(torch.cat([u, u4[..., None]], dim=-1), s2a)
+    noise = torch.empty_like(g).index_copy_(0, order, g)
+    return noise.permute(1, 0, 2), unif.T
+
+
+def visiting_orders(offsets: torch.Tensor, rows: int, device):
+    """[S, rows] visiting orders (offset + nn) % rows on `device`."""
+    nn = torch.arange(rows, dtype=torch.int64)
+    return ((nn[None, :] + offsets[:, None]) % rows).to(device)
 
 
 def _chain_at(a, cfg: SMCConfig, a_per_chain, t_per_chain):
@@ -88,38 +135,38 @@ def ensemble_sweeps(state: ChainState, w: torch.Tensor, cfg: SMCConfig,
     (noise [S, C, N, 3] by particle, unif [S, C, N] by move, offsets [S]).
     umbrella: the window bias (tag, k_spring, z0 [C]) of sampler.sweep,
     which only this engine takes (umbrella.py).
-    On a CUDA state each sweep replays a CUDA graph captured once per
-    (shape, w, A, T, umbrella) (sampler.SweepGraph): bitwise the eager
-    sweep, without the host's cost of its ~170 launches per move.
+    On a CUDA state each sweep replays a CUDA graph (sampler.run_step,
+    every tensor a copied-in buffer): bitwise the eager sweep, without
+    the host's cost of its ~170 launches per move.
     Returns (state, SweepStats [S, C] or None)."""
     if draws is None:
         words, offsets = _per_sweep_randomness(state, cfg, stream_seed,
                                                n_sweeps)
     else:
-        offsets = draws[2]
+        offsets = torch.as_tensor(draws[2], dtype=torch.int64)
     a, t = _chain_at(a, cfg, a_per_chain, t_per_chain)
     c, dev, dt = state.n_chains, state.r.device, state.r.dtype
     s2a = ks.chain_scales(a, t, c, dev, dt)[2]
+    orders = visiting_orders(offsets, cfg.n, dev)
+    if draws is None:
+        # one host-to-device copy per call: a pageable copy per sweep
+        # would wait for the sweep before it
+        words_dev = words.to(dev)
     e_tr, a_tr = [], []
     for s in range(n_sweeps):
         off = int(offsets[s])
-        if draws is None:
-            u5 = ks.move_uniforms(words[s], cfg.n, c, dev, dt)
-            if cfg.reference_noise:
-                plane = ks.reference_noise_plane(words[s], cfg.n, c, s2a,
-                                                 dev, dt)
-                noise = plane[:3 * cfg.n].T.reshape(c, cfg.n, 3)
-                unif = u5[..., 4].T
-            else:
-                g, unif = ks.box_muller(u5, s2a)
-                # move-indexed -> particle-indexed: move nn visits (nn+off)%n
-                noise = torch.roll(g, off, dims=0).permute(1, 0, 2)
-                unif = unif.T
+        if draws is None and cfg.reference_noise:
+            plane = ks.reference_noise_plane(words[s], cfg.n, c, s2a, dev, dt)
+            noise = plane[:3 * cfg.n].T.reshape(c, cfg.n, 3)
+            unif = ks.move_uniforms(words[s], cfg.n, c, dev, dt)[..., 4].T
+        elif draws is None:
+            noise, unif = move_draws(words_dev[s], cfg.n, c, s2a, orders[s],
+                                     dt)
         else:
             noise, unif = draws[0][s], draws[1][s]
         if state.r.is_cuda:
-            g = _sweep_graph(state, w, cfg, a, t, umbrella)
-            r, e, acc = g(state.r, state.energy, noise, unif, off)
+            r, e, acc = _graph_sweep(state, w, cfg, a, t, umbrella, noise,
+                                     unif, orders[s])
             state = state.replace(r=r, energy=e, sweeps=state.sweeps + 1,
                                   accepted=state.accepted + acc)
             st = SweepStats(energy=e, accepted=acc)
@@ -134,20 +181,28 @@ def ensemble_sweeps(state: ChainState, w: torch.Tensor, cfg: SMCConfig,
     return state, SweepStats(torch.stack(e_tr), torch.stack(a_tr))
 
 
-_GRAPHS: list = []      # the plain engine's captured sweeps, newest last
+def _graph_sweep(state: ChainState, w, cfg: SMCConfig, a, t, umbrella,
+                 noise, unif, order):
+    """sampler.sweep of the state through sampler.run_step: one CUDA
+    graph per (cfg, float A and T, umbrella tag, shapes); A and T where
+    they are per-chain rows, and the umbrella's spring and centers, are
+    copied-in buffers like the rest."""
+    static = tuple(None if torch.is_tensor(v) else v for v in (a, t))
+    rows = [v for v in (a, t) if torch.is_tensor(v)]
+    tag = None if umbrella is None else int(umbrella[0])
+    if umbrella is not None:
+        rows += [torch.as_tensor(v, dtype=state.r.dtype,
+                                 device=state.r.device) for v in umbrella[1:]]
 
+    def step(r, e, noise, unif, order, w, *rows):
+        rows = iter(rows)
+        aa, tt = (next(rows) if v is None else v for v in static)
+        bias = None if tag is None else (tag, next(rows), next(rows))
+        return sweep(r, e, w, cfg, aa, noise, unif, 0, temperature=tt,
+                     umbrella=bias, order=order)
 
-def _sweep_graph(state: ChainState, w, cfg: SMCConfig, a, t, umbrella):
-    """The SweepGraph of this call's (shape, w, A, T, umbrella), captured
-    on first use; the four most recent are kept."""
-    for g in _GRAPHS:
-        if g.matches(state.r, w, cfg, a, t, umbrella):
-            return g
-    g = SweepGraph(state.r, state.energy, w, cfg, a, temperature=t,
-                   umbrella=umbrella)
-    _GRAPHS.append(g)
-    del _GRAPHS[:-4]
-    return g
+    return run_step(("sweep", cfg) + static + (tag,), step,
+                    (state.r, state.energy, noise, unif, order, w, *rows))
 
 
 def _kernel_inputs(state: ChainState, w: torch.Tensor, cfg: SMCConfig):

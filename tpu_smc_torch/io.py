@@ -416,10 +416,6 @@ def save_checkpoint(path: str | Path, state: ChainState, cfg: SMCConfig,
     run seed of the per-sweep streams, rides along as `stream_seed` (a
     field tpu_smc's loader ignores) so that a resumed run draws the
     streams the uninterrupted one would have."""
-    path = Path(path)
-    if path.suffix != ".npz":
-        path = path.with_name(path.name + ".npz")
-    path.parent.mkdir(parents=True, exist_ok=True)
     if not chain_axis and state.n_chains != 1:
         raise ValueError(f"chain_axis=False needs one chain, got "
                          f"{state.n_chains}")
@@ -428,12 +424,44 @@ def save_checkpoint(path: str | Path, state: ChainState, cfg: SMCConfig,
         a = getattr(state, name).detach().cpu().numpy()
         arrays[name] = a if chain_axis else a[0]
     arrays["key"] = arrays["key"].astype(np.uint32)
+    return save_npz_state(path, cfg, arrays, stream_seed)
+
+
+def save_npz_state(path: str | Path, cfg: SMCConfig, arrays: dict,
+                   stream_seed: int | None = None, **marks) -> Path:
+    """Write numpy leaves, the config as JSON (`__config__`), the run
+    seed of the per-sweep streams (`stream_seed`, when given) and any
+    marker arrays (tpu_smc's `__gcmc__`, `__npt__`, `__gibbs__`) to
+    `path` (".npz" appended when missing) with atomic_savez."""
+    path = Path(path)
+    if path.suffix != ".npz":
+        path = path.with_name(path.name + ".npz")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    arrays = dict(arrays)
     if stream_seed is not None:
         arrays["stream_seed"] = np.asarray(stream_seed, np.int64)
     cfg_json = json.dumps(dataclasses.asdict(cfg))
     atomic_savez(path, __config__=np.frombuffer(cfg_json.encode(),
-                                                dtype=np.uint8), **arrays)
+                                                dtype=np.uint8),
+                 **{k: np.asarray(v) for k, v in marks.items()}, **arrays)
     return path
+
+
+def checkpoint_config(data, path) -> tuple[SMCConfig, int | None]:
+    """(config, stream_seed or None) of a loaded checkpoint of either
+    package: tpu_smc's TPU-only config fields are dropped with a note;
+    any other unknown field raises."""
+    fields = json.loads(bytes(data["__config__"]).decode())
+    seed = (int(data["stream_seed"]) if "stream_seed" in data.files
+            else None)
+    for f in TPU_ONLY_FIELDS:
+        if f in fields:
+            print(f"Note: checkpoint field {f} = {fields.pop(f)} is "
+                  "tpu_smc's TPU call chunking; dropped.")
+    unknown = set(fields) - {f.name for f in dataclasses.fields(SMCConfig)}
+    if unknown:
+        raise ValueError(f"{path}: unknown config fields {sorted(unknown)}")
+    return SMCConfig(**fields), seed
 
 
 class Checkpoint(NamedTuple):
@@ -450,18 +478,8 @@ def load_checkpoint(path: str | Path, device="cuda") -> Checkpoint:
     from_jax_state). tpu_smc's TPU-only config fields are dropped with
     a note; any other unknown field raises."""
     with np.load(path) as data:
-        fields = json.loads(bytes(data["__config__"]).decode())
         arrays = {name: data[name] for name in _LEAVES}
-        seed = (int(data["stream_seed"]) if "stream_seed" in data.files
-                else None)
-    for f in TPU_ONLY_FIELDS:
-        if f in fields:
-            print(f"Note: checkpoint field {f} = {fields.pop(f)} is "
-                  "tpu_smc's TPU call chunking; dropped.")
-    unknown = set(fields) - {f.name for f in dataclasses.fields(SMCConfig)}
-    if unknown:
-        raise ValueError(f"{path}: unknown config fields {sorted(unknown)}")
-    cfg = SMCConfig(**fields)
+        cfg, seed = checkpoint_config(data, path)
     batched = np.ndim(arrays["r"]) == 3
     if not batched:
         arrays = {k: np.asarray(v)[None] for k, v in arrays.items()}

@@ -43,12 +43,28 @@ def wrap_xy(r: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
     return torch.stack([x, y, z], dim=-1)
 
 
-def _pair_displacements(ri: torch.Tensor, R: torch.Tensor, cfg: SMCConfig):
-    """ri [..., 3] against R [..., N, 3] -> d [..., N, 3], dr2 [..., N]."""
+def _periods(cfg: SMCConfig, box, lead: int):
+    """Periods of x, y, z (None: z unwrapped). `box`, the side of a
+    cubic fully periodic box per chain (shape [...]), overrides cfg's
+    dims: it gains `lead` trailing axes to broadcast against the
+    particle axes (tpu_smc's traced `box`, bulk only)."""
+    if box is None:
+        return cfg.box_l, cfg.box_l, cfg.box_lz if cfg.pbc_z else None
+    assert cfg.pbc_z, "a per-chain box is bulk-only (cubic PBC)"
+    p = box.reshape(box.shape + (1,) * lead)
+    return p, p, p
+
+
+def _pair_displacements(ri: torch.Tensor, R: torch.Tensor, cfg: SMCConfig,
+                        box=None):
+    """ri [..., 3] against R [..., N, 3] -> d [..., N, 3], dr2 [..., N].
+    box: per-chain cubic side [...] in place of cfg's dims (NPT, Gibbs);
+    the same operations, so a box equal to cfg's gives cfg's bits."""
+    px, py, pz = _periods(cfg, box, 1)
     d = ri.unsqueeze(-2) - R
-    dx = _min_image(d[..., 0], cfg.box_l)
-    dy = _min_image(d[..., 1], cfg.box_l)
-    dz = _min_image(d[..., 2], cfg.box_lz) if cfg.pbc_z else d[..., 2]
+    dx = _min_image(d[..., 0], px)
+    dy = _min_image(d[..., 1], py)
+    dz = _min_image(d[..., 2], pz) if pz is not None else d[..., 2]
     d = torch.stack([dx, dy, dz], dim=-1)
     return d, dx * dx + dy * dy + dz * dz
 
@@ -71,15 +87,24 @@ def _lj_terms(d: torch.Tensor, dr2: torch.Tensor, mask: torch.Tensor,
 
 
 def pair_energy_force_single(R: torch.Tensor, i, ri: torch.Tensor,
-                             cfg: SMCConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                             cfg: SMCConfig, active=None,
+                             box=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pair energy of and force on a particle at `ri` [C, 3], excluding
-    particle index `i` (int or [C] tensor) of R [C, N, 3].
+    particle index `i` (int or [C] tensor; -1 excludes none) of R
+    [C, N, 3]. active [C, N] bool: only those particles interact (the
+    capacity slots of GCMC and Gibbs; applied before 1/dr2, so parked
+    slots may hold anything, exact overlaps included). box [C]: the
+    per-chain cubic side (NPT, Gibbs); the cutoff stays cfg's.
     Returns (U [C], F [C, 3])."""
     n = R.shape[-2]
-    d, dr2 = _pair_displacements(ri, R, cfg)
+    d, dr2 = _pair_displacements(ri, R, cfg, box)
     idx = torch.arange(n, device=R.device)
-    i = torch.as_tensor(i, device=R.device)
-    mask = (dr2 < cfg.cutoff2) & (idx != i.reshape(-1, 1))
+    # a number excludes one index of every chain (no host copy: a CUDA
+    # graph may be capturing), a tensor one per chain
+    mask = (dr2 < cfg.cutoff2) & (idx != (i.reshape(-1, 1) if torch.is_tensor(i)
+                                          else int(i)))
+    if active is not None:
+        mask = mask & active
     return _lj_terms(d, dr2, mask, cfg)
 
 
@@ -95,31 +120,39 @@ def pair_row_chunk(b: int, n: int) -> int:
     return max(1, PAIR_BUDGET // max(b * n, 1))
 
 
-def _pair_dr2_rows(R: torch.Tensor, r0: int, r1: int, cfg: SMCConfig):
+def _pair_dr2_rows(R: torch.Tensor, r0: int, r1: int, cfg: SMCConfig,
+                   box=None, active=None):
     """Squared distances [..., r1 - r0, N] of particles r0..r1-1 to all
     particles and the in-cutoff mask without the self pairs (no
-    [..., rows, N, 3] displacement tensor)."""
+    [..., rows, N, 3] displacement tensor); box [...] and active
+    [..., N] as in pair_energy_force_single (both ends of a pair
+    active)."""
     n = R.shape[-2]
+    periods = _periods(cfg, box, 2)
 
-    def comp(k, period):
+    def comp(k):
         dk = R[..., r0:r1, k].unsqueeze(-1) - R[..., :, k].unsqueeze(-2)
-        return _min_image(dk, period) if period else dk
+        return _min_image(dk, periods[k]) if periods[k] is not None else dk
 
-    dx = comp(0, cfg.box_l)
+    dx = comp(0)
     dr2 = dx * dx
     del dx
-    dy = comp(1, cfg.box_l)
+    dy = comp(1)
     dr2 += dy * dy
     del dy
-    dz = comp(2, cfg.box_lz if cfg.pbc_z else None)
+    dz = comp(2)
     dr2 += dz * dz
     del dz
     rows = torch.arange(r0, r1, device=R.device)[:, None]
     cols = torch.arange(n, device=R.device)[None, :]
-    return dr2, (dr2 < cfg.cutoff2) & (rows != cols)
+    mask = (dr2 < cfg.cutoff2) & (rows != cols)
+    if active is not None:
+        mask = mask & active[..., r0:r1, None] & active[..., None, :]
+    return dr2, mask
 
 
-def _pair_sum(R: torch.Tensor, cfg: SMCConfig, term) -> torch.Tensor:
+def _pair_sum(R: torch.Tensor, cfg: SMCConfig, term, box=None,
+              active=None) -> torch.Tensor:
     """Sum over ordered pairs i != j within the cutoff of term(inv6,
     mask) [..., rows, N] per chain, row chunk by row chunk: each row's
     sum over j, then the rows."""
@@ -127,15 +160,18 @@ def _pair_sum(R: torch.Tensor, cfg: SMCConfig, term) -> torch.Tensor:
     rows = pair_row_chunk(max(1, R[..., 0, 0].numel()), n)
     total = R.new_zeros(R.shape[:-2])
     for r0 in range(0, n, rows):
-        dr2, mask = _pair_dr2_rows(R, r0, min(n, r0 + rows), cfg)
+        dr2, mask = _pair_dr2_rows(R, r0, min(n, r0 + rows), cfg, box,
+                                   active)
         safe = torch.where(mask, dr2, torch.ones_like(dr2))
         inv6 = 1.0 / (safe * safe * safe)
         total = total + term(inv6, mask).sum(-1).sum(-1)
     return total
 
 
-def pair_energy_total(R: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
-    """Total pair energy per chain, all unique pairs (SMC.c:626-646)."""
+def pair_energy_total(R: torch.Tensor, cfg: SMCConfig, box=None,
+                      active=None) -> torch.Tensor:
+    """Total pair energy per chain, all unique pairs (SMC.c:626-646);
+    box [...] and active [..., N] as in pair_energy_force_single."""
     shift = 0.0
     if cfg.lj_shift:
         rc6 = cfg.cutoff2 ** 3
@@ -145,14 +181,18 @@ def pair_energy_total(R: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
         u = torch.where(mask, inv6 * inv6 - inv6, torch.zeros_like(inv6))
         return 4.0 * (u - shift * mask.to(u.dtype)) if shift else 4.0 * u
 
-    return 0.5 * _pair_sum(R, cfg, term)
+    return 0.5 * _pair_sum(R, cfg, term, box, active)
 
 
-def pair_virial_pressure(R: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
+def pair_virial_pressure(R: torch.Tensor, cfg: SMCConfig,
+                         box=None) -> torch.Tensor:
     """Virial pair pressure -sum(24 r^-6 - 48 r^-12)/(3 L^2 Lz) per chain
-    (SMC.c:696-720)."""
+    (SMC.c:696-720); box [...]: the per-chain cubic side and volume."""
     p = 0.5 * _pair_sum(R, cfg, lambda inv6, mask: torch.where(
-        mask, 24.0 * inv6 - 48.0 * inv6 * inv6, torch.zeros_like(inv6)))
+        mask, 24.0 * inv6 - 48.0 * inv6 * inv6, torch.zeros_like(inv6)),
+        box)
+    if box is not None:
+        return -p / (3.0 * (box * box * box))
     return -p / (3.0 * cfg.box_l * cfg.box_l * cfg.box_lz)
 
 
@@ -265,11 +305,14 @@ def wall_virial_pressure(R: torch.Tensor, W: torch.Tensor, cfg: SMCConfig,
 # ----------------------------------------------------------------------
 
 def energy_force_single(R: torch.Tensor, i, ri: torch.Tensor, W: torch.Tensor,
-                        cfg: SMCConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                        cfg: SMCConfig, active=None,
+                        box=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """U [C] and F [C, 3] of particle i at ri [C, 3]: pair + wall terms
-    (the four calls per evaluation of oneParticleMoves, SMC.c:300-321)."""
-    u, f = pair_energy_force_single(R, i, ri, cfg)
+    (the four calls per evaluation of oneParticleMoves, SMC.c:300-321);
+    active and box as in pair_energy_force_single."""
+    u, f = pair_energy_force_single(R, i, ri, cfg, active, box)
     if cfg.use_walls:
+        assert box is None, "a per-chain box is bulk-only"
         uw, fw = wall_energy_force_single(ri, W, cfg)
         u = u + uw
         f = f + fw

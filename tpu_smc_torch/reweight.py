@@ -72,7 +72,7 @@ def _mbar_fixed_point(u_kn: torch.Tensor, log_n_k: torch.Tensor, tol: float,
         # log sum_k N_k exp(f_k - u_kn[k, m])  -> [M]
         return torch.logsumexp(log_n_k[:, None] + f_k[:, None] - u_kn, dim=0)
 
-    f_k = torch.zeros(u_kn.shape[0], dtype=u_kn.dtype)
+    f_k = torch.zeros(u_kn.shape[0], dtype=u_kn.dtype, device=u_kn.device)
     it = 0
     resid = float("inf")
     while it < max_iter and resid > tol:

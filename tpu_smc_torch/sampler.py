@@ -43,8 +43,15 @@ class SweepStats(NamedTuple):
     accepted: torch.Tensor
 
 
-def _wrap_proposal(rp: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
-    """Periodic wrap of proposals [C, 3]: x, y always; z in bulk only."""
+def _wrap_proposal(rp: torch.Tensor, cfg: SMCConfig,
+                   box=None) -> torch.Tensor:
+    """Periodic wrap of proposals [C, 3]: x, y always; z in bulk only.
+    box [C]: the per-chain cubic side in place of cfg's (NPT, Gibbs),
+    element for element the same operations."""
+    if box is not None:
+        assert cfg.pbc_z, "a per-chain box is bulk-only"
+        b = box[:, None]
+        return rp - b * torch.round(rp / b)
     l = cfg.box_l
     x = rp[:, 0] - l * torch.round(rp[:, 0] / l)
     y = rp[:, 1] - l * torch.round(rp[:, 1] / l)
@@ -56,7 +63,8 @@ def _wrap_proposal(rp: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
 
 def sweep(r: torch.Tensor, energy: torch.Tensor, w: torch.Tensor,
           cfg: SMCConfig, a, noise: torch.Tensor, unif: torch.Tensor,
-          offset: int, temperature=None, umbrella=None, order=None):
+          offset: int, temperature=None, umbrella=None, order=None,
+          box=None, active=None):
     """One sweep of every chain.
 
     r [C, N, 3], energy [C]; noise [C, N, 3] is the proposal noise
@@ -76,13 +84,22 @@ def sweep(r: torch.Tensor, energy: torch.Tensor, w: torch.Tensor,
     order: the visiting order [N] (int64, on r's device) in place of
     `offset`: particles are then read and written through index ops,
     with no host read, so that the sweep can be captured in a CUDA graph
-    (SweepGraph); the results are bitwise those of the offset form.
+    (run_step); the results are bitwise those of the offset form.
+
+    box [C]: each chain's cubic side (bulk only; the NPT and Gibbs
+    engines), in place of cfg's dims. active [C, N] bool: the capacity
+    slots of GCMC and Gibbs, tpu_smc.gcmc.masked_disp_pass: only active
+    particles interact, and a move of an inactive slot is never
+    accepted. With both None the operations are the NVT sweep's.
     Returns (r, energy, n_accepted [C])."""
-    n = cfg.n
+    n = r.shape[1]
     t = cfg.temperature if temperature is None else temperature
     if torch.is_tensor(a) or torch.is_tensor(t):
         c = r.shape[0]
-        a, t = (torch.as_tensor(v, dtype=r.dtype, device=r.device).expand(c)
+        # a float becomes a filled row (no host copy: a CUDA graph may be
+        # capturing)
+        a, t = (v.to(r.dtype).expand(c) if torch.is_tensor(v) else
+                torch.full((c,), v, dtype=r.dtype, device=r.device)
                 for v in (a, t))
         a_t = (a / t)[:, None]
     else:
@@ -104,12 +121,12 @@ def sweep(r: torch.Tensor, energy: torch.Tensor, w: torch.Tensor,
             i = order[nn]
             ri = r.index_select(1, sel)[:, 0]
             noise_i = noise.index_select(1, sel)[:, 0]
-        um, fm = energy_force_single(r, i, ri, w, cfg)
+        um, fm = energy_force_single(r, i, ri, w, cfg, active, box)
         # acceptance uses the UNWRAPPED delta, energies the wrapped
         # position (SMC.c:307-316)
         delta = fm * a_t + noise_i
-        rp = _wrap_proposal(ri + delta, cfg)
-        un, fn = energy_force_single(r, i, rp, w, cfg)
+        rp = _wrap_proposal(ri + delta, cfg, box)
+        un, fn = energy_force_single(r, i, rp, w, cfg, active, box)
         df = fn - fm
         dw = ((df * df).sum(-1) + 2.0 * (df * fm).sum(-1)) * a / (4.0 * t)
         log_ap = -(un - um + 0.5 * (delta * (fn + fm)).sum(-1) + dw) / t
@@ -120,6 +137,9 @@ def sweep(r: torch.Tensor, energy: torch.Tensor, w: torch.Tensor,
             log_ap = log_ap - db / t
         accept = (unif[:, nn] < torch.exp(torch.clamp(log_ap, max=0.0))) \
             | (log_ap >= 0.0)
+        if active is not None:
+            accept = accept & (active[:, i] if order is None
+                               else active.index_select(1, sel)[:, 0])
         new = torch.where(accept[:, None], rp, ri)
         if order is None:
             r[:, i] = new
@@ -130,71 +150,57 @@ def sweep(r: torch.Tensor, energy: torch.Tensor, w: torch.Tensor,
     return r, energy, acc
 
 
-class SweepGraph:
-    """One sweep of the plain engine captured in a CUDA graph: the ~170
-    small launches of each of the N sequential moves replay as one graph
-    launch, the host no longer in the loop. Inputs (positions, energy,
-    noise, uniforms, visiting order) are copied into static buffers and
-    the outputs copied out, so a replay is bitwise the eager sweep. The
-    graph holds w, A, T and the umbrella's window centers as captured:
-    `matches` says whether a call may reuse it."""
+class GraphStep:
+    """A step function of tensors captured once in a CUDA graph and
+    replayed: a plain-engine sweep (ensemble_sweeps, and the ensemble
+    family's sweeps in gcmc, npt and gibbs), tens to hundreds of
+    thousands of small launches, replays as one graph launch.
+    EVERY tensor the step reads is an argument, and every argument is a
+    static input buffer that each call copies in: positions, masks,
+    energies, the per-chain box sides (a volume move changes them every
+    sweep), the seed words and the visiting order. So no value is held
+    as captured, a graph never replays a stale box, and one graph
+    serves a whole run. fn must not write to its arguments; a replay is
+    bitwise the eager call on the same arguments."""
 
-    def __init__(self, r, energy, w, cfg: SMCConfig, a, temperature=None,
-                 umbrella=None):
-        dev = r.device
-        self.key = self._key(r, w, cfg, a, temperature, umbrella)
-        # every tensor the graph reads, and every tensor its key names,
-        # stays alive with it: the addresses it replays stay theirs, and
-        # no other tensor can take an id the key holds
-        self.held = (w, a, temperature, umbrella)
-        if umbrella is not None:
-            umbrella = (int(umbrella[0]),) + tuple(
-                torch.as_tensor(v, dtype=r.dtype, device=dev)
-                for v in umbrella[1:])
-        self.umbrella = umbrella
-        self.r, self.e = r.clone(), energy.clone()
-        c, n = r.shape[0], cfg.n
-        self.noise = torch.zeros((c, n, 3), dtype=r.dtype, device=dev)
-        self.unif = torch.zeros((c, n), dtype=r.dtype, device=dev)
-        self.order = torch.arange(n, dtype=torch.int64, device=dev)
-
-        def body():
-            return sweep(self.r, self.e, w, cfg, a, self.noise, self.unif, 0,
-                         temperature=temperature, umbrella=self.umbrella,
-                         order=self.order)
-
+    def __init__(self, fn, args):
+        dev = args[0].device
+        self.bufs = tuple(a.clone() for a in args)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            body()                       # warm-up outside the capture
+            fn(*self.bufs)               # warm-up outside the capture
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
-            self.out = body()
+            self.out = fn(*self.bufs)
 
-    @staticmethod
-    def _key(r, w, cfg, a, temperature, umbrella):
-        def ident(v):
-            return (id(v), v.data_ptr()) if torch.is_tensor(v) else v
-
-        return (tuple(r.shape), r.dtype, str(r.device), cfg, ident(w),
-                ident(a), ident(temperature),
-                None if umbrella is None else tuple(ident(v)
-                                                    for v in umbrella))
-
-    def matches(self, r, w, cfg, a, temperature=None, umbrella=None) -> bool:
-        return self.key == self._key(r, w, cfg, a, temperature, umbrella)
-
-    def __call__(self, r, energy, noise, unif, offset: int):
-        n = self.order.shape[0]
-        self.r.copy_(r)
-        self.e.copy_(energy)
-        self.noise.copy_(noise)
-        self.unif.copy_(unif)
-        self.order.copy_((torch.arange(n, device=r.device) + int(offset))
-                         % n)
+    def __call__(self, *args):
+        for b, a in zip(self.bufs, args):
+            b.copy_(a)
         self.graph.replay()
         return tuple(o.clone() for o in self.out)
+
+
+_STEPS: dict = {}       # captured GraphSteps by key, newest last
+
+
+def run_step(key, fn, args):
+    """fn(*args): eagerly for CPU tensors; on the card through the
+    GraphStep captured for `key` (the step's mode and every static value
+    fn closes over) and the arguments' shapes and dtypes, captured on
+    first use; the eight most recent are kept."""
+    if not args[0].is_cuda:
+        return fn(*args)
+    key = (key, tuple((tuple(a.shape), a.dtype, str(a.device))
+                      for a in args))
+    step = _STEPS.pop(key, None)
+    if step is None:
+        step = GraphStep(fn, args)
+    _STEPS[key] = step
+    while len(_STEPS) > 8:
+        del _STEPS[next(iter(_STEPS))]
+    return step(*args)
 
 
 def sweep_state(state: ChainState, w: torch.Tensor, cfg: SMCConfig,

@@ -197,3 +197,36 @@ def from_jax_state(arrays: dict, w, cfg: SMCConfig,
     return (state_from_arrays(arrays, cfg, device),
             torch.as_tensor(np.array(w), dtype=cfg.torch_dtype,
                             device=device))
+
+
+def gcmc_state_from_jax(arrays: dict, cfg: SMCConfig, device="cuda"):
+    """Carry a tpu_smc GCMC ensemble state across: `arrays` holds its
+    leaves as numpy with the chain axis (r [C, cap, 3], active, energy,
+    the counters, boltz_sum/boltz_cnt, and `key` =
+    jax.random.key_data of the chain keys [C, 2]); returns the port's
+    gcmc.GCMCState on `device` (the card by default)."""
+    from .gcmc import GCMCState, state_from_npz
+
+    return state_from_npz(GCMCState, arrays, cfg, device)
+
+
+def npt_state_from_jax(arrays: dict, cfg: SMCConfig, device="cuda"):
+    """Carry a tpu_smc NPT ensemble state across (r, l, energy, key,
+    sweeps, accepted, vol_acc, vol_att; its `vkey` is not read: the
+    port's volume stream is keyed by the run, gcmc's docstring);
+    returns npt.NPTState on `device`."""
+    from .npt import NPTState
+    from .gcmc import state_from_npz
+
+    return state_from_npz(NPTState, arrays, cfg, device)
+
+
+def gibbs_state_from_jax(arrays: dict, cfg: SMCConfig, device="cuda"):
+    """Carry a tpu_smc Gibbs ensemble state across (r [C, 2, cap, 3],
+    active, l, energy, key, the counters and the per-box Widom sums; its
+    `vkey` and `tkey` are not read); returns gibbs.GibbsState on
+    `device`."""
+    from .gibbs import GibbsState
+    from .gcmc import state_from_npz
+
+    return state_from_npz(GibbsState, arrays, cfg, device)

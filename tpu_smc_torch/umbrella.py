@@ -59,7 +59,7 @@ def _umbrella_sweeps(state: ChainState, w, cfg: SMCConfig, z0_c, k_spring,
                      tag: int, a: float, n_sweeps: int, seed=None):
     """n_sweeps biased sweeps of every chain, window center z0_c [C] per
     chain, on the plain engine (one visiting order for all chains); on a
-    CUDA state each sweep replays a captured CUDA graph (SweepGraph)."""
+    CUDA state each sweep replays a captured CUDA graph (sampler.run_step)."""
     from .ensemble import ensemble_sweeps
 
     return ensemble_sweeps(state, w, cfg, a, n_sweeps, stream_seed=seed,
