@@ -71,20 +71,24 @@ def test_cli_covers_every_jax_option():
         "--umbrella-replicas", "--umbrella-bins", "--umbrella-exchange",
         "--gcmc", "--gcmc-cap", "--gcmc-exchanges", "--gcmc-grid", "--npt",
         "--npt-grid", "--npt-dlnv", "--npt-reweight", "--gibbs",
-        "--gibbs-transfers", "--gibbs-cap", "--gibbs-temps"}
+        "--gibbs-transfers", "--gibbs-cap", "--gibbs-temps",
+        "--profile-dir"}
     assert set(tcli.NOT_PORTED) == {
-        "--profile-dir", "--platform", "--x64", "--coordinator",
+        "--platform", "--x64", "--coordinator",
         "--num-processes", "--process-id", "--global-ladder"}
 
 
-@pytest.mark.parametrize("flag", ["--bulk", "--temperatures=1.0,1.2",
-                                  "--profile-dir", "--gr-bins=8"])
+@pytest.mark.parametrize("flag", [
+    "--bulk", "--temperatures=1.0,1.2",
+    pytest.param("--profile-dir=trace", id="--profile-dir"), "--gr-bins=8"])
 def test_cli_refuses_unported_options(flag, capsys):
     """Unported options exit 2 by name; so does a ported mode or option
-    (the temperature ladder, the bulk fluid, g(r)) combined with one
-    (--global-ladder, --x64, --coordinator)."""
+    (the temperature ladder, the bulk fluid, the device trace, g(r))
+    combined with one (--global-ladder, --x64, --platform,
+    --coordinator)."""
     extra = {"--temperatures=1.0,1.2": ["--global-ladder"],
              "--bulk": ["--x64"],
+             "--profile-dir=trace": ["--platform=cpu"],
              "--gr-bins=8": ["--coordinator=localhost:1"]}.get(flag, [])
     with pytest.raises(SystemExit) as exc:
         tcli.main(["1", "2", "1", "1.1", "--device", "cpu", flag] + extra)

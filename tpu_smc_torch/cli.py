@@ -29,7 +29,7 @@ import time
 
 # Options of `python -m tpu_smc` that are not ported yet.
 NOT_PORTED = (
-    "--profile-dir", "--platform", "--x64",
+    "--platform", "--x64",
     "--coordinator", "--num-processes", "--process-id", "--global-ladder",
 )
 
@@ -177,6 +177,10 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="K",
                    help="replica exchange between adjacent windows every K "
                         "sweeps (REUS); per-pair swap acceptance reported")
+    p.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="capture a torch.profiler device trace of the "
+                        "simulation call here (trace.json, "
+                        "key_averages.txt)")
     from .cli_ensembles import add_arguments
 
     add_arguments(p)
@@ -184,6 +188,22 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument(flag, nargs="?", const=True, default=None,
                        help=argparse.SUPPRESS)
     return p
+
+
+@contextlib.contextmanager
+def profiled(args):
+    """The simulation call's context: profiling.trace(args.profile_dir) on
+    the run's device when --profile-dir is given, nothing otherwise. The
+    trace observes; every result is the run's without it."""
+    if not args.profile_dir:
+        yield
+        return
+    from .profiling import trace
+
+    with trace(args.profile_dir, args.device) as rec:
+        yield
+    print(f"\nDevice trace written to {rec.path} ({rec.device_events} "
+          f"device events; operator table {rec.table_path})")
 
 
 def _resolve_sampler(requested: str, cfg, device: str) -> str:
@@ -527,9 +547,11 @@ def _run_single(args, cfg, params, d, state, w, sampler: str,
             return _window_maintenance(args, cfg, widx, st, stopper, w, seed,
                                        chain_axis=False)
 
-        state, res = simulate(cfg, params, state, w, opts=opts,
-                              on_window=on_window, acf_mode=args.acf_mode,
-                              max_fault_retries=args.fault_retries)
+        with profiled(args):
+            state, res = simulate(cfg, params, state, w, opts=opts,
+                                  on_window=on_window,
+                                  acf_mode=args.acf_mode,
+                                  max_fault_retries=args.fault_retries)
 
     print(f"\n\nTime-equivalent throughput: {res.sweeps_per_second:,.0f} "
           f"sweeps/s ({1e6 / max(res.sweeps_per_second, 1e-9):0.1f} s per "
@@ -582,10 +604,10 @@ def _run_ensemble(args, cfg, params, d, state, w, sampler: str,
             print(f"\rWindow {widx + 1} done...", end="", flush=True)
             return _window_maintenance(args, cfg, widx, st, stopper, w, seed)
 
-        state, agg = simulate_ensemble(cfg, params, state, w, opts=opts,
-                                       on_window=on_window,
-                                       acf_mode=args.acf_mode,
-                                       max_fault_retries=args.fault_retries)
+        with profiled(args):
+            state, agg = simulate_ensemble(
+                cfg, params, state, w, opts=opts, on_window=on_window,
+                acf_mode=args.acf_mode, max_fault_retries=args.fault_retries)
 
     for ci, res in enumerate(agg.chains):
         smcio.write_data_csv(d, cfg, res.energy_trace_full, res.pressure_trace,
@@ -763,12 +785,13 @@ def _run_umbrella(args, cfg, params, d, w_np, seed: int, centers) -> int:
     if r0 is None:
         r0 = fcc_lattice(cfg)
     try:
-        lstate, ures = simulate_umbrella(
-            cfg, params, centers, seed_words(seed),
-            k_spring=args.umbrella_spring, tag=args.umbrella_tag,
-            replicas=args.umbrella_replicas, r0=r0, w=w_np,
-            exchange_interval=args.umbrella_exchange, device=args.device,
-            stream_seed=seed)
+        with profiled(args):
+            lstate, ures = simulate_umbrella(
+                cfg, params, centers, seed_words(seed),
+                k_spring=args.umbrella_spring, tag=args.umbrella_tag,
+                replicas=args.umbrella_replicas, r0=r0, w=w_np,
+                exchange_interval=args.umbrella_exchange,
+                device=args.device, stream_seed=seed)
     except ValueError as exc:
         raise SystemExit(str(exc))
     ures = umbrella_pmf(ures, n_bins=args.umbrella_bins, seed=seed)
@@ -867,9 +890,10 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
         else:
             print(f"Parallel tempering: exchange attempts every "
                   f"{args.pt_exchange} sweeps")
-        lstate, pt_res = simulate_parallel_tempering(
-            cfg, params, temps, key, exchange_interval=args.pt_exchange,
-            **kw)
+        with profiled(args):
+            lstate, pt_res = simulate_parallel_tempering(
+                cfg, params, temps, key,
+                exchange_interval=args.pt_exchange, **kw)
         res = pt_res.tsweep
         pt_path = write_pt_csv(d, cfg, pt_res)
         if args.pt_exchange == "auto":
@@ -885,8 +909,9 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
                   f"({pt_res.swap_attempts[i]} attempts)")
         print(f"Written to {pt_path}")
     else:
-        lstate, res = simulate_temperature_sweep(cfg, params, temps, key,
-                                                 **kw)
+        with profiled(args):
+            lstate, res = simulate_temperature_sweep(cfg, params, temps,
+                                                     key, **kw)
     if args.checkpoint:
         ck_path = smcio.save_checkpoint(args.checkpoint, lstate, cfg)
         print(f"Full ladder state checkpointed to {ck_path}")

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .cli import profiled
+
 
 def add_arguments(p) -> None:
     """The twelve options of the three modes, as tpu_smc declares them."""
@@ -204,11 +206,13 @@ def _run_gcmc(args, cfg, params, d, seed, key) -> int:
           f"{n_ch} chain(s), "
           f"{args.gcmc_exchanges or max(1, cap // 4)} exchange "
           f"attempts/sweep (V = {box_volume(cfg):g})")
-    gstate, gres = simulate_gcmc(
-        cfg, args.gcmc, cap, 0 if state0 is not None else params.eqsteps,
-        params.maxsteps, key, n_chains=n_ch, n_exchange=args.gcmc_exchanges,
-        z_bins=args.z_bins, gr_bins=args.gr_bins, state0=state0, seed=seed,
-        device=args.device)
+    with profiled(args):
+        gstate, gres = simulate_gcmc(
+            cfg, args.gcmc, cap,
+            0 if state0 is not None else params.eqsteps, params.maxsteps,
+            key, n_chains=n_ch, n_exchange=args.gcmc_exchanges,
+            z_bins=args.z_bins, gr_bins=args.gr_bins, state0=state0,
+            seed=seed, device=args.device)
     print("\n###  Grand-canonical results  ###")
     print(f"Mean N: {gres.mean_n:f} ± {gres.err_n:f} "
           f"(density {gres.mean_density:g})")
@@ -261,10 +265,11 @@ def _run_gcmc_isotherm(args, cfg, params, key, d, cap, seed) -> int:
     print(f"Grand-canonical isotherm: {len(grid)} chemical potentials x "
           f"{reps} replicas, capacity {cap}, one ensemble "
           f"(V = {box_volume(cfg):g})")
-    _, res = simulate_gcmc(cfg, mu_c, cap, params.eqsteps, params.maxsteps,
-                           key, n_chains=len(mu_c),
-                           n_exchange=args.gcmc_exchanges, seed=seed,
-                           device=args.device)
+    with profiled(args):
+        _, res = simulate_gcmc(cfg, mu_c, cap, params.eqsteps,
+                               params.maxsteps, key, n_chains=len(mu_c),
+                               n_exchange=args.gcmc_exchanges, seed=seed,
+                               device=args.device)
     n_chain = res.n_trace.mean(axis=0).reshape(len(grid), reps)
     n_mean = n_chain.mean(axis=1)
     n_err = (n_chain.std(axis=1) / np.sqrt(max(1, reps - 1))
@@ -320,10 +325,12 @@ def _run_npt(args, cfg, params, d, seed, key) -> int:
     print(f"Constant-pressure MC: P = {args.npt:g}, {n_ch} chain(s), dlnV "
           f"{args.npt_dlnv:g}, rc {cfg.lj_cutoff:g} (hard volume floor "
           f"{v_floor:g}), starting box {cfg.box_l:g}^3")
-    nstate, nres = simulate_npt(
-        cfg, args.npt, 0 if state0 is not None else params.eqsteps,
-        params.maxsteps, key, n_chains=n_ch, dlnv=args.npt_dlnv,
-        gr_bins=args.gr_bins, state0=state0, seed=seed, device=args.device)
+    with profiled(args):
+        nstate, nres = simulate_npt(
+            cfg, args.npt, 0 if state0 is not None else params.eqsteps,
+            params.maxsteps, key, n_chains=n_ch, dlnv=args.npt_dlnv,
+            gr_bins=args.gr_bins, state0=state0, seed=seed,
+            device=args.device)
     print("\n###  Constant-pressure results  ###")
     print(f"Mean density: {nres.mean_density:f} ± {nres.err_density:f}  "
           f"(<V> = {nres.mean_v:f})")
@@ -370,9 +377,10 @@ def _run_npt_isobars(args, cfg, params, key, d, seed) -> int:
     print(f"Equation of state: {len(grid)} pressures x {reps} replicas, "
           f"one ensemble (dlnV {args.npt_dlnv:g}, rc {cfg.lj_cutoff:g}, "
           f"starting box {cfg.box_l:g}^3)")
-    _, res = simulate_npt(cfg, p_c, params.eqsteps, params.maxsteps, key,
-                          n_chains=len(p_c), dlnv=args.npt_dlnv, seed=seed,
-                          device=args.device)
+    with profiled(args):
+        _, res = simulate_npt(cfg, p_c, params.eqsteps, params.maxsteps,
+                              key, n_chains=len(p_c), dlnv=args.npt_dlnv,
+                              seed=seed, device=args.device)
     v_tr = res.volume_trace
     rho_chain = (cfg.n / v_tr).mean(axis=0).reshape(len(grid), reps)
     rho_mean = rho_chain.mean(axis=1)
@@ -453,10 +461,11 @@ def _run_gibbs(args, cfg, params, d, seed, key) -> int:
           f"{rho_all:g}, per-box start {cfg.box_l:g}^3, capacity "
           f"{cap}/box, {n_tr} transfers/sweep, dlnV {args.npt_dlnv:g}, "
           f"{n_ch} chain(s)")
-    gstate, gres = simulate_gibbs(
-        cfg, 0 if state0 is not None else params.eqsteps, params.maxsteps,
-        key, cap, n_chains=n_ch, dlnv=args.npt_dlnv, n_transfer=n_tr,
-        state0=state0, seed=seed, device=args.device)
+    with profiled(args):
+        gstate, gres = simulate_gibbs(
+            cfg, 0 if state0 is not None else params.eqsteps,
+            params.maxsteps, key, cap, n_chains=n_ch, dlnv=args.npt_dlnv,
+            n_transfer=n_tr, state0=state0, seed=seed, device=args.device)
     print("\n###  Gibbs-ensemble results  ###")
     print(f"Branch densities (sorted per sweep): vapor {gres.rho_lo:f} ± "
           f"{gres.err_lo:f}, liquid {gres.rho_hi:f} ± {gres.err_hi:f}")
@@ -505,10 +514,11 @@ def _run_gibbs_binodal(args, cfg, params, key, d, seed) -> int:
     print(f"Gibbs coexistence curve: {len(grid)} temperatures x {reps} "
           f"replicas, N = {cfg.n} total, overall rho = {rho_all:g}, "
           f"capacity {cap}/box, {n_tr} transfers/sweep, one ensemble")
-    state, res = simulate_gibbs(
-        cfg, params.eqsteps, params.maxsteps, key, cap,
-        n_chains=len(temps_c), dlnv=args.npt_dlnv, n_transfer=n_tr,
-        temperatures=temps_c, seed=seed, device=args.device)
+    with profiled(args):
+        state, res = simulate_gibbs(
+            cfg, params.eqsteps, params.maxsteps, key, cap,
+            n_chains=len(temps_c), dlnv=args.npt_dlnv, n_transfer=n_tr,
+            temperatures=temps_c, seed=seed, device=args.device)
     rows = binodal_from_results(state, res, temps_c, cfg)
     _rate(res)
     print("\n###  Coexistence curve  ###")

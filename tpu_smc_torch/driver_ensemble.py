@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .config import RunParams, SMCConfig
 from .driver import (GatherOut, ObservableOptions, SimResults, _sync,
@@ -92,8 +93,18 @@ def _gather_step_batched(state: ChainState, w, cfg: SMCConfig,
     resync, pressure, voxel density/mobility and (at the LCA cadence) the
     cluster analysis, then the measurement layer's samples
     (structure_observables). Returns (state, GatherOut)."""
-    state, trace = _advance(state, w, cfg, _mobility(cfg, opts), gather_lapse,
-                            opts, opts.collect_sweep_trace)
+    with record_function("smc.sweeps"):
+        state, trace = _advance(state, w, cfg, _mobility(cfg, opts),
+                                gather_lapse, opts, opts.collect_sweep_trace)
+    with record_function("smc.observables"):
+        return _gather_observables(state, trace, w, cfg, gather_lapse,
+                                   gather_index, opts)
+
+
+def _gather_observables(state: ChainState, trace, w, cfg: SMCConfig,
+                        gather_lapse: int, gather_index: int,
+                        opts: ObservableOptions):
+    """The gather's observables after its sweeps (_gather_step_batched)."""
     c = state.n_chains
 
     if cfg.recompute_every and \
@@ -155,6 +166,25 @@ class EnsembleResults(NamedTuple):
     pt: np.ndarray | None = None
 
 
+def _thermalize(state: ChainState, w, cfg: SMCConfig, params: RunParams,
+                opts: ObservableOptions):
+    """Thermalization: eqsteps sweeps at twice the production mobility
+    (SMC.c:110-125) in therm_chunk calls, then the exact-energy resync.
+    Returns (state, thermalization acceptance)."""
+    chunk = therm_chunk(cfg, sampler=opts.sampler)
+    done_eq, therm_moves = 0, 0.0
+    state = state.replace(accepted=torch.zeros_like(state.accepted))
+    while done_eq < params.eqsteps:
+        k = min(chunk, params.eqsteps - done_eq)
+        state = _sync(_advance(state, w, cfg, 2.0 * _mobility(cfg, opts),
+                               k, opts, False)[0])
+        therm_moves += float(state.accepted.double().mean())
+        state = state.replace(accepted=torch.zeros_like(state.accepted))
+        done_eq += k
+    return (recompute_energy(state, w, cfg),
+            therm_moves / (params.eqsteps * cfg.n))
+
+
 def simulate_ensemble(cfg: SMCConfig, params: RunParams, state: ChainState,
                       w: torch.Tensor,
                       opts: ObservableOptions = ObservableOptions(),
@@ -175,29 +205,19 @@ def simulate_ensemble(cfg: SMCConfig, params: RunParams, state: ChainState,
     lapse = params.gather_lapse
     gather_steps = params.gather_steps
     n_chains = state.n_chains
-    kinetic = 1.5 * cfg.n * cfg.temperature
 
     therm_acc = 0.0
     if params.eqsteps:
-        chunk = therm_chunk(cfg, sampler=opts.sampler)
-        done_eq, therm_moves = 0, 0.0
-        state = state.replace(accepted=torch.zeros_like(state.accepted))
-        while done_eq < params.eqsteps:
-            k = min(chunk, params.eqsteps - done_eq)
-            state = _sync(_advance(state, w, cfg, 2.0 * _mobility(cfg, opts),
-                                   k, opts, False)[0])
-            therm_moves += float(state.accepted.double().mean())
-            state = state.replace(accepted=torch.zeros_like(state.accepted))
-            done_eq += k
-        therm_acc = therm_moves / (params.eqsteps * cfg.n)
-        state = recompute_energy(state, w, cfg)
+        with record_function("smc.thermalization"):
+            state, therm_acc = _thermalize(state, w, cfg, params, opts)
 
     e_begin = state.energy.cpu().numpy()
     prod_moves = np.zeros((n_chains,), np.int64)
     state = state.replace(accepted=torch.zeros_like(state.accepted))
     outs: list[GatherOut] = []
     done = widx = faults = 0
-    snap = snapshot_to_host(state) if max_fault_retries else None
+    with record_function("smc.snapshot"):
+        snap = snapshot_to_host(state) if max_fault_retries else None
     t1 = time.perf_counter()
     while done < gather_steps:
         g = min(cfg.storage_time, gather_steps - done)
@@ -224,13 +244,30 @@ def simulate_ensemble(cfg: SMCConfig, params: RunParams, state: ChainState,
         prod_moves += moves_w
         outs += window
         done += g
-        verdict = on_window(widx, state, window) if on_window else None
+        with record_function("smc.on_window"):
+            verdict = on_window(widx, state, window) if on_window else None
         widx += 1
         if snap is not None:
-            snap = snapshot_to_host(state)
+            with record_function("smc.snapshot"):
+                snap = snapshot_to_host(state)
         if verdict == "stop":
             gather_steps = done
             break
+    with record_function("smc.post"):
+        return _post_process(cfg, params, opts, state, outs, e_begin,
+                             prod_moves, therm_acc, gather_steps, t1,
+                             acf_mode)
+
+
+def _post_process(cfg: SMCConfig, params: RunParams, opts: ObservableOptions,
+                  state: ChainState, outs: list, e_begin, prod_moves,
+                  therm_acc: float, gather_steps: int, t1: float,
+                  acf_mode: str):
+    """simulate_ensemble's per-chain and pooled results of the gathers
+    `outs` (the production window began at perf_counter t1)."""
+    lapse = params.gather_lapse
+    n_chains = state.n_chains
+    kinetic = 1.5 * cfg.n * cfg.temperature
     elapsed = time.perf_counter() - t1
     total_sweeps = gather_steps * lapse
     sps = total_sweeps * n_chains / elapsed if elapsed > 0 else float("nan")

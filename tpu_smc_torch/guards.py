@@ -1,5 +1,4 @@
-"""Runtime guards (counterpart of tpu_smc.guards without its checkify
-sweep).
+"""Runtime guards (counterpart of tpu_smc.guards).
 
 The reference's only runtime checks are console warnings: boundsCheck's
 "beta-carotene Valhalla" prints (SMC.c:529-543), perror on I/O, and an
@@ -9,7 +8,10 @@ particles through a wall, silent energy drift) go unnoticed. Here:
   * state_health — one pass on the state's device returning finiteness,
     bounds violations and energy drift of every chain;
   * HealthError / check_state — raise (or warn) on violations, with the
-    reference's wording kept.
+    reference's wording kept;
+  * checked_sweep — a debug mode of the plain engine's sweep that checks
+    every term of every move for finiteness and names the first bad one
+    (the counterpart of tpu_smc's checkify-wrapped sampler).
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ import torch
 
 from .config import SMCConfig
 from .observables import wall_obs_chains
-from .potentials import total_energy
+from .potentials import (pair_energy_force_single, total_energy,
+                         wall_energy_force_single)
+from .sampler import _wrap_proposal
 from .state import ChainState
 
 
@@ -78,3 +82,103 @@ def check_state(state: ChainState, w: torch.Tensor, cfg: SMCConfig,
             raise HealthError(msg)
         print(f"WARNING: {msg}")
     return h
+
+
+# the terms of a move checked_sweep checks, in the order a move evaluates
+# them
+SWEEP_TERMS = ("pair energy/force at the current position",
+               "wall energy/force at the current position",
+               "proposal",
+               "pair energy/force at the proposal",
+               "wall energy/force at the proposal",
+               "log_ap")
+
+
+class SweepError(NamedTuple):
+    """The first non-finite term of a checked sweep: which term (one of
+    SWEEP_TERMS), in which sweep, move (0-based, in visiting order),
+    particle and chain."""
+    term: str
+    sweep: int
+    move: int
+    particle: int
+    chain: int
+
+    def __str__(self) -> str:
+        return (f"non-finite {self.term} in sweep {self.sweep}, move "
+                f"{self.move}, particle {self.particle}, chain {self.chain}")
+
+
+def checked_sweep(cfg: SMCConfig):
+    """The plain engine's sweep (`sampler.sweep`, offset form, NVT) with a
+    finiteness check of every term of every move: the pair and wall
+    energies and forces at the current and the proposed positions, the
+    proposal and log_ap. A debug tool that no default path calls.
+
+    Returns fn(r, energy, w, a, noise, unif, offset, temperature=None,
+    sweep=0) -> (err, (r, energy, n_accepted)), the arguments and results
+    of sampler.sweep; err is None, or the SweepError of the first
+    non-finite term (first move, then the term order of SWEEP_TERMS, then
+    the lowest chain), `sweep` naming the sweep in it. The terms are the
+    ones sampler.sweep computes, in its order, so on a clean state the
+    outputs are bitwise sampler.sweep's under the same draws. The checks
+    cost one host read per sweep."""
+
+    def fn(r, energy, w, a, noise, unif, offset, temperature=None,
+           sweep=0):
+        n, c = r.shape[1], r.shape[0]
+        t = cfg.temperature if temperature is None else temperature
+        if torch.is_tensor(a) or torch.is_tensor(t):
+            a, t = (v.to(r.dtype).expand(c) if torch.is_tensor(v) else
+                    torch.full((c,), v, dtype=r.dtype, device=r.device)
+                    for v in (a, t))
+            a_t = (a / t)[:, None]
+        else:
+            a, t = float(a), float(t)
+            a_t = a / t
+        r = r.clone()
+        acc = torch.zeros(c, dtype=torch.int64, device=r.device)
+        zero = torch.zeros((), dtype=r.dtype, device=r.device)
+        bad = []
+
+        def finite(*ts):
+            ok = torch.ones(c, dtype=torch.bool, device=r.device)
+            for v in ts:
+                ok = ok & torch.isfinite(v.reshape(c, -1)).all(-1)
+            return ok
+
+        def terms(ri):
+            pu, pf = pair_energy_force_single(r, i, ri, cfg)
+            if not cfg.use_walls:
+                return pu, pf, finite(pu, pf), ok_all
+            uw, fw = wall_energy_force_single(ri, w, cfg)
+            # energy_force_single's sums, in its order
+            return pu + uw, pf + fw, finite(pu, pf), finite(uw, fw)
+
+        ok_all = torch.ones(c, dtype=torch.bool, device=r.device)
+        for nn in range(n):
+            i = (nn + int(offset)) % n
+            ri, noise_i = r[:, i], noise[:, i]
+            um, fm, ok_pm, ok_wm = terms(ri)
+            delta = fm * a_t + noise_i
+            rp = _wrap_proposal(ri + delta, cfg)
+            un, fn_, ok_pn, ok_wn = terms(rp)
+            df = fn_ - fm
+            dw = ((df * df).sum(-1) + 2.0 * (df * fm).sum(-1)) * a / (4.0 * t)
+            log_ap = -(un - um + 0.5 * (delta * (fn_ + fm)).sum(-1) + dw) / t
+            bad.append(~torch.stack([ok_pm, ok_wm, finite(rp), ok_pn, ok_wn,
+                                     finite(log_ap)]))
+            accept = (unif[:, nn] < torch.exp(torch.clamp(log_ap, max=0.0))) \
+                | (log_ap >= 0.0)
+            r[:, i] = torch.where(accept[:, None], rp, ri)
+            energy = energy + torch.where(accept, un - um, zero)
+            acc += accept.to(torch.int64)
+        hit = torch.stack(bad).nonzero()          # [k, 3] (move, term, chain)
+        err = None
+        if hit.shape[0]:
+            mv, term, ch = (int(v) for v in hit[0].cpu())
+            err = SweepError(SWEEP_TERMS[term], int(sweep), mv,
+                             (mv + int(offset)) % n, ch)
+        return err, (r, energy, acc)
+
+    return fn

@@ -292,9 +292,8 @@ def _wall_terms(qx, qy, qz, wa, wb, cfg: SMCConfig):
     inv_l, inv_lz, half = 1.0 / box_l, 1.0 / box_lz, box_lz / 2.0
     dz = qz + half
     dz = dz - box_lz * torch.round(dz * inv_lz)
-    dz = torch.where(qz <= -half, torch.full_like(dz, cfg.contact_dz),
-                     torch.where(qz >= half,
-                                 torch.full_like(dz, -cfg.contact_dz), dz))
+    dz = torch.where(qz <= -half, cfg.contact_dz,
+                     torch.where(qz >= half, -cfg.contact_dz, dz))
     dz2 = dz * dz
     iz2 = 1.0 / dz2
     iz6 = iz2 * iz2 * iz2
@@ -318,15 +317,14 @@ def _wall_terms(qx, qy, qz, wa, wb, cfg: SMCConfig):
     zero = torch.zeros_like(dr2)
     u_s = torch.where(m, a * inv12 - b * inv6, zero)
     dv = torch.where(m, (48.0 * a * inv12 - 24.0 * b * inv6) * inv2, zero)
-    fx_s, fy_s = dv * dxm, dv * dym
-    fx = torch.zeros_like(qx)
-    fy = torch.zeros_like(qx)
-    fzs = torch.zeros_like(qx)
+    # (u, fx, fy, dv) of each site [MM, 4, C], added site by site onto
+    # (planar u, 0, 0, 0): one add per site for the four sums
+    terms = torch.stack([u_s, dv * dxm, dv * dym, dv], dim=1)
+    zero = torch.zeros_like(qx)
+    acc = torch.stack([us, zero, zero, zero])
     for s in range(mm):
-        us = us + u_s[s]
-        fx = fx + fx_s[s]
-        fy = fy + fy_s[s]
-        fzs = fzs + dv[s]
+        acc = acc + terms[s]
+    us, fx, fy, fzs = acc
     return 4.0 * us, fx, fy, fz0 + fzs * dz
 
 

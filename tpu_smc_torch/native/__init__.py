@@ -1,13 +1,16 @@
-"""The host CSV formatters in C++ (smc_native.cpp), built with g++ at
-first use and loaded through ctypes (counterpart of tpu_smc.native's
-formatters).
+"""The host runtime in C++ (smc_native.cpp), built with g++ at first use
+and loaded through ctypes (counterpart of tpu_smc.native): the CSV
+formatters, glibc's rand() with the reference's Box-Muller
+(NativeGlibcRandom) and the reference-semantics CNA oracle
+(cluster_analysis_ref).
 
 The library is compiled with `g++ -O2 -shared -fPIC` into the package's
 git-ignored `_build/`, named by the source's hash, so an edited source
 rebuilds and an unchanged one loads at once. A failed build raises with
 the compiler's log: there is no quiet fallback, the writers of io.py
-call these formatters and nothing else. The plain Python formatters the
-tests hold them against are io.fixed3_csv and io.local_rows_plain.
+and the wall draws of rng.py call this library and nothing else. The
+plain Python versions the tests hold it against are io.fixed3_csv,
+io.local_rows_plain and rng.GlibcRandom.
 
 Each formatter returns bytes byte-identical to tpu_smc's writers
 (C `sprintf`: "%0.3f," positions, "%0.12f," last_state, "i, j, k, n,
@@ -70,6 +73,17 @@ def build() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [P, L, ctypes.c_char_p, L]
         fn.restype = L
+    lib.glibc_srand.argtypes = [P, ctypes.c_uint32]
+    lib.glibc_srand.restype = None
+    lib.glibc_rand.argtypes = [P]
+    lib.glibc_rand.restype = ctypes.c_uint32
+    lib.glibc_rand_fill.argtypes = [P, P, L]
+    lib.glibc_rand_fill.restype = None
+    lib.glibc_box_muller.argtypes = [P, ctypes.c_double, L, P]
+    lib.glibc_box_muller.restype = None
+    lib.cluster_analysis_ref.argtypes = [P, I, ctypes.c_double,
+                                         ctypes.c_double, P]
+    lib.cluster_analysis_ref.restype = None
     _Lib.lib, _Lib.path = lib, so
     _Lib.seconds = time.perf_counter() - t0
     return lib
@@ -113,3 +127,44 @@ def format_last_state(r) -> bytes:
     flat = np.ascontiguousarray(np.asarray(r).reshape(-1), np.float64)
     return _call(build().format_last_state, 24 * flat.size + 64,
                  flat.ctypes.data, flat.size)
+
+
+class NativeGlibcRandom:
+    """glibc rand()/srand() (TYPE_3) in C++, bit for bit
+    rng.GlibcRandom, the plain version the tests hold it against."""
+
+    STATE_BYTES = 128           # smc_native.cpp GlibcRng
+
+    def __init__(self, seed: int = 1):
+        self._lib = build()
+        self._state = ctypes.create_string_buffer(self.STATE_BYTES)
+        self._lib.glibc_srand(self._state, seed & 0xFFFFFFFF)
+
+    def rand(self) -> int:
+        return int(self._lib.glibc_rand(self._state))
+
+    def rand_array(self, n: int) -> np.ndarray:
+        out = np.empty(n, dtype=np.uint32)
+        self._lib.glibc_rand_fill(self._state, out.ctypes.data, n)
+        return out
+
+    def box_muller(self, sigma: float, length: int) -> np.ndarray:
+        """vecBoxMuller (matematicose.c:183-193), the odd tail 0.0."""
+        out = np.empty(length, dtype=np.float64)
+        self._lib.glibc_box_muller(self._state, sigma, length,
+                                   out.ctypes.data)
+        return out
+
+
+def cluster_analysis_ref(r, n: int, box_l: float,
+                         cutoff: float) -> np.ndarray:
+    """The reference's CNA (SMC.c:971-1045, aliased triangular index) of
+    one configuration r [n, 3]: [(n*n - n) / 2, 3] int32 rows (bonded,
+    common neighbours, bonds among them)."""
+    flat = np.ascontiguousarray(np.asarray(r, np.float64).reshape(-1))
+    if flat.size != 3 * n:
+        raise ValueError(f"{flat.size} coordinates for {n} particles")
+    out = np.zeros(((n * n - n) // 2, 3), dtype=np.int32)
+    build().cluster_analysis_ref(flat.ctypes.data, n, box_l, cutoff,
+                                 out.ctypes.data)
+    return out

@@ -1,6 +1,10 @@
-// Host CSV formatters of tpu_smc_torch (C++, loaded through ctypes): the
-// three formatters of tpu_smc/native/smc_native.cpp, byte for byte the
-// same output. They write the voxel ("local") rows, the position rows and
+// Host runtime of tpu_smc_torch in C++ (loaded through ctypes), the
+// counterpart of tpu_smc/native/smc_native.cpp: its three CSV formatters,
+// byte for byte the same output; glibc's rand() and the reference's
+// Box-Muller (the srand(42) wall table, SMC.c:477), bit for bit; and the
+// reference-semantics CNA oracle (SMC.c:971-1045).
+//
+// The formatters They write the voxel ("local") rows, the position rows and
 // the last_state row (SMC.c:158-189, 218-225; main.c:163-171), the host's
 // slowest step after an ensemble run.
 //
@@ -19,6 +23,7 @@
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
+#include <vector>
 
 namespace {
 
@@ -131,6 +136,128 @@ int64_t format_last_state(const double *r, int64_t n3, char *buf,
         p += w;
     }
     return p - buf;
+}
+
+// ----------------------------------------------------------------------
+// glibc rand() (TYPE_3: degree 31, separation 3), the algorithm of
+// tpu_smc_torch.rng.GlibcRandom: r[i] = r[i-31] + r[i-3] mod 2^32 after
+// the 16807 LCG scramble and 310 discarded outputs, output >> 1.
+// ----------------------------------------------------------------------
+
+struct GlibcRng {
+    uint32_t ring[31];
+    int idx;  // position of the oldest element
+};
+
+static_assert(sizeof(GlibcRng) == 128, "layout");
+
+void glibc_srand(GlibcRng *st, uint32_t seed) {
+    if (seed == 0) seed = 1;
+    int64_t r[344];
+    r[0] = seed;
+    for (int i = 1; i < 31; i++) {
+        const int64_t hi = r[i - 1] / 127773;
+        const int64_t lo = r[i - 1] % 127773;
+        int64_t word = 16807 * lo - 2836 * hi;
+        if (word < 0) word += 2147483647;
+        r[i] = word;
+    }
+    for (int i = 31; i < 34; i++) r[i] = r[i - 31];
+    for (int i = 34; i < 344; i++)
+        r[i] = (uint32_t)((uint64_t)r[i - 31] + (uint64_t)r[i - 3]);
+    for (int i = 0; i < 31; i++) st->ring[i] = (uint32_t)r[313 + i];
+    st->idx = 0;
+}
+
+static inline uint32_t glibc_next(GlibcRng *st) {
+    // ring[idx] is r[t-31]; r[t-3] is 28 ahead of it
+    const uint32_t val = st->ring[st->idx] + st->ring[(st->idx + 28) % 31];
+    st->ring[st->idx] = val;
+    st->idx = (st->idx + 1) % 31;
+    return val >> 1;
+}
+
+uint32_t glibc_rand(GlibcRng *st) { return glibc_next(st); }
+
+void glibc_rand_fill(GlibcRng *st, uint32_t *out, int64_t n) {
+    for (int64_t i = 0; i < n; i++) out[i] = glibc_next(st);
+}
+
+// vecBoxMuller (matematicose.c:183-193): pairs from rand()/(RAND_MAX+1),
+// loop bound length/2 in integer arithmetic; the odd tail stays 0.0 (the
+// reference's fresh allocation in practice).
+void glibc_box_muller(GlibcRng *st, double sigma, int64_t length,
+                      double *out) {
+    const double denom = 2147483648.0;  // RAND_MAX + 1
+    const int64_t iters = length / 2;
+    for (int64_t i = 0; i < iters; i++) {
+        const double x1 = glibc_next(st) / denom;
+        const double x2 = glibc_next(st) / denom;
+        out[2 * i] = sigma * std::sqrt(-2.0 * std::log(1.0 - x1))
+                     * std::cos(2.0 * M_PI * x2);
+        out[2 * i + 1] = sigma * std::sqrt(-2.0 * std::log(1.0 - x2))
+                         * std::sin(2.0 * M_PI * x1);
+    }
+    if (length % 2) out[length - 1] = 0.0;
+}
+
+// ----------------------------------------------------------------------
+// Reference-semantics CNA oracle (the aliased triangular index of
+// SMC.c:971-1045): per pair (l, i < l) at index (l^2 - 3l + 2)/2 + i,
+// [bonded, common neighbours, bonds among them (at most 64 recorded)].
+// ----------------------------------------------------------------------
+
+void cluster_analysis_ref(const double *r, int n, double box_l,
+                          double cutoff, int32_t *lca /* [(n*n-n)/2 * 3] */) {
+    const int64_t p = ((int64_t)n * n - n) / 2;
+    std::vector<char> num1(p, 0);
+    std::vector<int32_t> num2(p, 0), num3(p, 0);
+    int64_t common_nn[64];
+    const double cut2 = cutoff * cutoff;
+
+    auto idx_raw = [](int64_t l, int64_t i) {
+        return (l * l - 3 * l + 2) / 2 + i;
+    };
+
+    for (int l = 1; l < n; l++) {
+        for (int i = 0; i < l; i++) {
+            double dx = r[3 * l] - r[3 * i];
+            dx -= box_l * std::rint(dx / box_l);
+            double dy = r[3 * l + 1] - r[3 * i + 1];
+            dy -= box_l * std::rint(dy / box_l);
+            const double dz = r[3 * l + 2] - r[3 * i + 2];
+            if (dx * dx + dy * dy + dz * dz < cut2) num1[idx_raw(l, i)] = 1;
+        }
+    }
+    for (int l = 1; l < n; l++) {
+        for (int i = 0; i < l; i++) {
+            const int64_t idx = idx_raw(l, i);
+            if (!num1[idx]) continue;
+            for (int i2 = 0; i2 < l; i2++) {
+                if (i2 == i) continue;
+                const int64_t idx2 = idx - i + i2;
+                const int64_t idx3 = ((int64_t)i2 * i2 - 3 * i2 + 2) / 2 + i;
+                if (num1[idx2] && num1[idx3]) {
+                    if (num2[idx] < 64) common_nn[num2[idx]] = i2;
+                    num2[idx]++;
+                }
+            }
+            if (num2[idx] > 1) {
+                const int cnt = num2[idx] < 64 ? num2[idx] : 64;
+                for (int m = 1; m < cnt; m++) {
+                    const int64_t c = common_nn[m];
+                    const int64_t idx2 =
+                        (c * c - 3 * c + 2) / 2 + common_nn[m - 1];
+                    if (num1[idx2]) num3[idx]++;
+                }
+            }
+        }
+    }
+    for (int64_t q = 0; q < p; q++) {
+        lca[3 * q] = num1[q] ? 1 : 0;
+        lca[3 * q + 1] = num2[q];
+        lca[3 * q + 2] = num3[q];
+    }
 }
 
 }  // extern "C"

@@ -5,8 +5,11 @@ FCC lattice (SMC.c:415), so its initial geometry is a deterministic function
 of glibc's `rand()`. `GlibcRandom` reimplements glibc's TYPE_3
 additive-feedback generator (31-word state, r[i] = r[i-31] + r[i-3] mod 2^32,
 output >> 1), so the wall table is bit-exact with the C program and with the
-JAX package. Pure Python + numpy. The chains' own random numbers are the
-counter-based Philox stream of kernels/sweep.py.
+JAX package. The wall draws run on its C++ twin, native.NativeGlibcRandom
+(as tpu_smc's do when its library is built); this pure-Python one is the
+plain version the tests hold it against. The FCC lattice consumes no draw
+(its jitter is a constant, system.fcc_lattice). The chains' own random
+numbers are the counter-based Philox stream of kernels/sweep.py.
 """
 
 from __future__ import annotations
@@ -103,7 +106,9 @@ def reference_wall_draws(cfg, seed: int = 42) -> Tuple[np.ndarray, np.ndarray]:
     distribution family (the reference cannot do this at all — its wall
     is frozen at srand(42) for every run and every MPI rank).
     """
-    g = GlibcRandom(seed)
+    from .native import NativeGlibcRandom
+
+    g = NativeGlibcRandom(seed)
     mm = cfg.m * cfg.m
     x0 = g.box_muller(cfg.wall_x0_sigma, mm) + cfg.wall_x0_mean
     ym = g.box_muller(cfg.wall_ym_sigma, mm) + cfg.wall_ym_mean
