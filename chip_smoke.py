@@ -131,17 +131,37 @@ Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
      T = 0.75 (N1 + N2 = N every sweep, V1 + V2 to round-off, rho_hi > 3
      rho_lo, rho_hi > 0.45, rho_lo < 0.15, |dmu| < 0.4) and the
      coexistence curve `--gibbs-temps 0.7,2.0`; chain-sweeps/s and the
-     wall-time split of each run;
+     wall-time split of each run; then multi-process and sharded runs,
+     the children on the one card over gloo, each within 300 s and all
+     killed on a failure: (a) the N = 1024 x 512 run above split over
+     two processes (`--coordinator --num-processes 2`, 2 x 256 chains on
+     K2), its 2560 per-rank CSVs, data_ensemble, last_state and wall CSV
+     byte-identical to the one-process run and the recorded mean E and
+     acceptance printed by both ranks, both wall times and the
+     aggregate chain-sweeps/s; (b) one PT ladder across two processes
+     (`--global-ladder`, N = 1024, 4 x 32, `--pt-exchange auto`, MBAR,
+     --z-bins 16; K1-at with z-skip): tsweep, pt, reweight and
+     reweight_zprofile and the gathered checkpoint byte-identical to
+     the one-process run, one auto interval everywhere; (c) per-process
+     ladders (N = 108, 3 x 64, PT every 5) pooled: swap attempts equal
+     to one process's, E within 6 combined SE + 0.3; (d) in one
+     process over [cuda:0, cuda:0]: the zsorted (N = 1024 x 512), dense
+     (N = 108 x 512) and streamed (N = 4096 x 128) engines bitwise the
+     unsharded call, K1 and K2 with chain0 = 256 against their plain
+     versions as in phase 2, the particle-sharded energy of one N =
+     32768 density-matched chain over 4 shards within 1e-5 relative of
+     the full recompute;
   4. at the main path's shapes (N = 108 x 512 dense, N = 1024 x 512
      z-skip): kernel vs plain as in phase 2, the plain time and the
      bound, for the uniform form and for per-chain (A, T) and per-chain
      walls (N = 108 x 512); kernel times of those and of per-chain (A, T)
      z-skip (N = 1024 x 512) taken in turns within the call; dense mode
      at N = 1024 x 512 beside z-skip; K3 at the large-N main path's N =
-     32768 x 128, one sweep: its first 16 chains against the plain
-     version of those 16 as in phase 2, the plain time of the 16, the
-     bound and the kernel's time on all 128, and K3 beside K2 in turns
-     at N = 16384 x 128; the dense and zsorted engines at
+     32768 x 128 planes: windows of 1024 moves at the bottom, the middle
+     and the top of the z-sorted slab against the plain version as in
+     phase 2 on all 128 chains and the plain time of them, the bound and
+     the kernel's time of a whole sweep, and K3
+     beside K2 in turns at N = 16384 x 128; the dense and zsorted engines at
      N = 512 and 1024 x 512, behind auto routing, and the zsorted engine
      at sort cadences 8 and 16 (N = 1024 x 512); K1-pbc at N = 4000 x
      128 and K1-rn at N = 108 x 512 against their plain versions and
@@ -181,6 +201,7 @@ the result lines. The last two lines are the kernel table (JSON) and
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -331,28 +352,21 @@ def ladder_rows(cfg, c: int, device, a_scale: float = 1.0):
     return a_scale * cfg.gamma * t, t
 
 
-def chain_subset(args, k: int):
-    """Kernel arguments of the first k chains: planes and energies cut
-    to k columns, shared wall rows, offsets and seed words as they are
-    (a chain's draws depend on its index, not on the chain count)."""
-    x, y, z, e, wa, wb, offsets, words = args
-    rows = [p if p.shape[0] == 1 else p[:k] for p in (wa, wb)]
-    return tuple([p[:, :k].contiguous() for p in (x, y, z, e)] + rows
-                 + [offsets, words])
-
-
 def compare(cfg, w, args, ks, zskip: bool, label: str, a=None, t=None,
-            stream: bool = False, xslices: int = 0, plain_chains: int = 0):
+            stream: bool = False, xslices: int = 0, chain0: int = 0,
+            moves: int = 0):
     """Kernel vs plain (exact Philox) on the same inputs, with mobility
     and temperature a / t (default the config's; scalars or per-chain
     rows); stream: the streamed kernel and its plain version; xslices:
-    the 2-D pass (K1-xs) with that many blocks per band; plain_chains =
-    k: the kernel runs every chain, the plain version the first k
-    (`chain_subset`, scalar a and t), and the first k chains are
-    compared. Returns the kernel's outputs (of the compared chains), the
-    largest position error over chains whose trajectories agree, the
-    plain version's wall ms (diagnostics included) and the kernel's
-    visited pair rows [C] (of the compared chains)."""
+    the 2-D pass (K1-xs) with that many blocks per band; chain0: the
+    global index of chain 0, the same for kernel and plain version;
+    moves = k > 0: a partial sweep, both move only rows [0, k) of the
+    planes (a config with n = k; every row of cfg still interacts, and
+    the carried energies are held against a recompute of all of them).
+    Returns the kernel's outputs, the largest
+    position error over chains whose trajectories agree, the plain
+    version's wall ms (diagnostics included) and the kernel's visited
+    pair rows [C]."""
     from tpu_smc_torch.potentials import total_energy
 
     sweeps = args[-1].shape[0]
@@ -363,21 +377,17 @@ def compare(cfg, w, args, ks, zskip: bool, label: str, a=None, t=None,
         kernel, plain, kw = ks.sweep_block, ks.sweep_block_plain, {"zskip": zskip}
         if xslices:
             kw["xslices"] = xslices
+    if chain0:
+        kw["chain0"] = chain0
+    full = cfg
+    if moves:
+        cfg = dataclasses.replace(cfg, n=moves)
     dk = {"uniforms": True}
     outk = kernel(*args, cfg, sweeps, a, diag=dk, temperature=t, **kw)
-    pargs = args
-    if plain_chains:
-        check(not torch.is_tensor(a) and t is None,
-              f"{label}: a chain subset takes scalar (A, T)")
-        k = plain_chains
-        pargs = chain_subset(args, k)
-        outk = tuple(o[..., :k] for o in outk)
-        dk = {"uniforms": dk["uniforms"][:, :k], "visited": dk["visited"][:k]}
-        w = w[:k] if w.dim() == 3 else w
     dp = {"uniforms": True, "tie_margin": TIE_MARGIN}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outp = plain(*pargs, cfg, sweeps, a, diag=dp, temperature=t, **kw)
+    outp = plain(*args, cfg, sweeps, a, diag=dp, temperature=t, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     uk, up = dk["uniforms"], dp["uniforms"]
@@ -385,7 +395,7 @@ def compare(cfg, w, args, ks, zskip: bool, label: str, a=None, t=None,
     check(bool(((uk > 0) & (uk < 1)).all()), f"{label}: uniform outside (0,1)")
 
     c = outk[0].shape[1]
-    dpos = torch.stack([(outk[k] - outp[k])[:cfg.n].abs().amax(0)
+    dpos = torch.stack([(outk[k] - outp[k])[:full.n].abs().amax(0)
                         for k in range(3)]).amax(0)
     de = (outk[3] - outp[3]).abs().reshape(-1)
     acc_same = (outk[5] == outp[5]).all(0)
@@ -414,8 +424,8 @@ def compare(cfg, w, args, ks, zskip: bool, label: str, a=None, t=None,
           f"{label}: pair rows visited differ from the plain envelope")
     # carried energy against a from-scratch recompute (under each chain's
     # own wall when w is a per-chain table)
-    r = ks.from_planes(outk[0], outk[1], outk[2], cfg)
-    exact = total_energy(r, w.to(torch.float32), cfg)
+    r = ks.from_planes(outk[0], outk[1], outk[2], full)
+    exact = total_energy(r, w.to(torch.float32), full)
     err = (outk[3].reshape(-1) - exact).abs()
     check(bool((err <= E_ATOL + E_RTOL * exact.abs()).all()),
           f"{label}: carried E vs recompute off by {float(err.max()):.3g}")
@@ -899,21 +909,28 @@ def check_ensemble_files(d: Path, cfg, chains: int, num: int):
           f"pooled per-gather means not all finite: {pooled[:, 0]}")
 
 
+def cli_argv(n: int, chains: int, eq: int, mx: int, num: int) -> list:
+    """drive_cli's command line (without --data-dir)."""
+    return [str(eq), str(mx), str(num), "1.1", "--n", str(n), "--chains",
+            str(chains), "--sampler", "auto", "--seed", "2024",
+            "--lca-time", "2"]
+
+
 def drive_cli(n: int, chains: int, eq: int, mx: int, num: int, card: str,
-              expect: tuple):
-    """The ensemble CLI at (n, chains) into a temporary data dir: the CSV
-    set, the summary, and the mean energy and acceptance printed exactly
-    as `expect` (the values recorded for these seeds); prints where the
-    run's wall time went; returns the run's launch counts."""
+              expect: tuple, keep: Path | None = None):
+    """The ensemble CLI at (n, chains) into a temporary data dir (`keep`:
+    into that one, kept for a later phase): the CSV set, the summary,
+    and the mean energy and acceptance printed exactly as `expect` (the
+    values recorded for these seeds); prints where the run's wall time
+    went; returns the run's launch counts."""
     from tpu_smc_torch.config import SMCConfig
 
     with tempfile.TemporaryDirectory() as tmp:
-        out, launches, dt, sim = run_main(
-            [str(eq), str(mx), str(num), "1.1", "--n", str(n), "--chains",
-             str(chains), "--sampler", "auto", "--seed", "2024",
-             "--lca-time", "2", "--data-dir", tmp])
+        data = str(keep) if keep is not None else tmp
+        out, launches, dt, sim = run_main(cli_argv(n, chains, eq, mx, num)
+                                          + ["--data-dir", data])
         cfg = SMCConfig.for_n(n)
-        check_ensemble_files(Path(tmp) / cfg.run_name(), cfg, chains, num)
+        check_ensemble_files(Path(data) / cfg.run_name(), cfg, chains, num)
     mean_e = summary_value(out, "Mean energy:")
     acc = summary_value(out, "Average acceptance ratio:")
     check((mean_e, acc) == expect,
@@ -925,7 +942,14 @@ def drive_cli(n: int, chains: int, eq: int, mx: int, num: int, card: str,
           f"chain-sweeps/s end to end incl. observables and CSVs ({card})",
           flush=True)
     print_split(n, mx, chains, dt, sim)
+    if keep is not None:
+        RUNS[n] = {"dir": Path(data) / cfg.run_name(), "s": dt,
+                   "argv": cli_argv(n, chains, eq, mx, num)}
     return launches
+
+
+RUNS = {}   # drive_cli's kept runs by N (run dir, wall s, command line)
+#             and chain 0 of the large-N run (RUNS[32768])
 
 
 # tpu_smc's headers of the ladder CSVs (tsweep.py, pt.py, reweight.py)
@@ -1436,6 +1460,8 @@ def drive_large_n(device, card: str):
           f" over its sweeps; thermalization sweeps "
           f"{spent['sweeps'] - loop_spent['sweeps']:.3f} s ({card})",
           flush=True)
+    # chain 0 of the final state stays for the particle-sharded energy
+    RUNS[32768] = {"r": state.r[0].clone(), "w": w, "cfg": cfg}
     return launches
 
 
@@ -2353,6 +2379,308 @@ def phase_ensemble_family(card: str):
 
 
 # ----------------------------------------------------------------------
+# Phase 3, multi-process and sharded: the main path split over two
+# processes on the one card, one ladder across them, per-process
+# ladders, and the chain- and particle-sharded calls in one process
+# ----------------------------------------------------------------------
+
+# A child rank: cli.main as `python -m tpu_smc_torch` runs it, the kernels'
+# plain versions made to fail if called, its launch counts and wall
+# seconds printed on its last line.
+CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+from tpu_smc_torch import cli
+from tpu_smc_torch.kernels import banded as kb, sweep as ks
+def refuse(*args, **kw):
+    raise RuntimeError("a plain version ran on the main path")
+ks.sweep_block_plain = ks.sweep_block_stream_plain = refuse
+kb.banded_sweep_plain = refuse
+t0 = time.perf_counter()
+rc = cli.main(sys.argv[2:])
+print("CHILD " + json.dumps({"rc": rc, "s": time.perf_counter() - t0,
+                             "launches": ks.sweep_block.launches}),
+      flush=True)
+sys.exit(rc)
+"""
+CHILD_TIMEOUT = 300
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(argv, label: str, tmp: Path, nproc: int = 2) -> list:
+    """`argv` as nproc ranks of one --coordinator job, children on the
+    card, each within CHILD_TIMEOUT s; any failure kills every child and
+    fails. Returns [(output, child record)] per rank, the record with the
+    process's wall seconds from its start (torch import and CUDA start
+    included) as "s_proc" beside cli.main's "s"."""
+    port = free_port()
+    procs, logs, ends = [], [], {}
+    t0 = time.perf_counter()
+    try:
+        for rank in range(nproc):
+            log = open(tmp / f"{label}.rank{rank}.log", "w+")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", CHILD, str(ROOT), *argv,
+                 "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                 str(nproc), "--process-id", str(rank)],
+                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, text=True))
+        deadline = time.perf_counter() + CHILD_TIMEOUT
+        while len(ends) < nproc:
+            for rank, p in enumerate(procs):
+                if rank not in ends and p.poll() is not None:
+                    ends[rank] = time.perf_counter() - t0
+            if any(procs[r].returncode for r in ends):
+                break           # a failed rank: the others are killed
+            if time.perf_counter() > deadline:
+                raise subprocess.TimeoutExpired(argv, CHILD_TIMEOUT)
+            time.sleep(0.05)
+    except subprocess.TimeoutExpired:
+        raise Failure(f"{label}: a rank ran past {CHILD_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = []
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        rec = [ln for ln in text.splitlines() if ln.startswith("CHILD ")]
+        check(p.returncode == 0 and rec,
+              f"{label}: rank {rank} exited {p.returncode}: {text[-2000:]}")
+        out.append((text, dict(json.loads(rec[-1][6:]),
+                               s_proc=ends.get(rank, float("nan")))))
+    return out
+
+
+def add_counts(total: dict, *runs) -> dict:
+    """Launch counts summed over runs (dicts, or child records)."""
+    for r in runs:
+        for k, v in (r.get("launches", r)).items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def drive_split_main(tmp: Path, card: str) -> dict:
+    """(a) phase 3's N = 1024 x 512 run split over two processes, each N =
+    1024 x 256 on K2: every per-rank CSV, data_ensemble, last_state and
+    the wall CSV byte-identical to phase 3's single-process run, the
+    printed mean E and acceptance its recorded ones; both wall times and
+    the aggregate chain-sweeps/s beside the single process's."""
+    from tpu_smc_torch.config import SMCConfig
+
+    one = RUNS[1024]
+    data = tmp / "split"
+    ranks = run_ranks(one["argv"] + ["--data-dir", str(data)], "split", tmp)
+    cfg = SMCConfig.for_n(1024)
+    two = data / cfg.run_name()
+    key = cfg.file_key()
+    names = [f"{s}_{key}_rank{r}.csv" for s in STEMS_RANK
+             for r in range(512)]
+    names += [f"{s}_{key}.csv" for s in ("wall", "data_ensemble",
+                                         "last_state")]
+    diff = [nm for nm in names
+            if (one["dir"] / nm).read_bytes() != (two / nm).read_bytes()]
+    check(not diff, f"(a) split run differs from one process in "
+          f"{len(diff)} files: {diff[:4]}")
+    for rank, (text, rec) in enumerate(ranks):
+        got = (summary_value(text, "Mean energy:"),
+               summary_value(text, "Average acceptance ratio:"))
+        check(got == MAIN_1024, f"(a) rank {rank} printed {got}, one "
+              f"process {MAIN_1024}")
+        lc = rec["launches"]
+        check(lc["zskip"] > 0 and lc["dense"] == lc["stream"] == 0,
+              f"(a) rank {rank} launches {lc}")
+    walls = [rec["s"] for _, rec in ranks]
+    procs = [rec["s_proc"] for _, rec in ranks]
+    argv = one["argv"]
+    sweeps = (int(argv[0]) + int(argv[1])) * 512
+    print(f"  (a) N=1024 x 512 over 2 processes (2 x 256 chains, K2): "
+          f"{len(names)} CSVs byte-identical to one process, mean E / "
+          f"acceptance {MAIN_1024}; wall s per rank {walls[0]:.2f} / "
+          f"{walls[1]:.2f} in cli.main, {procs[0]:.2f} / {procs[1]:.2f} "
+          f"from the process's start, against {one['s']:.2f} s of cli.main "
+          f"in one process; aggregate {sweeps / max(walls):,.0f} chain-"
+          f"sweeps/s over cli.main ({sweeps / max(procs):,.0f} over the "
+          f"processes) against {sweeps / one['s']:,.0f} ({card})",
+          flush=True)
+    return add_counts({}, *[rec for _, rec in ranks])
+
+
+GLOBAL_LADDER = ["32", "96", "3", "1.1", "--n", "1024", "--temperatures",
+                 "0.9,1.1,1.3,1.6", "--chains-per-t", "32", "--pt-exchange",
+                 "auto", "--reweight", "0.9:1.6:8", "--z-bins", "16",
+                 "--seed", "2024"]
+
+
+def drive_global_ladder(tmp: Path, card: str) -> dict:
+    """(b) one PT ladder across two processes (K1-at with z-skip; every
+    exchange gathers the configurations across the process boundary):
+    tsweep, pt, reweight and reweight_zprofile byte-identical to the same
+    command in one process, both ranks and the one process choosing the
+    same auto interval, the gathered checkpoint equal to the single-
+    process one."""
+    from tpu_smc_torch.config import SMCConfig
+
+    t0 = time.perf_counter()
+    out1, l1, dt1, _ = run_main(GLOBAL_LADDER + [
+        "--data-dir", str(tmp / "gl1"), "--checkpoint", str(tmp / "gl1.npz")])
+    ranks = run_ranks(GLOBAL_LADDER + [
+        "--global-ladder", "--data-dir", str(tmp / "gl2"), "--checkpoint",
+        str(tmp / "gl2.npz")], "global_ladder", tmp)
+    cfg = SMCConfig.for_n(1024)
+    d1, d2 = (tmp / g / cfg.run_name() for g in ("gl1", "gl2"))
+    for stem in ("tsweep", "pt", "reweight", "reweight_zprofile"):
+        nm = f"{stem}_{cfg.file_key()}.csv"
+        check((d1 / nm).read_bytes() == (d2 / nm).read_bytes(),
+              f"(b) {nm} differs from one process")
+    iv = [re.search(r"Auto-chosen exchange interval: (\d+)", t)
+          for t in [out1] + [t for t, _ in ranks]]
+    check(all(iv) and len({m.group(1) for m in iv}) == 1,
+          f"(b) auto intervals {[m and m.group(1) for m in iv]}")
+    with np.load(tmp / "gl1.npz") as a, np.load(tmp / "gl2.npz") as b:
+        bad = [k for k in a.files if not np.array_equal(a[k], b[k])]
+        check(sorted(a.files) == sorted(b.files) and not bad,
+              f"(b) gathered checkpoint differs in {bad}")
+    lc = add_counts({}, *[rec for _, rec in ranks])
+    for name, c in (("one process", l1), ("two processes", lc)):
+        check(c["zskip"] > 0 and c["per_chain_at"] == c["zskip"] + c["dense"],
+              f"(b) {name} launches {c}: per-chain (A, T), z-skip")
+    print(f"  (b) global ladder N=1024, 4 x 32, PT auto (interval "
+          f"{iv[0].group(1)}), MBAR: tsweep/pt/reweight/reweight_zprofile "
+          f"and the checkpoint byte-identical across 2 processes; one "
+          f"process {dt1:.1f} s, ranks {ranks[0][1]['s']:.1f} / "
+          f"{ranks[1][1]['s']:.1f} s; {time.perf_counter() - t0:.1f} s in "
+          f"all ({card})", flush=True)
+    return add_counts(lc, l1)
+
+
+PER_PROCESS_LADDER = ["200", "600", "6", "1.1", "--n", "108",
+                      "--temperatures", "1.0,1.2,1.4", "--chains-per-t",
+                      "64", "--pt-exchange", "5", "--seed", "2024"]
+
+
+def drive_per_process_ladders(tmp: Path, card: str) -> dict:
+    """(c) complete PT ladders per process (N = 108, 3 x 64, K1-at),
+    pooled, against one process: pooled swap attempts equal exactly,
+    each level's E within 6 combined SE + 0.3 (tests/test_distributed.py's
+    criterion)."""
+    from tpu_smc_torch.config import SMCConfig
+
+    _, l1, dt1, _ = run_main(PER_PROCESS_LADDER + ["--data-dir",
+                                                   str(tmp / "pl1")])
+    ranks = run_ranks(PER_PROCESS_LADDER + ["--data-dir", str(tmp / "pl2")],
+                      "per_process_ladders", tmp)
+    cfg = SMCConfig.for_n(108)
+    tab = {g: {s: read_csv(tmp / g / cfg.run_name()
+                           / f"{s}_{cfg.file_key()}.csv")[1]
+               for s in ("tsweep", "pt")} for g in ("pl1", "pl2")}
+    s, m = tab["pl1"]["tsweep"], tab["pl2"]["tsweep"]
+    att1, att2 = tab["pl1"]["pt"][:, 3], tab["pl2"]["pt"][:, 3]
+    check(np.array_equal(att1, att2), f"(c) pooled attempts {att2}, one "
+          f"process {att1}")
+    z = np.abs(s[:, 1] - m[:, 1]) - (6 * np.hypot(s[:, 2], m[:, 2]) + 0.3)
+    check(bool((z < 0).all()), f"(c) per-level E {m[:, 1]} against "
+          f"{s[:, 1]} (SE {m[:, 2]}, {s[:, 2]})")
+    lc = add_counts({}, *[rec for _, rec in ranks])
+    check(lc["dense"] > 0 and lc["per_chain_at"] == lc["dense"],
+          f"(c) launches {lc}: dense, per-chain (A, T)")
+    print(f"  (c) per-process ladders N=108, 3 x 64 over 2 processes "
+          f"(2 x 32 replicas each): attempts {att2.astype(int).tolist()} "
+          f"as one process; E {np.round(m[:, 1], 4).tolist()} against "
+          f"{np.round(s[:, 1], 4).tolist()} (SE "
+          f"{np.round(np.hypot(s[:, 2], m[:, 2]), 4).tolist()}); one "
+          f"process {dt1:.1f} s, ranks {ranks[0][1]['s']:.1f} / "
+          f"{ranks[1][1]['s']:.1f} s ({card})", flush=True)
+    return add_counts(lc, l1)
+
+
+def drive_sharded(device, card: str) -> dict:
+    """(d) sharding inside one process on [cuda:0, cuda:0]: the zsorted
+    engine at N = 1024 x 512 (K2), the dense one at N = 108 x 512 (K1)
+    and the streamed one at N = 4096 x 128 (K3), each bitwise the
+    unsharded call; K1 and K2 with chain0 = 256 against their plain
+    versions with the same base (phase 2's tolerances); the particle-
+    sharded energy of one chain of the density-matched N = 32768 state
+    over 4 shards within 1e-5 relative of the full recompute (chain 0
+    of the large-N run's final state, 48 sweeps from the lattice, whose
+    pairs interact; the lattice's hardly do)."""
+    from tpu_smc_torch import ensemble as en
+    from tpu_smc_torch.config import SMCConfig
+    from tpu_smc_torch.potentials import total_energy
+    from tpu_smc_torch.state import init_ensemble_state, seed_words
+
+    mesh = en.make_mesh(devices=[device, device])
+    counts = {}
+    for label, n, c, sweeps, fn, kw in (
+            ("zsorted", 1024, 512, 32, "zsorted", {}),
+            ("dense", 108, 512, 32, "dense", {}),
+            ("zsorted streamed", 4096, 128, 8, "zsorted",
+             {"hbm_stream": True})):
+        cfg = SMCConfig.for_n(n)
+        state, w = init_ensemble_state(cfg, seed_words(7), c, device=device)
+        one_fn = getattr(en, f"ensemble_sweeps_{fn}")
+        two_fn = getattr(en, f"ensemble_sweeps_{fn}_sharded")
+        with main_path() as lc:
+            t0 = time.perf_counter()
+            one, s1 = one_fn(state, w, cfg, cfg.proposal_a, sweeps, seed=5,
+                             **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            two, s2 = two_fn(state, w, cfg, cfg.proposal_a, sweeps, 5, mesh,
+                             **kw)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        check(torch.equal(one.r, two.r) and torch.equal(one.energy, two.energy)
+              and torch.equal(s1.energy, s2.energy)
+              and torch.equal(s1.accepted, s2.accepted),
+              f"(d) {label} N={n} x {c}: two shards differ from one call")
+        add_counts(counts, lc)
+        print(f"  (d) {label} N={n} x {c}, {sweeps} sweeps over 2 shards: "
+              f"bitwise one call; {1e3 * (t1 - t0):.1f} ms one call, "
+              f"{1e3 * (t2 - t1):.1f} ms sharded ({card})", flush=True)
+    for n, c, zskip in ((108, 64, False), (1024, 128, True)):
+        cfg, w, args, ks = kernel_inputs(n, c, device, sort=zskip)
+        compare(cfg, w, args, ks, zskip,
+                f"(d) {'zskip' if zskip else 'dense'} chain0=256 N={n} "
+                f"C={c}", chain0=256)
+    r, w, cfg = (RUNS[32768][k] for k in ("r", "w", "cfg"))
+    full = float(total_energy(r[None], w, cfg)[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e4 = en.particle_sharded_energy(r, w, cfg, [device] * 4)
+    dt = time.perf_counter() - t0
+    rel = abs(e4 - full) / abs(full)
+    check(rel <= 1e-5, f"(d) particle-sharded energy {e4} against the full "
+          f"recompute {full} ({rel:.3g} relative)")
+    print(f"  (d) particle-sharded energy N=32768 (density-matched box, "
+          f"chain 0 after the large-N run), 4 shards: {e4:.6f} against the "
+          f"full recompute {full:.6f} "
+          f"({rel:.3g} relative), {dt * 1e3:.1f} ms ({card})", flush=True)
+    return counts
+
+
+def phase_multiprocess(device, card: str):
+    """The phase's runs (a)-(d). Returns their launch counts summed:
+    (uniform (A, T) runs (a) and (d), the ladders (b) and (c))."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        uniform = drive_split_main(tmp, card)
+        ladders = drive_global_ladder(tmp, card)
+        add_counts(ladders, drive_per_process_ladders(tmp, card))
+    return add_counts(uniform, drive_sharded(device, card)), ladders
+
+
+# ----------------------------------------------------------------------
 # Phase 5: diagnostics and tooling (device trace, z-skip cost model,
 # checked sweep, analysis CLI, examples)
 # ----------------------------------------------------------------------
@@ -2733,27 +3061,40 @@ def kernel_case(n: int, c: int, zskip: bool, device, sweeps: int = 2,
                                   else "operations"))
 
 
-# chains of K3's N = 32768 x 128 launch held against the plain version
-# (one plain sweep of all 128 took ~175-190 s of the run)
-K3_PLAIN_CHAINS = 16
+# K3's plain comparison at N = 32768: windows of K3_WINDOW moves that
+# start at the bottom, the middle and the top of the z-sorted slab (the
+# plain version's cost is per move, ~6 ms of launches and two host syncs,
+# whatever the chain count; a whole sweep took 175-224 s of the run)
+K3_WINDOW = 1024
+K3_WINDOW_STARTS = (0.0, 0.5, 1.0)
 
 
 def stream_case(device, card: str):
     """K3 at the large-N main path's shape (the density-matched N = 32768
-    box x 128 chains), one sweep per call: its first K3_PLAIN_CHAINS
-    chains against the plain version of those chains as in phase 2
-    (every lane then walks 8 blocks of the envelope scan), the plain
-    version's ms on them, the bound from the visited rows of all 128
-    chains (a diagnostic launch) and the kernel's ms on all 128; and K3
-    against K2 in turns at N = 16384 x 128, where both fit. Returns the
-    kernels-line fields it measures."""
+    box x 128 chains), one sweep per call: against its plain version as
+    in phase 2 on all 128 chains, over windows of K3_WINDOW moves at the
+    bottom, the middle and the top of the z-sorted slab (the planes
+    rolled by a multiple of 128 rows so that the window's rows lead and
+    the blocks stay whole; a config with n = K3_WINDOW moves them, every
+    row still interacts, carried energies against a recompute of all
+    rows); the plain version's ms over the windows, the bound from the
+    visited rows of a whole sweep (a diagnostic launch) and the kernel's
+    ms on the whole sweep; and K3 against K2 in turns at N = 16384 x 128,
+    where both fit. Returns the kernels-line fields it measures."""
     cfg = large_n_config()
     c, sweeps = 128, 1
     cfg, w, args, ks = kernel_inputs(cfg.n, c, device, sweeps=sweeps,
                                      sort=True, cfg=cfg)
-    cmp = compare(cfg, w, args, ks, True,
-                  f"K3 vs plain N={cfg.n}, chains 0-{K3_PLAIN_CHAINS - 1} "
-                  f"of C={c}", stream=True, plain_chains=K3_PLAIN_CHAINS)
+    max_err, plain_ms = 0.0, 0.0
+    for f in K3_WINDOW_STARTS:
+        k0 = int(f * (cfg.n - K3_WINDOW)) // ks.ROW_BLOCK * ks.ROW_BLOCK
+        rolled = tuple(torch.roll(p, -k0, 0) for p in args[:3]) + args[3:]
+        cmp = compare(cfg, w, rolled, ks, True,
+                      f"K3 vs plain N={cfg.n} x {c}, moves of rows "
+                      f"{k0}-{k0 + K3_WINDOW - 1} of the z-sorted slab",
+                      stream=True, moves=K3_WINDOW)
+        max_err = max(max_err, cmp["max_err"])
+        plain_ms += cmp["plain_ms"]
     dk = {}
     ks.sweep_block_stream(*args, cfg, sweeps, cfg.proposal_a, diag=dk)
     visited = float(dk["visited"].double().sum())
@@ -2768,8 +3109,8 @@ def stream_case(device, card: str):
                                                cfg.proposal_a), reps=3)
     print(f"  sweep_stream N={cfg.n} x {c}, {sweeps} sweep: kernel {ms:.3f} "
           f"ms ({sweeps * c / ms * 1e3:.1f} chain-sweeps/s), plain "
-          f"{cmp['plain_ms']:.1f} ms on {K3_PLAIN_CHAINS} of the {c} "
-          f"chains, bound "
+          f"{plain_ms:.1f} ms for {len(K3_WINDOW_STARTS)} x {K3_WINDOW} of "
+          f"the sweep's {cfg.n} moves, bound "
           f"{max(t_bytes, t_ops):.4f} ms ({'bytes' if t_bytes > t_ops else 'operations'}; "
           f"inputs read once), its envelope rows streamed at the HBM rate "
           f"{streamed:.3f} ms, visited rows per pass "
@@ -2784,8 +3125,8 @@ def stream_case(device, card: str):
     print(f"  N=16384 x {c}, 1 sweep, in turns: K2 (resident z-skip) "
           f"{turns['K2']:.3f} ms, K3 (streamed) {turns['K3']:.3f} ms "
           f"({turns['K3'] / turns['K2'] - 1:+.1%}) ({card})", flush=True)
-    return dict(max_abs_err=cmp["max_err"], ms=ms,
-                plain_ms=cmp["plain_ms"], bound_ms=max(t_bytes, t_ops),
+    return dict(max_abs_err=max_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes > t_ops else "operations")
 
 
@@ -2981,7 +3322,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     launches = {}
-    launches["zskip"] = drive_cli(1024, 512, 64, 192, 3, card, MAIN_1024)
+    # phase 3's N = 1024 x 512 run stays for the split run of (a) below
+    kept = tempfile.TemporaryDirectory()
+    launches["zskip"] = drive_cli(1024, 512, 64, 192, 3, card, MAIN_1024,
+                                  keep=Path(kept.name))
     check(launches["zskip"]["zskip"] > 0 and launches["zskip"]["dense"]
           == launches["zskip"]["stream"] == 0,
           f"N=1024 main path launches {launches['zskip']}")
@@ -3080,17 +3424,25 @@ def main() -> int:
     phase_ensemble_family(card)
     phase_line("main path, ensemble family (GCMC, NPT, Gibbs)", t0)
 
+    # before phase 5: a profiled process keeps CUPTI's per-launch cost
+    t0 = time.perf_counter()
+    lmp, lmp_ladders = phase_multiprocess(device, card)
+    kept.cleanup()
+    phase_line("main path, multi-process and sharded (split CLI, global "
+               "ladder, per-process ladders, sharded engines)", t0)
+
     t0 = time.perf_counter()
     cycle_split(device, card)
     cases = (
         ("sweep_dense", 108, False, {}, "tpu_smc/kernels/sweep_pallas.py:992",
-         launches["dense"]["dense"] + lsingle["dense"]),
+         launches["dense"]["dense"] + lsingle["dense"] + lmp["dense"]),
         ("sweep_zskip", 1024, True, {}, "tpu_smc/kernels/sweep_pallas.py:306",
-         launches["zskip"]["zskip"] + lsingle["zskip"] + lmeas["zskip"]),
+         launches["zskip"]["zskip"] + lsingle["zskip"] + lmeas["zskip"]
+         + lmp["zskip"]),
         ("sweep_per_chain_at", 108, False, {"at": True},
          "tpu_smc/kernels/sweep_pallas.py:475",
          la["per_chain_at"] + lb["per_chain_at"] + ld["per_chain_at"]
-         + lmlad["per_chain_at"]),
+         + lmlad["per_chain_at"] + lmp_ladders["per_chain_at"]),
         ("sweep_per_chain_w", 108, False, {"walls": 8},
          "tpu_smc/kernels/sweep_pallas.py:1064",
          lb["per_chain_w"] + lc["per_chain_w"]))
@@ -3128,7 +3480,8 @@ def main() -> int:
     rows.append({"name": "sweep_stream", "route": "cuda",
                  "source": "tpu_smc_torch/kernels/csrc/sweep.cu",
                  "replaces": "tpu_smc/kernels/sweep_pallas.py:1153",
-                 "launches": large["stream"] + large_cli["stream"],
+                 "launches": large["stream"] + large_cli["stream"]
+                 + lmp["stream"],
                  **stream_case(device, card), "library_ms": None})
     for row, (_, n, *_) in zip(rows[:len(cases)], cases):
         row["ms"] = ms[row["name"]]

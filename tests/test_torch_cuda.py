@@ -10,6 +10,8 @@ elsewhere. Imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -470,6 +472,33 @@ def _layers(n, gap=3.6, side=12, spacing=1.5, jitter=0.05, seed=3):
     return r + rng.normal(0.0, jitter, (n, 3))
 
 
+# moves of a window at A = 8 (test_grouped_rows_edges): the kernel and
+# the plain version start each window from the same planes
+A8_WINDOW = 512
+
+
+def _held_against_plain(args, cfg, a, close):
+    """One z-skip sweep of `cfg` (its first cfg.n rows move) against the
+    plain version on identical draws, as in chip_smoke: on every chain
+    without a near-tie move the same accepted moves, visited rows within
+    1 %; close: positions and energies too (_agree). Returns the plain
+    version's diagnostics."""
+    dk, dp = {"uniforms": True}, {"uniforms": True, "tie_margin": 1e-3}
+    outk = ks.sweep_block(*args, cfg, 1, a, zskip=True, diag=dk)
+    outp = ks.sweep_block_plain(*args, cfg, 1, a, zskip=True, diag=dp)
+    torch.cuda.synchronize()
+    assert torch.equal(dk["uniforms"], dp["uniforms"])
+    clean = dp["near_ties"] == 0
+    assert int(clean.sum()) >= 8
+    assert torch.equal(outk[5][:, clean], outp[5][:, clean])
+    vk, vp = dk["visited"][clean], dp["visited"][clean]
+    assert bool(((vk - vp).abs() <= 0.01 * vp).all())
+    if close:
+        _agree([o[..., clean] for o in outk],
+               [o[..., clean] for o in outp], int(clean.sum()))
+    return dp
+
+
 @pytest.mark.parametrize("n", [108, 1000, 4096])
 def test_grouped_rows_edges(cuda, n):
     """The grouped row loop at its edges, on layers whose envelope is one
@@ -477,17 +506,24 @@ def test_grouped_rows_edges(cuda, n):
     default mobility and at A = 4 and 8, whose proposals leave the stack
     (an empty envelope: at N = 108, one block, fewer rows visited than
     every pass over it); n_pad = 112, 1000 (not multiples of 128 x 4) and
-    4096. At every mobility: z-skip bitwise the dense pass, and against
-    the plain version on identical draws as in chip_smoke: on every chain
-    without a near-tie move (|min(log_ap, 0) - log u| < 1e-3, where
-    float32 rounding may flip a decision) the same accepted moves and
-    visited rows within 1 % (a block whose bound lies within rounding of
-    a window's edge may count on one side only). At the default mobility
-    and at A = 4 also positions within 1e-2 and energies within rtol
-    1e-4, atol 5e-2 on those chains; at A = 8 only the decisions and the
-    visited rows are held against plain (the step's F A/T term carries
-    the float32 rounding of large forces past that position tolerance),
-    the positions only bitwise against the dense pass."""
+    4096. At every mobility: z-skip bitwise the dense pass over the
+    sweep, and against the plain version on identical draws as in
+    chip_smoke: on every chain without a near-tie move (|min(log_ap, 0) -
+    log u| < 1e-3, where float32 rounding may flip a decision) the same
+    accepted moves and visited rows within 1 % (a block whose bound lies
+    within rounding of a window's edge may count on one side only). At
+    the default mobility and at A = 4 over the sweep, with positions
+    within 1e-2 and energies within rtol 1e-4, atol 5e-2 on those chains.
+    At A = 8 the step's F A/T term carries the float32 rounding of large
+    forces into the positions, and over a sweep of 4096 moves the two
+    versions' movers drift apart by up to 1.7e-2; a later decision can
+    then flip far from a tie (scripts/torch_lane_order.py), which the
+    margin does not cover. So at A = 8 the sweep's moves are held against
+    plain in windows of A8_WINDOW moves that each start from the same
+    planes (rolled by a multiple of 128 rows so the window's rows lead; a
+    config with n = the window moves them, every row still interacts),
+    decisions and visited rows only; the positions only bitwise against
+    the dense pass."""
     layers = -(-n // 128)
     cfg = SMCConfig(n=n, box_l=18.0, box_lz=layers * 3.6 + 24.0)
     x, y, z, e, wa, wb, offsets, words = _cfg_inputs(cfg, 64, cuda,
@@ -495,23 +531,16 @@ def test_grouped_rows_edges(cuda, n):
     args = (x, y, z, e, wa, wb, offsets[:1], words[:1])
     n_pad = x.shape[0]
     for a, close in ((cfg.proposal_a, True), (4.0, True), (8.0, False)):
-        dk, dp = {"uniforms": True}, {"uniforms": True, "tie_margin": 1e-3}
-        outk = ks.sweep_block(*args, cfg, 1, a, zskip=True, diag=dk)
-        outp = ks.sweep_block_plain(*args, cfg, 1, a, zskip=True, diag=dp)
+        outk = ks.sweep_block(*args, cfg, 1, a, zskip=True)
         dense = ks.sweep_block(*args, cfg, 1, a)
-        torch.cuda.synchronize()
         for u, v in zip(dense, outk):
             assert torch.equal(u, v)
-        assert torch.equal(dk["uniforms"], dp["uniforms"])
-        clean = dp["near_ties"] == 0
-        assert int(clean.sum()) >= 8
-        assert torch.equal(outk[5][:, clean], outp[5][:, clean])
-        vk, vp = dk["visited"][clean], dp["visited"][clean]
-        assert bool(((vk - vp).abs() <= 0.01 * vp).all())
-        if close:
-            _agree([o[..., clean] for o in outk],
-                   [o[..., clean] for o in outp], int(clean.sum()))
         assert int(outk[5].sum()) > 0
+        win = n if close else A8_WINDOW
+        for k0 in range(0, n, win):
+            part = dataclasses.replace(cfg, n=min(win, n - k0))
+            wargs = tuple(torch.roll(p, -k0, 0) for p in args[:3]) + args[3:]
+            dp = _held_against_plain(wargs, part, a, close)
         if n == 108 and a > cfg.proposal_a:
             assert float(dp["visited"].double().mean()) < 2 * n * n_pad
 
@@ -809,3 +838,80 @@ def test_ensemble_family_graphs_replay_the_eager_sweeps(cuda, mode,
     eager, _ = run()
     for f in fields:
         assert torch.equal(getattr(graphed, f), getattr(eager, f)), f
+
+
+def _cols(args, lo, hi):
+    """Columns lo..hi-1 of a launch's planes and energy row."""
+    x, y, z, e, wa, wb, offsets, words = args
+    return tuple(p[:, lo:hi].contiguous() for p in (x, y, z, e)) + (
+        wa, wb, offsets, words)
+
+
+@pytest.mark.parametrize("kind", ["dense", "zskip", "stream", "refnoise"])
+def test_chain0_kernel_matches_plain(cuda, kind):
+    """K1, K2, K3 and K1-rn with chain base chain0 = 256 against their
+    plain versions with the same base: the dumped uniforms bitwise,
+    trajectories within test_kernel_matches_plain's tolerances; and
+    columns 4..7 launched alone with chain0 = 4 bitwise those columns of
+    the 8-column launch."""
+    if kind == "refnoise":
+        cfg = SMCConfig.for_n(108, reference_noise=True)
+        args = _cfg_inputs(cfg, 32, cuda)
+    else:
+        cfg, args = _inputs(300, 32, cuda, kind != "dense")
+    kernel, plain = {
+        "stream": (ks.sweep_block_stream, ks.sweep_block_stream_plain)}.get(
+        kind, (ks.sweep_block, ks.sweep_block_plain))
+    kw = {"zskip": True} if kind == "zskip" else {}
+    dk, dp = {"uniforms": True}, {"uniforms": True}
+    outk = kernel(*args, cfg, 2, cfg.proposal_a, diag=dk, chain0=256, **kw)
+    outp = plain(*args, cfg, 2, cfg.proposal_a, diag=dp, chain0=256, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dk["uniforms"], dp["uniforms"])
+    _agree(outk, outp, 28)
+    base = kernel(*args, cfg, 2, cfg.proposal_a, **kw)
+    assert not torch.equal(base[0], outk[0])
+    wide = kernel(*_cols(args, 0, 8), cfg, 2, cfg.proposal_a, **kw)
+    part = kernel(*_cols(args, 4, 8), cfg, 2, cfg.proposal_a, chain0=4,
+                  **kw)
+    for u, v in zip(part, wide):
+        assert torch.equal(u, v[:, 4:])
+
+
+def test_debug_reference_noise_chain0(cuda):
+    """K5 with a chain base: columns of global chains 100..163, within
+    1e-6 of reference_noise_plane with the same base, and bitwise the
+    columns 100.. of a plane from chain 0."""
+    d = ks.debug_reference_noise((12345, 678), 512, 64, 0.3, cuda,
+                                 chain0=100)
+    p = ks.reference_noise_plane((12345, 678), 512, 64, 0.3, cuda,
+                                 chain0=100)
+    assert float((d - p).abs().max()) <= 1e-6
+    wide = ks.debug_reference_noise((12345, 678), 512, 164, 0.3, cuda)
+    assert torch.equal(d, wide[:, 100:])
+
+
+@pytest.mark.parametrize("engine", ["dense", "zsorted", "stream"])
+def test_two_shards_on_one_card_bitwise(cuda, engine):
+    """The sharded engines over [cuda:0, cuda:0] (two launches, each with
+    its chain0) are bitwise the single call."""
+    n = 108 if engine == "dense" else 1024
+    cfg = SMCConfig.for_n(n)
+    state, w = init_ensemble_state(cfg, seed_words(3), 64, device=cuda)
+    mesh = ten.make_mesh(devices=[cuda, cuda])
+    if engine == "dense":
+        one = ten.ensemble_sweeps_dense(state, w, cfg, cfg.proposal_a, 4,
+                                        seed=9)
+        two = ten.ensemble_sweeps_dense_sharded(state, w, cfg,
+                                                cfg.proposal_a, 4, 9, mesh)
+    else:
+        kw = dict(hbm_stream=engine == "stream", sweeps_per_sort=2)
+        one = ten.ensemble_sweeps_zsorted(state, w, cfg, cfg.proposal_a, 4,
+                                          seed=9, **kw)
+        two = ten.ensemble_sweeps_zsorted_sharded(state, w, cfg,
+                                                  cfg.proposal_a, 4, 9,
+                                                  mesh, **kw)
+    for u, v in ((one[0].r, two[0].r), (one[0].energy, two[0].energy),
+                 (one[1].energy, two[1].energy),
+                 (one[1].accepted, two[1].accepted)):
+        assert torch.equal(u, v)

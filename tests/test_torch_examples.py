@@ -13,11 +13,10 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
 EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
-# tpu_smc's examples, less large_n_sharded.py (multi-device, still to
-# port)
+# tpu_smc's examples, every one
 PORTED = ("adsorption_isotherm", "chemical_potential", "coexistence",
-          "equation_of_state", "parallel_tempering", "phase_curve",
-          "run_ensemble", "temperature_sweep", "umbrella_pmf",
+          "equation_of_state", "large_n_sharded", "parallel_tempering",
+          "phase_curve", "run_ensemble", "temperature_sweep", "umbrella_pmf",
           "wall_disorder")
 
 
@@ -62,3 +61,13 @@ def test_chemical_potential_runs_reduced(capsys):
     assert "volume-averaged mu_ex" in out and "mu_ex(T) via MBAR" in out
     assert np.isfinite(mu) and np.isfinite(err)
     assert len(rw.mu_ex) == 7 and np.all(np.isfinite(rw.mu_ex))
+
+
+def test_large_n_sharded_runs_small(capsys):
+    """The particle-sharded energy over 4 CPU shards equals the full
+    recompute (float32 positions, float64 sums) at N = 64."""
+    mod = _load(ROOT / "examples" / "torch_large_n_sharded.py")
+    e, full = mod.main(["--device", "cpu", "--n", "64", "--chains", "2"])
+    out = capsys.readouterr().out
+    assert "shards: 4" in out and "particle-sharded total energy" in out
+    assert np.isfinite(e) and abs(e - full) <= 1e-6 * max(1.0, abs(full))

@@ -72,10 +72,9 @@ def test_cli_covers_every_jax_option():
         "--gcmc", "--gcmc-cap", "--gcmc-exchanges", "--gcmc-grid", "--npt",
         "--npt-grid", "--npt-dlnv", "--npt-reweight", "--gibbs",
         "--gibbs-transfers", "--gibbs-cap", "--gibbs-temps",
-        "--profile-dir"}
-    assert set(tcli.NOT_PORTED) == {
-        "--platform", "--x64", "--coordinator",
-        "--num-processes", "--process-id", "--global-ladder"}
+        "--profile-dir", "--coordinator", "--num-processes",
+        "--process-id", "--global-ladder"}
+    assert set(tcli.NOT_PORTED) == {"--platform", "--x64"}
 
 
 @pytest.mark.parametrize("flag", [
@@ -84,12 +83,11 @@ def test_cli_covers_every_jax_option():
 def test_cli_refuses_unported_options(flag, capsys):
     """Unported options exit 2 by name; so does a ported mode or option
     (the temperature ladder, the bulk fluid, the device trace, g(r))
-    combined with one (--global-ladder, --x64, --platform,
-    --coordinator)."""
-    extra = {"--temperatures=1.0,1.2": ["--global-ladder"],
+    combined with one (--x64, --platform)."""
+    extra = {"--temperatures=1.0,1.2": ["--x64"],
              "--bulk": ["--x64"],
              "--profile-dir=trace": ["--platform=cpu"],
-             "--gr-bins=8": ["--coordinator=localhost:1"]}.get(flag, [])
+             "--gr-bins=8": ["--platform"]}.get(flag, [])
     with pytest.raises(SystemExit) as exc:
         tcli.main(["1", "2", "1", "1.1", "--device", "cpu", flag] + extra)
     assert exc.value.code == 2

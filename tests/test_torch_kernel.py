@@ -218,6 +218,38 @@ def test_zskip_on_off_bitwise_plain():
     assert bool((dz["visited"] < dd["visited"]).all())
 
 
+def test_plain_move_trace():
+    """diag={"moves": True}: each move's decision, log_ap, log u and the
+    mover's position after it, in move order: away from a tie the
+    decisions are log_ap >= 0 or log u < log_ap, they add up to the
+    acceptance trace,
+    every row's last position is the sweep's result, and the traced run
+    is bitwise an untraced one."""
+    n, c, sweeps = 300, 3, 2
+    cfg = TConfig.for_n(n)
+    state, w = init_ensemble_state(cfg, seed_words(9), c,
+                                   r0=_sorted_start(n, 1, 3)[0],
+                                   device="cpu")
+    x, y, z, e, wa, wb = ten._kernel_inputs(state, w, cfg)
+    words, offsets = ten._per_sweep_randomness(state, cfg, 3, sweeps)
+    args = (x, y, z, e, wa, wb, offsets, words, cfg, sweeps, cfg.proposal_a)
+    d = {"moves": True}
+    out = ks.sweep_block_plain(*args, zskip=True, diag=d)
+    for a, b in zip(out, ks.sweep_block_plain(*args, zskip=True)):
+        assert torch.equal(a, b)
+    mv = d["moves"]
+    assert mv["r"].shape == (sweeps * n, 3, c)
+    acc, log_ap, log_u = mv["accept"], mv["log_ap"], mv["log_u"]
+    clear = (torch.clamp(log_ap, max=0.0) - log_u).abs() > 1e-5
+    assert torch.equal(acc[clear], ((log_ap >= 0) | (log_u < log_ap))[clear])
+    assert torch.equal(acc.reshape(sweeps, n, c).sum(1).to(torch.int32),
+                       out[5])
+    last = offsets[-1] + torch.arange(n)
+    rows = last % n
+    planes = torch.stack(out[:3], 1)[rows]
+    assert torch.equal(mv["r"][-n:], planes)
+
+
 def test_interpret_pallas_bookkeeping_beside_dense_engine():
     """tpu_smc's Pallas engine (interpret mode) and the port's dense engine
     from one carried-across state: the PRNGs differ, so compare what does

@@ -46,10 +46,9 @@ def test_single_chain_is_chain0_of_ensemble(chains, seed):
     each chain's draws depend on (run seed or chain 0's key, absolute
     sweep, chain index) only, and its sums run over particles, in an
     order set by N alone. (The kernels' plain versions add their 128
-    lane sums with torch's sum(), whose order follows the chain count's
-    layout, so there one chain agrees with chain 0 to float32 rounding
-    only; the kernels themselves hold the property, tests/
-    test_torch_cuda.py.)"""
+    lane sums in a fixed order, so a chain's result does not depend on
+    the chain count there either, tests/test_torch_distributed.py; the
+    kernels hold the property on the card, tests/test_torch_cuda.py.)"""
     cfg = TConfig.for_n(N, storage_time=2, lca_time=2)
     params = RunParams(eqsteps=2, maxsteps=8, numdata=4)
     opts = ObservableOptions(stream_seed=seed)

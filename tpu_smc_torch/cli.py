@@ -9,15 +9,22 @@ measurement layer: g(r), rho(z), P_N/P_T(z) and S(k) (--gr-bins,
 umbrella sampling with replica exchange between windows (--umbrella);
 and the ensemble family (cli_ensembles): grand-canonical MC (--gcmc,
 --gcmc-grid), constant pressure (--npt, --npt-grid, --npt-reweight) and
-the Gibbs ensemble (--gibbs, --gibbs-temps).
+the Gibbs ensemble (--gibbs, --gibbs-temps); and multi-process runs on
+torch.distributed (--coordinator, --num-processes, --process-id): the
+chains split evenly over the processes, each keyed by its global index
+(bitwise the single-process run), pooled at the end, or one ladder
+spanning the processes (--global-ladder).
 
     python -m tpu_smc_torch EQSTEPS MAXSTEPS NUMDATA T [options]
     python -m tpu_smc_torch EQSTEPS MAXSTEPS NUMDATA T --chains C [options]
     python -m tpu_smc_torch EQSTEPS MAXSTEPS NUMDATA T --temperatures T1,T2,..
     python -m tpu_smc_torch EQSTEPS MAXSTEPS NUMDATA T --umbrella=Z1:Z2:K
+    python -m tpu_smc_torch ... --seed S --coordinator HOST:PORT \
+        --num-processes P --process-id p        (one command per process)
 
-Runs on the CUDA device unless `--device cpu` is given. Options of the JAX
-CLI that this port does not have yet are recognised and refused by name.
+Runs on the CUDA device unless `--device cpu` is given. The two options
+of the JAX CLI that `--device` and `--dtype` replace (--platform, --x64)
+are recognised and refused by name.
 """
 
 from __future__ import annotations
@@ -27,11 +34,9 @@ import contextlib
 import sys
 import time
 
-# Options of `python -m tpu_smc` that are not ported yet.
-NOT_PORTED = (
-    "--platform", "--x64",
-    "--coordinator", "--num-processes", "--process-id", "--global-ladder",
-)
+# Options of `python -m tpu_smc` that are not ported: --device and --dtype
+# take their place.
+NOT_PORTED = ("--platform", "--x64")
 
 
 def _exchange_arg(v: str):
@@ -177,6 +182,24 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="K",
                    help="replica exchange between adjacent windows every K "
                         "sweeps (REUS); per-pair swap acceptance reported")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-process mode: the torch.distributed (gloo) "
+                        "rendezvous, served by process 0 (the reference's "
+                        "mpirun model: chains split evenly, every draw "
+                        "keyed by the global chain index, pooled stats "
+                        "gathered; requires --num-processes/--process-id "
+                        "and a fixed --seed)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="total processes in the --coordinator job")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's index in the --coordinator job")
+    p.add_argument("--global-ladder", action="store_true",
+                   help="with --coordinator and --temperatures: run ONE "
+                        "ladder whose chain axis is split over all "
+                        "processes instead of complete per-process ladders; "
+                        "PT exchanges then swap configurations across "
+                        "processes (--pt-exchange auto allowed: every "
+                        "process computes the same probe)")
     p.add_argument("--profile-dir", default=None, metavar="DIR",
                    help="capture a torch.profiler device trace of the "
                         "simulation call here (trace.json, "
@@ -260,6 +283,75 @@ def _engine_label(sampler: str, cfg, device: str) -> str:
     return sampler
 
 
+def _distributed_refusals(args, mode, wall_k: int) -> None:
+    """The multi-process options' usage errors, all before the rendezvous
+    (which waits for every process, so a usage error must fail first),
+    with tpu_smc's wording (tpu_smc/cli.py:395-452, and the single-process
+    modes at :534, :587, :697, :769, :847)."""
+    if args.global_ladder and not args.coordinator:
+        raise SystemExit("--global-ladder needs --coordinator (it spans the "
+                         "processes of a torch.distributed job)")
+    if not args.coordinator:
+        return
+    if args.num_processes is None or args.process_id is None:
+        raise SystemExit("--coordinator needs --num-processes and "
+                         "--process-id")
+    from .distributed import check_coordinator
+
+    try:
+        check_coordinator(args.coordinator, args.num_processes,
+                          args.process_id)
+    except ValueError as err:
+        raise SystemExit(str(err)) from None
+    if args.resume:
+        raise SystemExit("--coordinator with --resume is not supported; "
+                         "resume single-process, then restart the "
+                         "multi-process run from its last_state")
+    if args.global_ladder and not args.temperatures:
+        raise SystemExit("--global-ladder needs a --temperatures ladder")
+    nproc = args.num_processes
+    if args.temperatures and not args.global_ladder:
+        # complete replica ladders per process, pooled at the end
+        if args.pt_exchange == "auto":
+            raise SystemExit(
+                "--coordinator ladders need a fixed --pt-exchange interval "
+                "(per-process probes could choose different intervals) "
+                "unless --global-ladder (one shared probe); probe "
+                "single-process first, then pass the value")
+        if args.chains_per_t < nproc or args.chains_per_t % nproc:
+            raise SystemExit(f"--chains-per-t {args.chains_per_t} must "
+                             f"divide evenly over {nproc} processes")
+    elif not args.temperatures and (args.chains < nproc
+                                    or args.chains % nproc):
+        raise SystemExit(f"--chains {args.chains} must divide evenly over "
+                         f"{nproc} processes")
+    if args.seed is None:
+        raise SystemExit("--coordinator needs an explicit --seed (all "
+                         "processes must agree on the key stream)")
+    if nproc > 1:
+        for flag, on, scale in (("--gcmc", mode == "gcmc", "--chains"),
+                                ("--npt", mode == "npt", "--chains"),
+                                ("--gibbs", mode == "gibbs", "--chains"),
+                                ("--umbrella", bool(args.umbrella),
+                                 "--umbrella-replicas")):
+            if on:
+                raise SystemExit(f"{flag} is single-process (scale with "
+                                 f"{scale})")
+        if wall_k > 1 and args.temperatures:
+            raise SystemExit("--wall-realizations ladders are single-process "
+                             "(use more chains-per-t instead)")
+
+
+def _ck_with_suffix(ck: str, suffix: str) -> str:
+    """`ck` with a per-process suffix before its extension: every rank of
+    a multi-process run writes its own checkpoint of its own chains
+    (tpu_smc/cli.py:1595-1604)."""
+    if not suffix:
+        return ck
+    root, dot, ext = ck.rpartition(".")
+    return f"{root}{suffix}{dot}{ext}" if dot else ck + suffix
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -279,6 +371,7 @@ def main(argv=None) -> int:
         raise SystemExit("--rho sets the bulk box; it needs --bulk (the slab "
                          "geometry is fixed by --n/--m)")
     wall_k = max(1, args.wall_realizations)
+    _distributed_refusals(args, mode, wall_k)
     centers = _umbrella_refusals(args, wall_k) if args.umbrella else None
     if wall_k > 1:
         if args.bulk:
@@ -313,6 +406,23 @@ def main(argv=None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("tpu_smc_torch: no CUDA device available; pass "
                          "--device cpu to run on the CPU")
+    nproc, rank = 1, 0
+    if args.coordinator:
+        from .distributed import init_distributed, process_count
+
+        rank = init_distributed(args.coordinator, args.num_processes,
+                                args.process_id)
+        nproc = process_count()
+        local_desc = (
+            "a shard of the ONE global ladder"
+            if args.temperatures and args.global_ladder
+            else f"{args.chains_per_t // nproc} of {args.chains_per_t} "
+                 "replica ladders" if args.temperatures
+            else f"{args.chains // nproc} of {args.chains} chains")
+        n_dev = torch.cuda.device_count() if args.device == "cuda" else 1
+        print(f"Multi-process run: process {rank}/{nproc}, {local_desc} "
+              f"locally ({n_dev} local devices"
+              f"{_take_card(args.device, rank)})", flush=True)
 
     from . import io as smcio
     from .config import RunParams, SMCConfig
@@ -365,7 +475,8 @@ def main(argv=None) -> int:
         w_np = w_k[0]
     else:
         w_np, x0, ym = build_walls(cfg, seed=args.wall_seed)
-    smcio.write_wall_csv(d, cfg, x0, ym)
+    if rank == 0:
+        smcio.write_wall_csv(d, cfg, x0, ym)
 
     seed = args.seed if args.seed is not None else int(time.time())
     if ck is not None and ck.stream_seed is not None:
@@ -384,8 +495,12 @@ def main(argv=None) -> int:
         return _run_umbrella(args, cfg, params, d, w_np, seed, centers)
     if args.temperatures:
         return _run_ladder(args, cfg, params, d, w_np, w_k, sampler, seed,
-                           rw_grid, ck)
+                           rw_grid, ck, nproc, rank)
+    from .distributed import chain_range
     from .state import batch_chain_state
+
+    # this process's chains of the run: all of them, or its share
+    chain0, c_local = chain_range(args.chains, nproc, rank)
 
     if ck is not None:
         state = ck.state
@@ -412,13 +527,14 @@ def main(argv=None) -> int:
         seed_state, w = init_chain_state(cfg, seed_words(seed), r0=r0,
                                          w=w_np, device=args.device)
         # one chain is chain 0 of the ensemble this seed starts
-        state = batch_chain_state(seed_state, args.chains)
+        state = batch_chain_state(seed_state, c_local, chain0)
     if w_k is not None:
         from .state import per_chain_wall_energy
 
         reps = args.chains // wall_k
-        w = torch.as_tensor(np.repeat(w_k, reps, axis=0),
-                            dtype=cfg.torch_dtype, device=args.device)
+        w = torch.as_tensor(
+            np.repeat(w_k, reps, axis=0)[chain0:chain0 + c_local],
+            dtype=cfg.torch_dtype, device=args.device)
         # each realization's chains start at their own wall energy
         state = state.replace(energy=per_chain_wall_energy(state.r, w, cfg)
                               .to(state.energy.dtype))
@@ -433,8 +549,9 @@ def main(argv=None) -> int:
           f"{cfg.box_l:0.1f}x{cfg.box_l:0.1f}x{cfg.box_lz:0.1f} box, "
           f"T={cfg.temperature:0.2f}, rho={cfg.rho:0.4f}, "
           f"A={cfg.proposal_a:0.3f}, for {params.maxsteps} steps...")
-    if state.n_chains > 1 or (ck is not None and ck.batched):
-        return _run_ensemble(args, cfg, params, d, state, w, sampler, seed)
+    if state.n_chains > 1 or nproc > 1 or (ck is not None and ck.batched):
+        return _run_ensemble(args, cfg, params, d, state, w, sampler, seed,
+                             nproc, rank, chain0)
     return _run_single(args, cfg, params, d, state, w, sampler, seed)
 
 
@@ -467,16 +584,16 @@ def _install_signal_stop():
 
 
 def _window_maintenance(args, cfg, widx, st, stopper, w, seed: int,
-                        chain_axis: bool = True):
-    """After each storage window: the auto-checkpoint, the health check
-    and the graceful stop. Returns "stop" to end the run at this window
-    boundary."""
+                        chain_axis: bool = True, ck_suffix: str = ""):
+    """After each storage window: the auto-checkpoint (ck_suffix: a
+    process's own, `_ck_with_suffix`), the health check and the graceful
+    stop. Returns "stop" to end the run at this window boundary."""
     from . import io as smcio
 
     def save():
-        return smcio.save_checkpoint(args.checkpoint or "autosave.npz", st,
-                                     cfg, chain_axis=chain_axis,
-                                     stream_seed=seed)
+        return smcio.save_checkpoint(
+            _ck_with_suffix(args.checkpoint or "autosave.npz", ck_suffix),
+            st, cfg, chain_axis=chain_axis, stream_seed=seed)
 
     if args.auto_checkpoint and (widx + 1) % args.auto_checkpoint == 0:
         save()
@@ -490,16 +607,19 @@ def _window_maintenance(args, cfg, widx, st, stopper, w, seed: int,
     return None
 
 
-def _options(args, sampler: str, seed: int, state, w, cfg):
-    """(state, ObservableOptions) of a run, the proposal mobility tuned
-    on `state` first under --target-acceptance."""
+def _options(args, sampler: str, seed: int, state, w, cfg,
+             chain0: int = 0):
+    """(state, ObservableOptions) of a run whose state holds the chains
+    from global index chain0, the proposal mobility tuned on `state`
+    first under --target-acceptance (on the job's pooled acceptance
+    under --coordinator, so every process gets the same A)."""
     from .driver import ObservableOptions
 
     opts = ObservableOptions(collect_sweep_trace=not args.no_trace,
                              sampler=sampler, stream_seed=seed,
                              gr_bins=args.gr_bins, z_bins=args.z_bins,
                              widom_k=args.widom,
-                             ptensor_bins=args.ptensor_bins)
+                             ptensor_bins=args.ptensor_bins, chain0=chain0)
     if args.target_acceptance:
         import dataclasses
 
@@ -507,7 +627,8 @@ def _options(args, sampler: str, seed: int, state, w, cfg):
 
         state, tr = tune_mobility(cfg, state, w,
                                   target=args.target_acceptance,
-                                  sampler=sampler, seed=seed)
+                                  sampler=sampler, seed=seed, chain0=chain0,
+                                  pooled=bool(args.coordinator))
         opts = dataclasses.replace(opts, proposal_a=tr.proposal_a)
         print(f"Auto-tuned proposal mobility: A = {tr.proposal_a:0.4g} "
               f"(gamma = {tr.gamma:0.3g}, acceptance {tr.acceptance:0.3f} "
@@ -579,30 +700,82 @@ def _run_single(args, cfg, params, d, state, w, sampler: str,
     return 0
 
 
+def _take_card(device: str, rank: int) -> str:
+    """Make card rank mod (local cards) this process's current device
+    under --device cuda (the ranks of one host take its cards in turn,
+    and share them when they outnumber them; a rank never shards over
+    another's cards, _chain_devices); returns the note for the
+    multi-process line ("" on the CPU)."""
+    import torch
+
+    if device != "cuda":
+        return ""
+    card = rank % torch.cuda.device_count()
+    torch.cuda.set_device(card)
+    return f", this process on cuda:{card}"
+
+
+def _chain_devices(device: str, c: int, nproc: int,
+                   sampler: str) -> tuple | None:
+    """The cards a one-process run shards its c chains over (bitwise one
+    card): every local card, when there are several, the engine is a
+    kernel engine and the chains divide over them; else None (one card),
+    with a note when only the division stood in the way. A process of a
+    multi-process run keeps to its one card (main)."""
+    import torch
+
+    n_dev = torch.cuda.device_count() if device == "cuda" else 1
+    if nproc > 1 or n_dev < 2 or sampler not in ("dense", "zsorted"):
+        return None
+    if c % n_dev:
+        print(f"Note: {c} chains do not divide over {n_dev} local devices; "
+              "running on one")
+        return None
+    from .ensemble import make_mesh
+
+    print(f"Sharding {c} chains over {n_dev} local devices")
+    return tuple(make_mesh(n_dev))
+
+
 def _run_ensemble(args, cfg, params, d, state, w, sampler: str,
-                  seed: int) -> int:
-    """Multi-chain run: per-chain files (rank = chain, the reference's
-    per-MPI-rank naming) + the pooled ensemble summary."""
+                  seed: int, nproc: int = 1, rank: int = 0,
+                  chain0: int = 0) -> int:
+    """Multi-chain run: per-chain files (rank = global chain index, the
+    reference's per-MPI-rank naming) + the pooled ensemble summary. Over
+    nproc > 1 processes the state holds this process's chains from
+    global index chain0; the pooled results are gathered at the end
+    (driver_ensemble.pool_ensemble_across_processes) and process 0
+    writes the shared files (tpu_smc/cli.py:1762-1890)."""
     import numpy as np
+    import torch
 
     from . import io as smcio
-    from .driver_ensemble import simulate_ensemble
+    from .driver_ensemble import (pool_ensemble_across_processes,
+                                  simulate_ensemble)
 
     c = state.n_chains
-    pos_writers = [smcio.PositionsWriter(d, cfg, rank=ci) for ci in range(c)]
+    pos_writers = [smcio.PositionsWriter(d, cfg, rank=chain0 + ci)
+                   for ci in range(c)]
     r = state.r.cpu().numpy()
     for ci in range(c):
         pos_writers[ci].append(r[ci])
 
     print(f"Ensemble sweep engine: {_engine_label(sampler, cfg, args.device)}")
-    state, opts = _options(args, sampler, seed, state, w, cfg)
+    state, opts = _options(args, sampler, seed, state, w, cfg, chain0)
+    devices = _chain_devices(args.device, c, nproc, sampler)
+    if devices:
+        import dataclasses
+
+        opts = dataclasses.replace(opts, devices=devices)
+    ck_suffix = f".p{rank}" if nproc > 1 else ""
     with _install_signal_stop() as stopper:
         def on_window(widx, st, outs):
             r = st.r.cpu().numpy()
             for ci in range(c):
                 pos_writers[ci].append(r[ci])
             print(f"\rWindow {widx + 1} done...", end="", flush=True)
-            return _window_maintenance(args, cfg, widx, st, stopper, w, seed)
+            return _window_maintenance(args, cfg, widx, st, stopper, w, seed,
+                                       ck_suffix=ck_suffix)
 
         with profiled(args):
             state, agg = simulate_ensemble(
@@ -610,54 +783,73 @@ def _run_ensemble(args, cfg, params, d, state, w, sampler: str,
                 acf_mode=args.acf_mode, max_fault_retries=args.fault_retries)
 
     for ci, res in enumerate(agg.chains):
+        rk = chain0 + ci
         smcio.write_data_csv(d, cfg, res.energy_trace_full, res.pressure_trace,
-                             res.accept_trace, params.gather_lapse, rank=ci)
-        smcio.LocalWriter(d, cfg, "local", rank=ci).append(res.density,
+                             res.accept_trace, params.gather_lapse, rank=rk)
+        smcio.LocalWriter(d, cfg, "local", rank=rk).append(res.density,
                                                           res.mobility)
-        smcio.write_total_clusters_csv(d, cfg, res.l1, res.l2, res.l3, rank=ci)
-        smcio.write_autocorrelation_csv(d, cfg, res.acf, rank=ci)
+        smcio.write_total_clusters_csv(d, cfg, res.l1, res.l2, res.l3, rank=rk)
+        smcio.write_autocorrelation_csv(d, cfg, res.acf, rank=rk)
 
-    print(f"\n\nAggregate throughput: {agg.sweeps_per_second:,.0f} sweeps/s "
-          f"across {c} chains")
+    pooled = pool_ensemble_across_processes(agg) if nproc > 1 else agg
+    print(f"\n\nAggregate throughput: {pooled.sweeps_per_second:,.0f} "
+          f"sweeps/s across {len(pooled.chains)} chains"
+          + (f" on {nproc} processes" if nproc > 1 else ""))
     print("\n###  Final ensemble results  ###")
-    print(f"Mean energy: {agg.mean_energy:f} ± {agg.std_energy:f} "
+    print(f"Mean energy: {pooled.mean_energy:f} ± {pooled.std_energy:f} "
           "(chain spread)")
-    print(f"Mean pressure: {agg.mean_pressure:f} ± {agg.std_pressure:f}")
-    print(f"Average acceptance ratio: {agg.acceptance_ratio:f}")
-    k_real = max(1, args.wall_realizations)
-    if k_real > 1:
-        # quenched average: mean within each realization first, then
-        # across realizations; their spread is the disorder error bar
-        e_k = np.asarray([r.mean_energy for r in agg.chains]) \
-            .reshape(k_real, -1).mean(axis=1)
-        print("\n###  Quenched wall-disorder summary  ###")
-        for i, ek in enumerate(e_k):
-            print(f"realization {i} (wall seed {args.wall_seed + i}): "
-                  f"E = {ek:f}")
-        se = np.std(e_k, ddof=1) / np.sqrt(k_real)
-        print(f"Disorder-averaged energy: {e_k.mean():f} ± {se:f} "
-              "(between-realization SE)")
-        # disorder-resolved structure: per-realization profiles (the
-        # pooled gr / zprofile CSVs are their average)
-        for prof, stem, axis, centers, what in (
-                (agg.zprofile_chains, "zprofile_disorder", "z", _z_centers,
-                 "z profiles"),
-                (agg.gr_chains, "gr_disorder", "r", _gr_centers, "g(r)")):
-            if prof is not None:
-                pth = smcio.write_disorder_profile_csv(
-                    d, cfg, stem, axis, centers(cfg, prof.shape[-1]),
-                    prof.reshape(k_real, -1, prof.shape[-1]).mean(axis=1))
-                print(f"Per-realization {what} written to {pth}")
-    _write_measurements(args, cfg, d, agg.gr, agg.zprofile, agg.widom_du,
-                        agg.widom_z, agg.pn, agg.pt)
-    smcio.write_ensemble_data_csv(d, cfg, agg.chains, params.gather_lapse)
-    smcio.write_info_csv(d, cfg, params, agg.chains[0])
-    smcio.write_last_state(d, cfg, agg.chains[0].r_final)
+    print(f"Mean pressure: {pooled.mean_pressure:f} ± "
+          f"{pooled.std_pressure:f}")
+    print(f"Average acceptance ratio: {pooled.acceptance_ratio:f}")
+    if rank == 0:
+        _quenched_summary(args, cfg, d, pooled)
+        _write_measurements(args, cfg, d, pooled.gr, pooled.zprofile,
+                            pooled.widom_du, pooled.widom_z, pooled.pn,
+                            pooled.pt)
+        smcio.write_ensemble_data_csv(d, cfg, pooled.chains,
+                                      params.gather_lapse)
+        smcio.write_info_csv(d, cfg, params, agg.chains[0])
+        smcio.write_last_state(d, cfg, agg.chains[0].r_final)
     if args.checkpoint:
-        ck_path = smcio.save_checkpoint(args.checkpoint, state, cfg,
-                                        stream_seed=seed)
+        ck_path = smcio.save_checkpoint(
+            _ck_with_suffix(args.checkpoint, ck_suffix), state, cfg,
+            stream_seed=seed)
         print(f"Full ensemble state checkpointed to {ck_path}")
     return 0
+
+
+def _quenched_summary(args, cfg, d, agg) -> None:
+    """--wall-realizations: per-realization energies, the quenched
+    average and the per-realization profiles of a (pooled) ensemble."""
+    import numpy as np
+
+    from . import io as smcio
+
+    k_real = max(1, args.wall_realizations)
+    if k_real == 1:
+        return
+    # quenched average: mean within each realization first, then
+    # across realizations; their spread is the disorder error bar
+    e_k = np.asarray([r.mean_energy for r in agg.chains]) \
+        .reshape(k_real, -1).mean(axis=1)
+    print("\n###  Quenched wall-disorder summary  ###")
+    for i, ek in enumerate(e_k):
+        print(f"realization {i} (wall seed {args.wall_seed + i}): "
+              f"E = {ek:f}")
+    se = np.std(e_k, ddof=1) / np.sqrt(k_real)
+    print(f"Disorder-averaged energy: {e_k.mean():f} ± {se:f} "
+          "(between-realization SE)")
+    # disorder-resolved structure: per-realization profiles (the
+    # pooled gr / zprofile CSVs are their average)
+    for prof, stem, axis, centers, what in (
+            (agg.zprofile_chains, "zprofile_disorder", "z", _z_centers,
+             "z profiles"),
+            (agg.gr_chains, "gr_disorder", "r", _gr_centers, "g(r)")):
+        if prof is not None:
+            pth = smcio.write_disorder_profile_csv(
+                d, cfg, stem, axis, centers(cfg, prof.shape[-1]),
+                prof.reshape(k_real, -1, prof.shape[-1]).mean(axis=1))
+            print(f"Per-realization {what} written to {pth}")
 
 
 def _z_centers(cfg, nbins: int):
@@ -825,23 +1017,46 @@ def _run_umbrella(args, cfg, params, d, w_np, seed: int, centers) -> int:
 
 
 def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
-                rw_grid, ck=None) -> int:
+                rw_grid, ck=None, nproc: int = 1, rank: int = 0) -> int:
     """--temperatures: the ladder (tsweep, or parallel tempering with
     --pt-exchange), optional per-level tuning, optional MBAR reweighting;
     with --wall-realizations the realizations ride the replica index.
     ck: a loaded checkpoint of a ladder to resume; --checkpoint writes the
-    final ladder state."""
+    final ladder state. Over nproc > 1 processes: complete replica
+    ladders per process, their streams salted per rank and pooled at the
+    end, or with --global-ladder one ladder split over the processes
+    (tpu_smc/cli.py:910-1090); process 0 writes the shared files."""
     import numpy as np
 
     from . import io as smcio
 
     from .state import fold_in, seed_words
-    from .tsweep import (FieldOptions, simulate_temperature_sweep,
-                         write_tsweep_csv)
+    from .tsweep import (FieldOptions, LadderShard,
+                         simulate_temperature_sweep, write_tsweep_csv)
 
     temps = [float(v) for v in args.temperatures.split(",")]
     cpt = args.chains_per_t
-    key = seed_words(seed)
+    # tuning takes the common key: every process derives the same
+    # per-level mobility
+    key = common_key = seed_words(seed)
+    global_ladder = nproc > 1 and args.global_ladder
+    shard = None
+    if nproc > 1 and not global_ladder:
+        cpt //= nproc
+        # distinct per-process replica streams, pooled at the end
+        key = fold_in(key, [0xD150 + rank])[0]
+    if global_ladder:
+        from .distributed import chain_range
+
+        ladder_c = len(temps) * cpt
+        if ladder_c % nproc:
+            raise SystemExit(f"--global-ladder: {ladder_c} ladder chains "
+                             f"(= {len(temps)} temps x {cpt}) must divide "
+                             f"over the job's {nproc} processes")
+        shard = LadderShard(*chain_range(ladder_c, nproc, rank))
+        last = shard.chain0 + shard.count - 1
+        print(f"Global ladder: {ladder_c} chains split over {nproc} "
+              f"processes (chains {shard.chain0}..{last} here)")
     wall_k = max(1, args.wall_realizations)
     w_ladder = w_np
     if w_k is not None:
@@ -861,7 +1076,8 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
         from .tuning import tune_mobility_ladder
 
         lt = tune_mobility_ladder(
-            cfg, temps, fold_in(key, [0x7E0])[0], w=w_np, chains_per_t=cpt,
+            cfg, temps, fold_in(common_key, [0x7E0])[0], w=w_np,
+            chains_per_t=cpt,
             target=args.target_acceptance, sampler=sampler,
             device=args.device)
         a_per_t = lt.a_per_t
@@ -880,7 +1096,7 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
     kw = dict(chains_per_t=cpt, w=w_ladder, sampler=sampler,
               a_per_t=a_per_t, device=args.device, state0=state0,
               fields=FieldOptions(args.gr_bins, args.z_bins, args.sk_kmax,
-                                  args.widom, args.ptensor_bins))
+                                  args.widom, args.ptensor_bins), shard=shard)
     if args.pt_exchange:
         from .pt import simulate_parallel_tempering, write_pt_csv
 
@@ -894,8 +1110,13 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
             lstate, pt_res = simulate_parallel_tempering(
                 cfg, params, temps, key,
                 exchange_interval=args.pt_exchange, **kw)
+        if nproc > 1 and not global_ladder:
+            from .pt import pool_pt_across_processes
+
+            pt_res = pool_pt_across_processes(pt_res, cfg)
         res = pt_res.tsweep
-        pt_path = write_pt_csv(d, cfg, pt_res)
+        if rank == 0:
+            pt_path = write_pt_csv(d, cfg, pt_res)
         if args.pt_exchange == "auto":
             pa = ", ".join(f"{v:0.3f}" for v in pt_res.probe_acceptance)
             print(f"Auto-chosen exchange interval: "
@@ -907,17 +1128,37 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
                   f"{pt_res.pair_t_hi[i]:0.3f}: "
                   f"{pt_res.swap_acceptance[i]:0.3f} "
                   f"({pt_res.swap_attempts[i]} attempts)")
-        print(f"Written to {pt_path}")
+        if rank == 0:
+            print(f"Written to {pt_path}")
     else:
         with profiled(args):
             lstate, res = simulate_temperature_sweep(cfg, params, temps,
                                                      key, **kw)
-    if args.checkpoint:
-        ck_path = smcio.save_checkpoint(args.checkpoint, lstate, cfg)
+        if nproc > 1 and not global_ladder:
+            from .tsweep import pool_tsweep_across_processes
+
+            res = pool_tsweep_across_processes(res, cfg)
+    if args.checkpoint and global_ladder:
+        # one ladder: its state gathered, one checkpoint from process 0
+        from .ensemble import gather_global_state
+
+        whole = gather_global_state(lstate)
+        if rank == 0:
+            ck_path = smcio.save_checkpoint(args.checkpoint, whole, cfg)
+            print(f"Full ladder state checkpointed to {ck_path}")
+    elif args.checkpoint:
+        ck_path = smcio.save_checkpoint(
+            _ck_with_suffix(args.checkpoint,
+                            f".p{rank}" if nproc > 1 else ""), lstate, cfg)
         print(f"Full ladder state checkpointed to {ck_path}")
-    path = write_tsweep_csv(d, cfg, res)
+    if rank == 0:
+        path = write_tsweep_csv(d, cfg, res)
+    # pooled ladders sum the processes' rates; one global ladder counts
+    # its chains once
+    n_ch = len(temps) * cpt * (1 if global_ladder else nproc)
     print(f"\n\nAggregate throughput: {res.sweeps_per_second:,.0f} "
-          f"sweeps/s across {len(temps) * cpt} chains")
+          f"sweeps/s across {n_ch} chains"
+          + (f" on {nproc} processes" if nproc > 1 else ""))
     print("\n###  Temperature sweep results  ###")
     print("T        E_mean      +-err     acc      cv")
     for i, t in enumerate(res.temps):
@@ -931,6 +1172,9 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
         for i, t in enumerate(res.temps):
             mu_l, me_l = mu_ex(res.widom_samples[:, i], float(t))
             print(f"T {t:0.3f}: mu_ex = {mu_l:f} ± {me_l:f}")
+    if rank != 0:
+        # MBAR runs on the pooled samples, and process 0 writes
+        return 0
     print(f"\nWritten to {path}")
     if rw_grid is None:
         return 0

@@ -119,6 +119,12 @@ class ObservableOptions:
     # stream folds the absolute gather index (widom.py)
     widom_k: int = 0
     ptensor_bins: int = 0     # P_N(z)/P_T(z) bins (0: off)
+    # global index of the state's chain 0: a process's share of a
+    # multi-process run (every draw is keyed by the global chain index)
+    chain0: int = 0
+    # devices of a chain-sharded run (ensemble.make_mesh; dense and
+    # zsorted only); None: the state's own device
+    devices: tuple | None = None
 
 
 class SimResults(NamedTuple):

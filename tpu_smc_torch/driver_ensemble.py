@@ -22,7 +22,8 @@ from .driver import (GatherOut, ObservableOptions, SimResults, _sync,
                      is_device_fault, restore_from_host, snapshot_to_host,
                      therm_chunk)
 from .ensemble import (ensemble_sweeps, ensemble_sweeps_dense,
-                       ensemble_sweeps_zsorted)
+                       ensemble_sweeps_dense_sharded, ensemble_sweeps_zsorted,
+                       ensemble_sweeps_zsorted_sharded)
 from .observables import (autocorrelation, cluster_histograms_chains,
                           density_mobility_update,
                           integrated_autocorrelation_time,
@@ -36,17 +37,27 @@ from .state import ChainState
 
 def _advance(state: ChainState, w, cfg: SMCConfig, a: float, n_sweeps: int,
              opts: ObservableOptions, collect_trace: bool):
-    """n_sweeps of every chain on opts.sampler. Returns (state, trace)."""
+    """n_sweeps of every chain on opts.sampler, keyed from the global
+    chain opts.chain0, over opts.devices when given (the sharded
+    engines). Returns (state, trace)."""
+    c0 = opts.chain0
+    if opts.devices and opts.sampler in ("dense", "zsorted"):
+        fn = (ensemble_sweeps_zsorted_sharded if opts.sampler == "zsorted"
+              else ensemble_sweeps_dense_sharded)
+        return fn(state, w, cfg, a, n_sweeps, opts.stream_seed,
+                  list(opts.devices), chain0=c0)
+    if opts.devices:
+        raise ValueError("a device list runs the dense or zsorted engine")
     if opts.sampler == "zsorted":
         return ensemble_sweeps_zsorted(state, w, cfg, a, n_sweeps,
-                                       seed=opts.stream_seed)
+                                       seed=opts.stream_seed, chain0=c0)
     if opts.sampler == "dense":
         return ensemble_sweeps_dense(state, w, cfg, a, n_sweeps,
-                                     seed=opts.stream_seed)
+                                     seed=opts.stream_seed, chain0=c0)
     if opts.sampler == "torch":
         return ensemble_sweeps(state, w, cfg, a, n_sweeps,
                                collect_trace=collect_trace,
-                               stream_seed=opts.stream_seed)
+                               stream_seed=opts.stream_seed, chain0=c0)
     raise ValueError(f"unknown sampler {opts.sampler!r}")
 
 
@@ -352,3 +363,68 @@ def _post_process(cfg: SMCConfig, params: RunParams, opts: ObservableOptions,
         widom_du=stacked("widom_du"), widom_z=stacked("widom_z"),
         pn=None if pn_all is None else pn_all.mean(axis=(0, 1)),
         pt=None if pt_all is None else pt_all.mean(axis=(0, 1)))
+
+
+class PooledChain(NamedTuple):
+    """What the pooled outputs read of one chain of another process:
+    its mean energy and its traces (io.write_ensemble_data_csv)."""
+    mean_energy: float
+    energy_trace_full: np.ndarray
+    accept_trace: np.ndarray
+    pressure_trace: np.ndarray
+
+
+def pool_ensemble_across_processes(agg: EnsembleResults) -> EnsembleResults:
+    """The job's pooled results from every process's EnsembleResults of
+    its own chains (tpu_smc/cli.py:1762-1828), on every rank: the chain
+    summaries gathered in global chain order, so the means and spreads
+    are the single-process run's to the bit; the traces (cut to the
+    shortest rank's length, agreed first: a graceful stop can reach the
+    ranks at different windows) as `chains`; the Widom samples at an
+    agreed gather count; g(r), rho(z), P_N/P_T as the mean of the ranks'
+    means (equal shares: the global mean to round-off) and the per-chain
+    profiles gathered. Collective: every rank must call it."""
+    from .distributed import allgather_chain_axis
+
+    summ = np.asarray([[r.mean_energy, r.mean_pressure, r.acceptance_ratio,
+                        r.sweeps_per_second] for r in agg.chains],
+                      np.float64)
+    g = allgather_chain_axis(summ)                        # [C, 4]
+    col = [np.ascontiguousarray(g[:, k]) for k in range(4)]
+    c0 = agg.chains[0]
+    lens = allgather_chain_axis(np.asarray(
+        [[len(c0.energy_trace_full), len(c0.accept_trace),
+          len(c0.pressure_trace)]], np.int64)).min(axis=0)
+    se, sa, sp = (int(v) for v in lens)
+    traces = [allgather_chain_axis(np.stack([getattr(r, name)[:k]
+                                             for r in agg.chains]))
+              for name, k in (("energy_trace_full", se),
+                              ("accept_trace", sa),
+                              ("pressure_trace", sp))]
+    chains = [PooledChain(float(col[0][i]), traces[0][i], traces[1][i],
+                          traces[2][i]) for i in range(g.shape[0])]
+
+    def rank_mean(x):
+        return None if x is None else allgather_chain_axis(x[None]).mean(0)
+
+    def per_chain(x):
+        return None if x is None else allgather_chain_axis(x)
+
+    wdu, wz = agg.widom_du, agg.widom_z
+    if wdu is not None:
+        sg = int(allgather_chain_axis(
+            np.asarray([[len(wdu)]], np.int64)).min())
+        wdu, wz = (np.moveaxis(allgather_chain_axis(
+            np.moveaxis(v[:sg], 1, 0)), 0, 1) for v in (wdu, wz))
+    return agg._replace(
+        chains=chains, mean_energy=float(np.mean(col[0])),
+        std_energy=float(np.std(col[0])),
+        mean_pressure=float(np.mean(col[1])),
+        std_pressure=float(np.std(col[1])),
+        acceptance_ratio=float(np.mean(col[2])),
+        sweeps_per_second=float(col[3].sum()),
+        gr=rank_mean(agg.gr), zprofile=rank_mean(agg.zprofile),
+        gr_chains=per_chain(agg.gr_chains),
+        zprofile_chains=per_chain(agg.zprofile_chains),
+        widom_du=wdu, widom_z=wz, pn=rank_mean(agg.pn),
+        pt=rank_mean(agg.pt))

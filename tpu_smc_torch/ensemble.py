@@ -38,6 +38,8 @@ by chain, so the zsorted engine's particle sorts never touch them.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from .config import SMCConfig
@@ -49,9 +51,14 @@ from .state import ChainState, fold_in, seed_words
 
 def stream_base(key: torch.Tensor, seed) -> torch.Tensor:
     """Base seed words of a run's streams: the run seed's, or chain 0's
-    key (key [C, 2]) folded with 0x5EEDB1 when no seed is given."""
+    key (key [C, 2]) folded with 0x5EEDB1 when no seed is given. A seed
+    given as a key tensor [2] stands for chain 0's key: a shard of a
+    wider ensemble passes its GLOBAL chain 0's key, so that its streams
+    are the whole ensemble's."""
     if seed is None:
-        return fold_in(key[0].cpu(), [0x5EEDB1])[0]
+        seed = key[0]
+    if torch.is_tensor(seed):
+        return fold_in(seed.cpu(), [0x5EEDB1])[0]
     return seed_words(seed)
 
 
@@ -81,13 +88,14 @@ def _per_sweep_randomness(state: ChainState, cfg: SMCConfig, seed,
 
 
 def stream_uniforms(words: torch.Tensor, n_idx: int, c: int, tag: int,
-                    dtype) -> torch.Tensor:
-    """Uniforms [c, n_idx, 4] in (0, 1) of Philox counters (j, chain,
-    tag, 0) under one sweep's words, a tensor [2] on the chains' device
-    (no host read: a CUDA graph replays it with new words)."""
+                    dtype, chain0: int = 0) -> torch.Tensor:
+    """Uniforms [c, n_idx, 4] in (0, 1) of Philox counters (j, chain0 +
+    chain, tag, 0) under one sweep's words, a tensor [2] on the chains'
+    device (no host read: a CUDA graph replays it with new words)."""
     dev = words.device
     j = torch.arange(n_idx, dtype=torch.int64, device=dev)[None, :]
-    ch = torch.arange(c, dtype=torch.int64, device=dev)[:, None]
+    ch = torch.arange(chain0, chain0 + c, dtype=torch.int64,
+                      device=dev)[:, None]
     j, ch = torch.broadcast_tensors(j, ch)
     z = torch.zeros_like(j)
     b = ks.philox4x32(j, ch, z + tag, z, words[0].expand_as(j),
@@ -96,14 +104,14 @@ def stream_uniforms(words: torch.Tensor, n_idx: int, c: int, tag: int,
 
 
 def move_draws(words: torch.Tensor, rows: int, c: int, s2a,
-               order: torch.Tensor, dtype):
+               order: torch.Tensor, dtype, chain0: int = 0):
     """One sweep's i.i.d. move draws, the kernel's: the Box-Muller noise
     [c, rows, 3] by particle and the acceptance uniforms [c, rows] by
-    move, from the five uniforms of counters (move, chain, 0|1, 0) under
-    the sweep's words (a tensor [2]); move nn visits particle order[nn].
-    s2a: sqrt(2A), a scalar or [c]."""
-    u = stream_uniforms(words, rows, c, 0, dtype).transpose(0, 1)
-    u4 = stream_uniforms(words, rows, c, 1, dtype)[..., 0].T
+    move, from the five uniforms of counters (move, chain0 + chain, 0|1,
+    0) under the sweep's words (a tensor [2]); move nn visits particle
+    order[nn]. s2a: sqrt(2A), a scalar or [c]."""
+    u = stream_uniforms(words, rows, c, 0, dtype, chain0).transpose(0, 1)
+    u4 = stream_uniforms(words, rows, c, 1, dtype, chain0)[..., 0].T
     g, unif = ks.box_muller(torch.cat([u, u4[..., None]], dim=-1), s2a)
     noise = torch.empty_like(g).index_copy_(0, order, g)
     return noise.permute(1, 0, 2), unif.T
@@ -127,7 +135,7 @@ def _chain_at(a, cfg: SMCConfig, a_per_chain, t_per_chain):
 def ensemble_sweeps(state: ChainState, w: torch.Tensor, cfg: SMCConfig,
                     a: float, n_sweeps: int, collect_trace: bool = False,
                     stream_seed=None, draws=None, a_per_chain=None,
-                    t_per_chain=None, umbrella=None):
+                    t_per_chain=None, umbrella=None, chain0: int = 0):
     """n_sweeps sweeps of every chain on the plain PyTorch engine.
 
     draws: None = the kernel's Philox draws of each sweep (with
@@ -138,6 +146,8 @@ def ensemble_sweeps(state: ChainState, w: torch.Tensor, cfg: SMCConfig,
     On a CUDA state each sweep replays a CUDA graph (sampler.run_step,
     every tensor a copied-in buffer): bitwise the eager sweep, without
     the host's cost of its ~170 launches per move.
+    chain0: the global index of the state's chain 0 (the Philox chain
+    word; a shard of a wider ensemble, see ensemble_sweeps_dense).
     Returns (state, SweepStats [S, C] or None)."""
     if draws is None:
         words, offsets = _per_sweep_randomness(state, cfg, stream_seed,
@@ -156,12 +166,14 @@ def ensemble_sweeps(state: ChainState, w: torch.Tensor, cfg: SMCConfig,
     for s in range(n_sweeps):
         off = int(offsets[s])
         if draws is None and cfg.reference_noise:
-            plane = ks.reference_noise_plane(words[s], cfg.n, c, s2a, dev, dt)
+            plane = ks.reference_noise_plane(words[s], cfg.n, c, s2a, dev, dt,
+                                             chain0)
             noise = plane[:3 * cfg.n].T.reshape(c, cfg.n, 3)
-            unif = ks.move_uniforms(words[s], cfg.n, c, dev, dt)[..., 4].T
+            unif = ks.move_uniforms(words[s], cfg.n, c, dev, dt,
+                                    chain0)[..., 4].T
         elif draws is None:
             noise, unif = move_draws(words_dev[s], cfg.n, c, s2a, orders[s],
-                                     dt)
+                                     dt, chain0)
         else:
             noise, unif = draws[0][s], draws[1][s]
         if state.r.is_cuda:
@@ -227,19 +239,27 @@ def _finish(state: ChainState, r: torch.Tensor, e, e_trace, a_trace,
 
 def ensemble_sweeps_dense(state: ChainState, w: torch.Tensor,
                           cfg: SMCConfig, a: float, n_sweeps: int,
-                          seed=None, a_per_chain=None, t_per_chain=None):
+                          seed=None, a_per_chain=None, t_per_chain=None,
+                          chain0: int = 0):
     """n_sweeps sweeps of every chain in ONE launch of the whole-sweep
     kernel (counterpart of ensemble_sweeps_pallas). The state stays in
     real units, so the result does not depend on call boundaries. On a
     CUDA device beyond the resident kernel's capacity it raises, naming
     the streamed engine (ensemble_sweeps_zsorted) where the mode has one
-    (bulk and reference-noise runs do not)."""
+    (bulk and reference-noise runs do not).
+
+    chain0: the global index of the state's chain 0. Every engine keys
+    chain c's draws by chain0 + c, so the state's chains [k, k + C') run
+    alone with chain0 = k (and seed = the run seed, or the ensemble's
+    chain 0 key, `stream_base`) are bitwise those chains of the whole
+    call: how an ensemble is split over processes or devices changes no
+    result."""
     a, t = _chain_at(a, cfg, a_per_chain, t_per_chain)
     words, offsets = _per_sweep_randomness(state, cfg, seed, n_sweeps)
     x, y, z, e, wa, wb = _kernel_inputs(state, w, cfg)
     x, y, z, e, e_tr, a_tr = ks.sweep_block(
         x, y, z, e, wa, wb, offsets, words, cfg, n_sweeps, a,
-        temperature=t)
+        temperature=t, chain0=chain0)
     return _finish(state, ks.from_planes(x, y, z, cfg), e, e_tr, a_tr, cfg,
                    n_sweeps)
 
@@ -286,7 +306,7 @@ def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
                             seed=None, sweeps_per_sort: int | None = None,
                             a_per_chain=None, t_per_chain=None,
                             hbm_stream: bool | None = None,
-                            xsort_slices: int = 0):
+                            xsort_slices: int = 0, chain0: int = 0):
     """n_sweeps sweeps through the kernel with exact z-block skipping.
 
     Every `sweeps_per_sort` sweeps (plus one shorter chunk for a
@@ -305,7 +325,10 @@ def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
     are also x-sorted within z-bands of k row blocks (`xsort_perm`) and
     the kernel skips blocks by live (z, x) bounds; results are bitwise
     the no-skip kernel on the same rows. Resident kernel and i.i.d. noise
-    only, and n a multiple of 128 k (tpu_smc/ensemble.py:454-466)."""
+    only, and n a multiple of 128 k (tpu_smc/ensemble.py:454-466).
+
+    chain0: the global index of the state's chain 0, as in
+    ensemble_sweeps_dense (the sorts are per chain)."""
     if n_sweeps < 1:
         raise ValueError("n_sweeps must be >= 1")
     a, t = _chain_at(a, cfg, a_per_chain, t_per_chain)
@@ -342,9 +365,10 @@ def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
         args = (x, y, z, e, wa, wb, offsets[k0:k0 + length],
                 words[k0:k0 + length], cfg, length, a)
         x, y, z, e, e_tr, a_tr = (
-            ks.sweep_block_stream(*args, temperature=t) if hbm_stream
+            ks.sweep_block_stream(*args, temperature=t, chain0=chain0)
+            if hbm_stream
             else ks.sweep_block(*args, zskip=True, temperature=t,
-                                xslices=xsl))
+                                xslices=xsl, chain0=chain0))
         e_pieces.append(e_tr)
         a_pieces.append(a_tr)
         k0 += length
@@ -357,7 +381,8 @@ def ensemble_sweeps_zsorted(state: ChainState, w: torch.Tensor,
 
 def ensemble_sweeps_banded(state: ChainState, w: torch.Tensor,
                            cfg: SMCConfig, a: float, n_sweeps: int,
-                           window: int = 128, d_z: float = 12.0, seed=None):
+                           window: int = 128, d_z: float = 12.0, seed=None,
+                           chain0: int = 0):
     """n_sweeps random-scan sweeps of every chain on the EXPERIMENTAL
     z-banded kernel (K4, kernels/banded.py; counterpart of tpu_smc's
     ensemble_sweeps_banded): each sweep z-sorts every chain and records
@@ -375,7 +400,8 @@ def ensemble_sweeps_banded(state: ChainState, w: torch.Tensor,
 
     Returns (state, SweepStats [S, C], fallback_fraction): the mean over
     sweeps and chains of the moves that took the full pass, over n (per
-    chain; tpu_smc counts per 128-chain tile)."""
+    chain; tpu_smc counts per 128-chain tile). chain0 as in
+    ensemble_sweeps_dense."""
     if n_sweeps < 1:
         raise ValueError("n_sweeps must be >= 1")
     if cfg.pbc_z:
@@ -400,7 +426,8 @@ def ensemble_sweeps_banded(state: ChainState, w: torch.Tensor,
     for s in range(n_sweeps):
         x, y, z, margin = kb.sort_and_margin(r, cfg, window)
         x, y, z, e, acc, fbk = kb.banded_sweep_block(
-            x, y, z, e, wa, wb, margin, words[s], cfg, a, window, d_z)
+            x, y, z, e, wa, wb, margin, words[s], cfg, a, window, d_z,
+            chain0=chain0)
         r = ks.from_planes(x, y, z, cfg, dtype=cfg.torch_dtype)
         e_tr.append(e[0])
         a_tr.append(acc[0])
@@ -408,3 +435,192 @@ def ensemble_sweeps_banded(state: ChainState, w: torch.Tensor,
     new, stats = _finish(state, r, e, torch.stack(e_tr), torch.stack(a_tr),
                          cfg, n_sweeps)
     return new, stats, float(torch.stack(fb).double().mean()) / cfg.n
+
+
+# ----------------------------------------------------------------------
+# Devices and shards (counterparts of tpu_smc/ensemble.py:40-110 and
+# :642-814). A list of torch.device takes the place of a jax Mesh; a
+# shard is a contiguous chain range with its global chain index chain0,
+# so a sharded call is bitwise the unsharded one. tpu_smc's
+# global_shard_put and fetch exist for jax.Array sharding only: their
+# port is the slicing (shard_ensemble) and gathering
+# (gather_global_state) below.
+# ----------------------------------------------------------------------
+
+def make_mesh(n_devices: int | None = None, devices=None) -> list:
+    """This process's devices for a sharded call: `devices` as given (the
+    CPU tests pass ["cpu", "cpu"]; one card may appear more than once),
+    else its CUDA devices, the first `n_devices` of either."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: no CUDA device; pass devices=")
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devs = [torch.device(d) for d in devices]
+    if n_devices is not None:
+        if n_devices > len(devs):
+            raise ValueError(f"make_mesh: {n_devices} devices asked, "
+                             f"{len(devs)} available")
+        devs = devs[:n_devices]
+    return devs
+
+
+def _map_leaves(state: ChainState, fn) -> ChainState:
+    return ChainState(**{f.name: fn(getattr(state, f.name))
+                         for f in dataclasses.fields(ChainState)})
+
+
+def _split(n_chains: int, parts: int) -> int:
+    if parts < 1 or n_chains % parts:
+        raise ValueError(f"{n_chains} chains must divide over {parts} "
+                         "shards")
+    return n_chains // parts
+
+
+def shard_ensemble(state: ChainState, devices, chain0: int = 0) -> list:
+    """[(shard state, chain0 of the shard)]: the state's chains cut into
+    len(devices) contiguous ranges, each on its device; `chain0` is the
+    global index of the state's own chain 0."""
+    per = _split(state.n_chains, len(devices))
+    return [(_map_leaves(state, lambda x, k=k, d=d:
+                         x[k * per:(k + 1) * per].to(d)), chain0 + k * per)
+            for k, d in enumerate(devices)]
+
+
+def concat_states(parts, device) -> ChainState:
+    """Shard states concatenated along the chain axis on `device`."""
+    return ChainState(**{
+        f.name: torch.cat([getattr(p, f.name).to(device) for p in parts])
+        for f in dataclasses.fields(ChainState)})
+
+
+def gather_global_state(parts, device="cpu") -> ChainState:
+    """The job's whole ensemble on `device`: a state or a list of shard
+    states, concatenated, then (under distributed.init_distributed)
+    gathered from every rank in rank order, so each rank holds it; what a
+    --global-ladder checkpoint writes."""
+    from . import distributed as dist
+
+    if isinstance(parts, ChainState):
+        parts = [parts]
+    state = concat_states(parts, device)
+    if dist.process_count() == 1:
+        return state
+    return _map_leaves(state, lambda x: torch.from_numpy(
+        dist.allgather_chain_axis(x.cpu().numpy())).to(device))
+
+
+def _rows_of(v, sl: slice, c: int, device):
+    """Per-chain rows of a shard: a [C] tensor sliced, a scalar kept."""
+    if torch.is_tensor(v) and v.dim() and v.shape[0] == c:
+        return v[sl].to(device)
+    return v
+
+
+def _sharded(engine, state: ChainState, w: torch.Tensor, cfg: SMCConfig,
+             a, n_sweeps: int, seed, devices, a_per_chain, t_per_chain,
+             chain0: int, **kw):
+    """One call of `engine` per shard on its device, with the shard's
+    chain0, per-chain rows and wall tables; the states and traces
+    concatenated back on the state's device. seed None: the state's
+    chain 0 key, for every shard."""
+    c, home = state.n_chains, state.r.device
+    if seed is None:
+        seed = state.key[0].cpu()
+    per = _split(c, len(devices))
+    outs = []
+    for k, (st, c0) in enumerate(shard_ensemble(state, devices, chain0)):
+        dev, sl = devices[k], slice(k * per, (k + 1) * per)
+        wk = (w[sl] if w.dim() == 3 else w).to(dev)
+        rows = {}
+        if a_per_chain is not None:
+            rows = dict(a_per_chain=_rows_of(a_per_chain, sl, c, dev),
+                        t_per_chain=_rows_of(t_per_chain, sl, c, dev))
+        outs.append(engine(st, wk, cfg, a, n_sweeps, seed=seed, chain0=c0,
+                           **rows, **kw))
+    new = concat_states([o[0] for o in outs], home)
+    stats = SweepStats(*(torch.cat([getattr(o[1], f).to(home)
+                                    for o in outs], dim=1)
+                         for f in SweepStats._fields))
+    return new, stats
+
+
+def ensemble_sweeps_dense_sharded(state: ChainState, w: torch.Tensor,
+                                  cfg: SMCConfig, a: float, n_sweeps: int,
+                                  seed, devices, a_per_chain=None,
+                                  t_per_chain=None, chain0: int = 0):
+    """ensemble_sweeps_dense with the chain axis split over `devices`
+    (make_mesh; counterpart of ensemble_sweeps_pallas_sharded): one
+    launch per shard on its device, with the shard's global chain0, its
+    per-chain (A, T) rows and wall tables; traces [S, C] concatenated on
+    the chain axis. Bitwise the unsharded call (tpu_smc salts the seed
+    per device instead, a statistically equal split)."""
+    return _sharded(ensemble_sweeps_dense, state, w, cfg, a, n_sweeps, seed,
+                    devices, a_per_chain, t_per_chain, chain0)
+
+
+def ensemble_sweeps_zsorted_sharded(state: ChainState, w: torch.Tensor,
+                                    cfg: SMCConfig, a: float, n_sweeps: int,
+                                    seed, devices,
+                                    sweeps_per_sort: int | None = None,
+                                    hbm_stream: bool | None = None,
+                                    a_per_chain=None, t_per_chain=None,
+                                    chain0: int = 0):
+    """ensemble_sweeps_zsorted (resident or, with hbm_stream, the streamed
+    kernel) with the chain axis split over `devices`, as
+    ensemble_sweeps_dense_sharded; the sorts are per chain, so the split
+    changes nothing: bitwise the unsharded call."""
+    return _sharded(ensemble_sweeps_zsorted, state, w, cfg, a, n_sweeps,
+                    seed, devices, a_per_chain, t_per_chain, chain0,
+                    sweeps_per_sort=sweeps_per_sort, hbm_stream=hbm_stream)
+
+
+def particle_sharded_energy(r: torch.Tensor, w: torch.Tensor,
+                            cfg: SMCConfig, shards, group=None) -> float:
+    """Total energy of one configuration r [N, 3] with its particle rows
+    split into blocks (counterpart of tpu_smc's particle_sharded_energy,
+    the O(N^2) pass cut by rows): each block sums its rows against all N
+    positions, half of every pair term, plus its rows' wall terms, on its
+    device, in row chunks within potentials.PAIR_BUDGET; the blocks' sums
+    are added in float64. shards: this process's devices (make_mesh), one
+    block each. group: a torch.distributed process group whose ranks
+    each hold len(shards) blocks (rank p the p-th run of them); their
+    sums are then all-reduced. N must divide into the blocks."""
+    from . import potentials
+
+    import torch.distributed as tdist
+
+    n = r.shape[0]
+    nd = len(shards)
+    nproc, rank = 1, 0
+    if group is not None:
+        nproc, rank = tdist.get_world_size(group), tdist.get_rank(group)
+    per = n // (nd * nproc)
+    if per * nd * nproc != n:
+        raise ValueError(f"N = {n} must divide over {nd * nproc} blocks")
+    shift = 0.0
+    if cfg.lj_shift:
+        rc6 = cfg.cutoff2 ** 3
+        shift = 1.0 / (rc6 * rc6) - 1.0 / rc6
+    step = max(1, potentials.PAIR_BUDGET // max(n, 1))
+    total = 0.0
+    for k, dev in enumerate(shards):
+        rr = r.to(dev)[None]
+        b0 = (rank * nd + k) * per
+        part = torch.zeros((), dtype=torch.float64, device=dev)
+        for r0 in range(b0, b0 + per, step):
+            r1 = min(b0 + per, r0 + step)
+            dr2, mask = potentials._pair_dr2_rows(rr, r0, r1, cfg)
+            safe = torch.where(mask, dr2, torch.ones_like(dr2))
+            inv6 = 1.0 / (safe * safe * safe)
+            u = torch.where(mask, inv6 * inv6 - inv6 - shift,
+                            torch.zeros_like(inv6))
+            part += (2.0 * u.sum()).double()
+            if cfg.use_walls:
+                part += potentials.wall_energy_force_single(
+                    rr[:, r0:r1], w.to(dev), cfg)[0].sum().double()
+        total += float(part)
+    if group is not None:
+        t = torch.tensor([total], dtype=torch.float64)
+        tdist.all_reduce(t, group=group)
+        total = float(t[0])
+    return total

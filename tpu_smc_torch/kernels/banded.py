@@ -102,13 +102,15 @@ def _window_rows(i: int, n_pad: int, window: int):
 
 def banded_sweep_plain(x, y, z, e, wa, wb, margin, words, cfg: SMCConfig, a,
                        window: int = 128, d_z: float = 12.0, rows=None,
-                       draws=None, diag: dict | None = None):
+                       draws=None, diag: dict | None = None,
+                       chain0: int = 0):
     """Plain PyTorch version of K4: one sweep of n random-scan moves over
     z-sorted planes, in the planes' dtype (float32 for the kernel's
     inputs; float64 for parity with tpu_smc.sampler.sweep).
 
     rows: None = the kernel's schedule (`banded_rows`), or injected [n];
-    draws: None = the kernel's Philox draws, or injected (g [n, C, 3]
+    draws: None = the kernel's Philox draws (global chains chain0 ..
+    chain0 + C - 1; the schedule is chain-independent), or injected (g [n, C, 3]
     proposal noise already scaled by sqrt(2A), u [n, C]), by move.
     a: the mobility, a scalar as in tpu_smc; the temperature is
     cfg.temperature.
@@ -132,8 +134,8 @@ def banded_sweep_plain(x, y, z, e, wa, wb, margin, words, cfg: SMCConfig, a,
         rows = banded_rows(words, n, dev)
     rows = [int(v) for v in rows]
     if draws is None:
-        g_all, u_all = ks.box_muller(ks.move_uniforms(words, n, c, dev, dt),
-                                     s2a)
+        g_all, u_all = ks.box_muller(
+            ks.move_uniforms(words, n, c, dev, dt, chain0), s2a)
     else:
         g_all, u_all = draws
     cut = torch.tensor(cfg.lj_cutoff, dtype=dt, device=dev)
@@ -208,7 +210,7 @@ def banded_sweep_plain(x, y, z, e, wa, wb, margin, words, cfg: SMCConfig, a,
 
 def banded_sweep_block(x, y, z, e, wa, wb, margin, words, cfg: SMCConfig, a,
                        window: int = 128, d_z: float = 12.0,
-                       diag: dict | None = None):
+                       diag: dict | None = None, chain0: int = 0):
     """One sweep of n random-scan moves of every chain (columns of the
     z-sorted planes; `sort_and_margin`) through K4.
 
@@ -217,13 +219,14 @@ def banded_sweep_block(x, y, z, e, wa, wb, margin, words, cfg: SMCConfig, a,
     capacity (`kernels.sweep.capacity`) raises, since the planes live in
     shared memory (tpu_smc's banded kernel is VMEM-resident only). CPU
     tensors run `banded_sweep_plain`. diag: on CUDA, filled with "rows",
-    the schedule [n] the kernel drew (chain 0's).
+    the schedule [n] the kernel drew (chain 0's). chain0: the global
+    index of column 0, as in kernels.sweep.sweep_block.
 
     Returns (x, y, z, e [1, C], accepted [1, C] int32, fallback moves
     [1, C] int32)."""
     if not x.is_cuda:
         return banded_sweep_plain(x, y, z, e, wa, wb, margin, words, cfg, a,
-                                  window, d_z, diag=diag)
+                                  window, d_z, diag=diag, chain0=chain0)
     _check_window(window, d_z)
     if cfg.pbc_z:
         raise NotImplementedError("the banded kernel is for the wall "
@@ -262,7 +265,7 @@ def banded_sweep_block(x, y, z, e, wa, wb, margin, words, cfg: SMCConfig, a,
             xo.data_ptr(), yo.data_ptr(), zo.data_ptr(), eo.data_ptr(),
             acc.data_ptr(), fb.data_ptr(), ks._ptr(rows), cfg.n, n_pad, c,
             cfg.m, int(cfg.use_walls), int(words[0]), int(words[1]),
-            int(window), float(d_z), *ks._geometry(cfg),
+            int(window), float(d_z), *ks._geometry(cfg), int(chain0),
             torch.cuda.current_stream(dev).cuda_stream)
     ks._raise_on("smc_banded_launch", err)
     ks._count("banded", cfg, a, None, 0, None, None, None)

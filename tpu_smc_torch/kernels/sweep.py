@@ -118,11 +118,13 @@ def unit_uniform(bits: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
 
 
 def move_uniforms(words, n: int, c: int, device=None,
-                  dtype=torch.float32) -> torch.Tensor:
+                  dtype=torch.float32, chain0: int = 0) -> torch.Tensor:
     """The kernel's 5 uniforms of every move of one sweep: [n, c, 5] for
-    seed words (w0, w1), counters (move, chain, 0|1, 0)."""
+    seed words (w0, w1), counters (move, chain, 0|1, 0) with the GLOBAL
+    chain index chain0 + c."""
     nn = torch.arange(n, dtype=torch.int64, device=device)[:, None]
-    ch = torch.arange(c, dtype=torch.int64, device=device)[None, :]
+    ch = torch.arange(chain0, chain0 + c, dtype=torch.int64,
+                      device=device)[None, :]
     nn, ch = torch.broadcast_tensors(nn, ch)
     k0 = torch.full_like(nn, int(words[0]))
     k1 = torch.full_like(nn, int(words[1]))
@@ -139,12 +141,13 @@ def noise_rows(n: int) -> int:
 
 
 def pair_uniforms(words, pairs: int, c: int, device=None,
-                  dtype=torch.float32) -> torch.Tensor:
+                  dtype=torch.float32, chain0: int = 0) -> torch.Tensor:
     """The uniforms (u1, u2) of reference-noise pairs 0..pairs-1 of every
-    chain: [pairs, c, 2], Philox of counters (pair, chain, 2, 0) under
-    the sweep's seed words (tag 2: apart from the move counters)."""
+    chain: [pairs, c, 2], Philox of counters (pair, chain0 + chain, 2, 0)
+    under the sweep's seed words (tag 2: apart from the move counters)."""
     k = torch.arange(pairs, dtype=torch.int64, device=device)[:, None]
-    ch = torch.arange(c, dtype=torch.int64, device=device)[None, :]
+    ch = torch.arange(chain0, chain0 + c, dtype=torch.int64,
+                      device=device)[None, :]
     k, ch = torch.broadcast_tensors(k, ch)
     z = torch.zeros_like(k)
     b = philox4x32(k, ch, z + 2, z, torch.full_like(k, int(words[0])),
@@ -170,13 +173,15 @@ def _pair_plane(u: torch.Tensor, s2a) -> torch.Tensor:
 
 
 def reference_noise_plane(words, n: int, c: int, s2a, device=None,
-                          dtype=torch.float32) -> torch.Tensor:
+                          dtype=torch.float32,
+                          chain0: int = 0) -> torch.Tensor:
     """Plain version of K5 (`debug_reference_noise`): the reference-noise
     plane [noise_rows(n), c] of one sweep's seed words, the pairs the
-    kernel draws in reference-noise mode; particle i's proposal noise is
-    rows 3i..3i+2. s2a: scalar or one value per chain."""
+    kernel draws in reference-noise mode for global chains chain0 ..
+    chain0 + c - 1; particle i's proposal noise is rows 3i..3i+2. s2a:
+    scalar or one value per chain."""
     return _pair_plane(pair_uniforms(words, noise_rows(n) // 2, c, device,
-                                     dtype), s2a)
+                                     dtype, chain0), s2a)
 
 
 def box_muller(u: torch.Tensor, s2a):
@@ -247,8 +252,13 @@ def chain_scales(a, t, c: int, device, dtype=torch.float32) -> torch.Tensor:
 
 def _lane_sums(t: torch.Tensor) -> torch.Tensor:
     """[K, R, C] terms of R rows starting at a block boundary -> [K, C]:
-    each lane (row mod 128) summed in ascending block order, then the
-    lanes, as the kernel's threads add their rows. Blocks of exact zeros
+    each lane (row mod 128) summed in ascending block order, as the
+    kernel's threads add their rows, then the lanes as the kernel's
+    block_sum4 adds them: a shuffle-down tree within each warp of 32,
+    then the four warps in order. Every sum is elementwise adds in a
+    fixed order, on every device, so a chain's result does not depend on
+    how many chains share the call (torch's reductions over the lane
+    axis change their order with the chain count). Blocks of exact zeros
     before, between or after the others change no sum, so a pass over
     the block envelope alone equals a masked pass over every row."""
     k, r, c = t.shape
@@ -256,7 +266,15 @@ def _lane_sums(t: torch.Tensor) -> torch.Tensor:
     if pad:
         t = torch.cat([t, t.new_zeros((k, pad, c))], dim=1)
     lanes = t.reshape(k, -1, ROW_BLOCK, c).cumsum(1)[:, -1]
-    return lanes.sum(1)
+    warps = lanes.reshape(k, ROW_BLOCK // 32, 32, c)
+    off = 16
+    while off:
+        warps = warps[:, :, :off] + warps[:, :, off:2 * off]
+        off //= 2
+    out = warps[:, 0, 0]
+    for w in range(1, ROW_BLOCK // 32):
+        out = out + warps[:, w, 0]
+    return out
 
 
 def _pair_pass(qx, qy, qz, x, y, z, rows, cfg: SMCConfig):
@@ -399,7 +417,7 @@ def _envelope_pass(qx, qy, qz, x, y, z, i: int, b_lo, b_hi, cfg: SMCConfig):
 def sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
                       n_sweeps: int, a, zskip: bool = False,
                       draws=None, diag: dict | None = None,
-                      temperature=None, xslices: int = 0):
+                      temperature=None, xslices: int = 0, chain0: int = 0):
     """Plain PyTorch version of the resident kernel: same arguments,
     results and semantics, in the dtype of the planes (float32 for the
     kernel's inputs; float64 for parity with tpu_smc.sampler.sweep).
@@ -422,7 +440,7 @@ def sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
     modes are dense only, as on the TPU.
 
     draws: None = the kernel's own Philox stream, bit for bit (exact
-    mode); or injected: (g [S, N, C, 3] proposal noise already scaled by
+    mode), for global chains chain0 .. chain0 + C - 1; or injected: (g [S, N, C, 3] proposal noise already scaled by
     sqrt(2A), u [S, N, C] acceptance uniforms), g indexed by MOVE; with
     cfg.reference_noise (pair uniforms [S, P, C, 2] with 2P >= 3N, u),
     made into the pair plane by the kernel's recipe and read by particle.
@@ -431,14 +449,16 @@ def sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
     "near_ties" [C] (moves with that gap below diag["tie_margin"],
     default 0) and, when it holds "uniforms": True on entry, the kernel's
     uniforms [S, C, N, 5] in exact mode (with reference noise (u1, u2) of
-    the move's two pairs, then the acceptance uniform).
+    the move's two pairs, then the acceptance uniform); with "moves":
+    True, every move's "log_ap", "log_u", "accept" [S N, C] and the
+    mover's position after it, "r" [S N, 3, C], in move order.
 
     Returns (x, y, z, e [1, C], e_trace [S, C], acc_trace [S, C] int32)."""
     mode = "zskip" if zskip else "dense"
     if check_xslices(cfg, x.shape[0], zskip, xslices):
         mode = "xskip"
     return _sweep_plain(x, y, z, e, wa, wb, offsets, seeds, cfg, n_sweeps,
-                        a, mode, draws, diag, temperature, xslices)
+                        a, mode, draws, diag, temperature, xslices, chain0)
 
 
 def check_xslices(cfg: SMCConfig, n_pad: int, zskip: bool,
@@ -461,14 +481,15 @@ def check_xslices(cfg: SMCConfig, n_pad: int, zskip: bool,
 
 def sweep_block_stream_plain(x, y, z, e, wa, wb, offsets, seeds,
                              cfg: SMCConfig, n_sweeps: int, a, draws=None,
-                             diag: dict | None = None, temperature=None):
+                             diag: dict | None = None, temperature=None,
+                             chain0: int = 0):
     """Plain PyTorch version of the streamed kernel (K3), with
     sweep_block_plain's arguments and results (z-skip always on). Like
     K3 it reads, per pass, only the rows of the block envelope (`_envelope_
     pass`) and excludes the moving row by its row id instead of parking
     it; on the same rows it is bitwise sweep_block_plain(zskip=True)."""
     return _sweep_plain(x, y, z, e, wa, wb, offsets, seeds, cfg, n_sweeps,
-                        a, "stream", draws, diag, temperature)
+                        a, "stream", draws, diag, temperature, chain0=chain0)
 
 
 def _dense_only(cfg: SMCConfig, mode: str) -> None:
@@ -484,7 +505,7 @@ def _dense_only(cfg: SMCConfig, mode: str) -> None:
 
 def _sweep_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
                  n_sweeps: int, a, mode: str, draws, diag, temperature,
-                 xslices: int = 0):
+                 xslices: int = 0, chain0: int = 0):
     """The plain sweep loop; mode "dense", "zskip", "xskip" (xslices
     blocks per band) or "stream"."""
     _dense_only(cfg, mode)
@@ -502,6 +523,7 @@ def _sweep_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
     near_ties = torch.zeros((c,), dtype=torch.int64, device=dev)
     tie_margin = float(diag.get("tie_margin", 0.0)) if diag else 0.0
     dump = [] if diag is not None and diag.get("uniforms") else None
+    moves = [] if diag is not None and diag.get("moves") else None
     rows_j = torch.arange(n_pad, device=dev)[:, None]
     rn, park = cfg.reference_noise, not cfg.pbc_z and mode != "stream"
 
@@ -526,10 +548,11 @@ def _sweep_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
     for s in range(n_sweeps):
         off = int(offsets[s])
         if draws is None:
-            u5 = move_uniforms(seeds[s], n, c, dev, dt)
+            u5 = move_uniforms(seeds[s], n, c, dev, dt, chain0)
             u_all = u5[..., 4]
             if rn:
-                up = pair_uniforms(seeds[s], noise_rows(n) // 2, c, dev, dt)
+                up = pair_uniforms(seeds[s], noise_rows(n) // 2, c, dev, dt,
+                                   chain0)
             else:
                 g_all, u_all = box_muller(u5, s2a)
             if dump is not None and rn:
@@ -607,6 +630,9 @@ def _sweep_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
             x[i] = torch.where(accept, px, xi)
             y[i] = torch.where(accept, py, yi)
             z[i] = torch.where(accept, pz, zi)
+            if moves is not None:
+                moves.append((log_ap, torch.log(u_acc), accept,
+                              torch.stack([x[i], y[i], z[i]])))
             if mode != "dense":
                 ib = i // ROW_BLOCK
                 sbmin[ib] = torch.minimum(sbmin[ib], pz)
@@ -626,6 +652,9 @@ def _sweep_plain(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
         diag["near_ties"] = near_ties
         if dump is not None:
             diag["uniforms"] = torch.stack(dump) if dump else None
+        if moves is not None:
+            diag["moves"] = {k: torch.stack(v) for k, v in zip(
+                ("log_ap", "log_u", "accept", "r"), zip(*moves))}
     return x, y, z, e.reshape(1, c), e_trace, a_trace
 
 
@@ -674,16 +703,17 @@ def build() -> ctypes.CDLL:
     _Build.seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.smc_sweep_launch.argtypes = [P] * 18 + [I] * 11 + [D] * 7 + [P]
+    lib.smc_sweep_launch.argtypes = [P] * 18 + [I] * 11 + [D] * 7 + [I, P]
     lib.smc_sweep_launch.restype = I
-    lib.smc_sweep_stream_launch.argtypes = [P] * 15 + [I] * 7 + [D] * 6 + [P]
+    lib.smc_sweep_stream_launch.argtypes = ([P] * 15 + [I] * 7 + [D] * 6
+                                            + [I, P])
     lib.smc_sweep_stream_launch.restype = I
     lib.smc_sweep_capacity.argtypes = [I, I] + [ctypes.POINTER(
         ctypes.c_longlong)] * 2
     lib.smc_sweep_capacity.restype = I
-    lib.smc_banded_launch.argtypes = [P] * 15 + [I] * 8 + [D] * 7 + [P]
+    lib.smc_banded_launch.argtypes = [P] * 15 + [I] * 8 + [D] * 7 + [I, P]
     lib.smc_banded_launch.restype = I
-    lib.smc_debug_reference_noise.argtypes = [P] + [I] * 4 + [D, P]
+    lib.smc_debug_reference_noise.argtypes = [P] + [I] * 4 + [D, I, P]
     lib.smc_debug_reference_noise.restype = I
     _Build.lib = lib
     return lib
@@ -812,7 +842,7 @@ def _geometry(cfg: SMCConfig):
 
 def _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
                       n_sweeps: int, a, zskip: bool, diag, temperature,
-                      xslices: int):
+                      xslices: int, chain0: int):
     n_pad, c = x.shape
     dev = x.device
     xs = check_xslices(cfg, n_pad, zskip, xslices)
@@ -849,7 +879,7 @@ def _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
             int(bool(zskip)),
             w_stride, int(cfg.pbc_z), int(cfg.use_walls),
             int(cfg.reference_noise), xslices if xs else 0, *_geometry(cfg),
-            xcut(cfg), stream)
+            xcut(cfg), int(chain0), stream)
     _raise_on("smc_sweep_launch", err)
     _count("xskip" if xs else "zskip" if zskip else "dense", cfg, a,
            temperature, w_stride, diag, visited, u_dump, cycles)
@@ -858,7 +888,7 @@ def _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
 
 def _sweep_block_stream_cuda(x, y, z, e, wa, wb, offsets, seeds,
                              cfg: SMCConfig, n_sweeps: int, a, diag,
-                             temperature):
+                             temperature, chain0: int):
     n_pad, c = x.shape
     dev = x.device
     _dense_only(cfg, "stream")
@@ -879,7 +909,8 @@ def _sweep_block_stream_cuda(x, y, z, e, wa, wb, offsets, seeds,
             scales.data_ptr(), eo.data_ptr(), e_tr.data_ptr(), a_tr.data_ptr(),
             _ptr(visited), _ptr(u_dump), _ptr(cycles), cfg.n, n_pad, c,
             n_sweeps, cfg.m,
-            w_stride, int(cfg.use_walls), *_geometry(cfg), stream)
+            w_stride, int(cfg.use_walls), *_geometry(cfg), int(chain0),
+            stream)
     _raise_on("smc_sweep_stream_launch", err)
     _count("stream", cfg, a, temperature, w_stride, diag, visited, u_dump,
            cycles)
@@ -889,7 +920,7 @@ def _sweep_block_stream_cuda(x, y, z, e, wa, wb, offsets, seeds,
 def sweep_block(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
                 n_sweeps: int, a, zskip: bool = False,
                 diag: dict | None = None, temperature=None,
-                xslices: int = 0):
+                xslices: int = 0, chain0: int = 0):
     """n_sweeps Smart-MC sweeps of every chain (columns of the planes) on
     the resident kernel.
 
@@ -916,50 +947,61 @@ def sweep_block(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
     move uniforms [S, C, N, 5]; with "cycles": True, the SM clock cycles
     of each move phase (`PHASES`) summed over the call, [C, len(PHASES)]
     int64. A diagnostic launch gives bitwise the results of a plain one.
+    chain0: the global index of column 0, the chain word of every Philox
+    counter (column c draws chain chain0 + c's stream), so a call over
+    columns [k, k + C') of a wider ensemble with chain0 = k is bitwise
+    those columns of the wider call; 0 is every earlier result.
 
     Returns (x, y, z, e [1, C], e_trace [S, C], acc_trace [S, C])."""
     if x.is_cuda:
         return _sweep_block_cuda(x, y, z, e, wa, wb, offsets, seeds, cfg,
                                  n_sweeps, a, zskip, diag, temperature,
-                                 xslices)
+                                 xslices, chain0)
     return sweep_block_plain(x, y, z, e, wa, wb, offsets, seeds, cfg,
                              n_sweeps, a, zskip=zskip, diag=diag,
-                             temperature=temperature, xslices=xslices)
+                             temperature=temperature, xslices=xslices,
+                             chain0=chain0)
 
 
 def sweep_block_stream(x, y, z, e, wa, wb, offsets, seeds, cfg: SMCConfig,
                        n_sweeps: int, a, diag: dict | None = None,
-                       temperature=None):
+                       temperature=None, chain0: int = 0):
     """sweep_block(zskip=True) on the streamed kernel (K3): the planes
     stay in device memory (chain-major for the call), so N is bounded by
     device memory, not shared memory. Same arguments and results; on the
     same rows bitwise the resident z-skip kernel. CUDA tensors count a
-    "stream" launch; CPU tensors go through sweep_block_stream_plain."""
+    "stream" launch; CPU tensors go through sweep_block_stream_plain.
+    chain0 as in sweep_block."""
     if x.is_cuda:
         return _sweep_block_stream_cuda(x, y, z, e, wa, wb, offsets, seeds,
-                                        cfg, n_sweeps, a, diag, temperature)
+                                        cfg, n_sweeps, a, diag, temperature,
+                                        chain0)
     return sweep_block_stream_plain(x, y, z, e, wa, wb, offsets, seeds, cfg,
                                     n_sweeps, a, diag=diag,
-                                    temperature=temperature)
+                                    temperature=temperature, chain0=chain0)
 
 
-def debug_reference_noise(words, n: int, c: int, s2a: float, device="cuda"):
+def debug_reference_noise(words, n: int, c: int, s2a: float, device="cuda",
+                          chain0: int = 0):
     """K5: one reference-noise plane [noise_rows(n), c] float32 for the
     seed words (w0, w1) and the scale s2a = sqrt(2A), from the device
     function the reference-noise sweep draws its pairs with (test-only,
-    as tpu_smc's debug_reference_noise). A CUDA `device` launches the
+    as tpu_smc's debug_reference_noise); column c holds global chain
+    chain0 + c's pairs. A CUDA `device` launches the
     kernel and counts a "debug_reference_noise" launch in
     sweep_block.launches; the CPU runs reference_noise_plane."""
     device = torch.device(device)
     if device.type != "cuda":
-        return reference_noise_plane(words, n, c, float(s2a), device)
+        return reference_noise_plane(words, n, c, float(s2a), device,
+                                     chain0=chain0)
     rows = noise_rows(n)
     out = torch.empty((rows, c), dtype=torch.float32, device=device)
     lib = build()
     with torch.cuda.device(device):
         err = lib.smc_debug_reference_noise(
             out.data_ptr(), rows, c, int(words[0]), int(words[1]),
-            float(s2a), torch.cuda.current_stream(device).cuda_stream)
+            float(s2a), int(chain0),
+            torch.cuda.current_stream(device).cuda_stream)
     _raise_on("smc_debug_reference_noise", err)
     sweep_block.launches["debug_reference_noise"] += 1
     return out

@@ -19,6 +19,13 @@ The sweeps of a cycle are one engine call; the exchange is a few small
 torch ops on the chains' device. Its uniforms and parity derive from the
 ABSOLUTE cycle index, so a run split into more calls gives the same
 result.
+
+One ladder spanning the processes (a `tsweep.LadderShard` per rank):
+every exchange gathers the ladder's (r, E, rbin) from every rank, runs
+the exchange step on the global arrays, identically on every rank, and
+each rank keeps its slice; the swap counters are therefore global on
+every rank, and `--pt-exchange auto` chooses one interval everywhere.
+Complete ladders per process pool with `pool_pt_across_processes`.
 """
 
 from __future__ import annotations
@@ -31,8 +38,9 @@ import torch
 
 from .config import RunParams, SMCConfig
 from .state import ChainState, fold_in
-from .tsweep import (FieldOptions, TSweepResults, _fields, _ladder_block,
-                     _pressure, ladder_stats, stack_fields)
+from .tsweep import (FieldOptions, LadderShard, TSweepResults, _fields,
+                     _ladder_block, _pressure, gather_chain_axis,
+                     ladder_stats, stack_fields)
 
 _EXCHANGE_SALT = 0x9C0FFEE
 
@@ -95,29 +103,58 @@ def exchange_step(state: ChainState, betas_t: torch.Tensor,
     return new, accepts, attempts
 
 
+def exchange_global(state: ChainState, betas_t: torch.Tensor,
+                    chains_per_t: int, key: torch.Tensor, parity: int,
+                    shard: LadderShard | None = None):
+    """exchange_step on the whole ladder: a shard's (r, E, rbin) are
+    gathered from every rank, the step runs on the global arrays (the
+    same on every rank) and the shard keeps its slice. Returns (state,
+    accepts, attempts), global counts."""
+    if shard is None:
+        return exchange_step(state, betas_t, chains_per_t, key, parity)
+    from .distributed import allgather_chain_axis
+
+    def whole(x):
+        return torch.from_numpy(allgather_chain_axis(
+            x.cpu().numpy())).to(x.device)
+
+    g = state.replace(r=whole(state.r), energy=whole(state.energy),
+                      rbin=whole(state.rbin))
+    g, acc, att = exchange_step(g, betas_t, chains_per_t, key, parity)
+    mine = slice(shard.chain0, shard.chain0 + shard.count)
+    return (state.replace(r=g.r[mine].contiguous(),
+                          energy=g.energy[mine].contiguous(),
+                          rbin=g.rbin[mine].contiguous()), acc, att)
+
+
 def pt_cycles(state: ChainState, w, cfg: SMCConfig, temps_c: torch.Tensor,
               betas_t: torch.Tensor, a_scale: float, chains_per_t: int,
               interval: int, n_cycles: int, cycle0: int, ekey: torch.Tensor,
-              sampler: str, collect_trace: bool = False, a_c=None):
+              sampler: str, collect_trace: bool = False, a_c=None,
+              shard: LadderShard | None = None, seed=None):
     """n_cycles x (interval sweeps as one engine call + one exchange
     attempt). cycle0 is the absolute index of the first cycle: the
     attempt's seed words fold it into `ekey` and its parity is its
-    parity, so cycles split over calls give the same result. Returns
-    (state, accepts [n_t-1] int64, attempts [n_t-1] int64, energy
-    traces [interval, C] per cycle when collect_trace)."""
+    parity, so cycles split over calls give the same result. shard and
+    seed (the global chain 0 key): one ladder spanning the processes
+    (exchange_global). Returns (state, accepts [n_t-1] int64, attempts
+    [n_t-1] int64, energy traces [interval, C] per cycle when
+    collect_trace)."""
     n_t = betas_t.shape[0]
     nacc = np.zeros((max(n_t - 1, 0),), np.int64)
     natt = np.zeros_like(nacc)
     traces = []
     for k in range(n_cycles):
-        state, stats = _ladder_block(state, w, cfg, temps_c, a_scale,
-                                     interval, sampler,
-                                     collect_trace=collect_trace, a_c=a_c)
+        state, stats = _ladder_block(
+            state, w, cfg, temps_c, a_scale, interval, sampler,
+            collect_trace=collect_trace, a_c=a_c,
+            chain0=0 if shard is None else shard.chain0, seed=seed)
         if collect_trace:
             traces.append(stats.energy)
         abs_k = cycle0 + k
-        state, acc, att = exchange_step(state, betas_t, chains_per_t,
-                                        fold_in(ekey, [abs_k])[0], abs_k % 2)
+        state, acc, att = exchange_global(state, betas_t, chains_per_t,
+                                          fold_in(ekey, [abs_k])[0],
+                                          abs_k % 2, shard)
         nacc += acc.cpu().numpy()
         natt += att.cpu().numpy()
     return state, nacc, natt, traces
@@ -163,6 +200,7 @@ def simulate_parallel_tempering(
     device="cuda",
     state0: ChainState | None = None,
     fields: FieldOptions = FieldOptions(),
+    shard: LadderShard | None = None,
 ) -> tuple[ChainState, PTResults]:
     """The ladder with replica exchange every `exchange_interval` sweeps
     ("auto": measure the swap acceptance on a 40-cycle probe after
@@ -174,7 +212,9 @@ def simulate_parallel_tempering(
     ladder state (tsweep's); exchange attempts are numbered from its
     absolute sweep counter, so a resumed run at a cycle boundary
     continues the uninterrupted one's exchanges. fields: the paired
-    field samples taken with each (P, E) pair (tsweep._fields)."""
+    field samples taken with each (P, E) pair (tsweep._fields). shard:
+    this process's chains of one ladder spanning the processes, as in
+    tsweep.simulate_temperature_sweep (collective)."""
     from .driver import therm_chunk
     from .tsweep import ladder_start
 
@@ -186,14 +226,18 @@ def simulate_parallel_tempering(
                          f"got {exchange_interval!r}")
     interval = 10 if auto else max(1, int(exchange_interval))
     c = n_t * chains_per_t
-    state, w_t = ladder_start(cfg, key, c, r0, w, device, state0)
+    state, w_t, key0 = ladder_start(cfg, key, c, r0, w, device, state0,
+                                    shard)
+    mine = slice(0, c) if shard is None else slice(
+        shard.chain0, shard.chain0 + shard.count)
     f64 = dict(dtype=torch.float64, device=device)
-    temps_c = torch.as_tensor(np.repeat(temps, chains_per_t), **f64)
+    temps_c = torch.as_tensor(np.repeat(temps, chains_per_t)[mine], **f64)
     betas_t = torch.as_tensor(1.0 / temps, dtype=cfg.torch_dtype,
                               device=device)
     a_c = (None if a_per_t is None else torch.as_tensor(
-        np.repeat(np.asarray(a_per_t, np.float64), chains_per_t), **f64))
-    ekey = fold_in(state.key[0].cpu(), [_EXCHANGE_SALT])[0]
+        np.repeat(np.asarray(a_per_t, np.float64), chains_per_t)[mine],
+        **f64))
+    ekey = fold_in(key0, [_EXCHANGE_SALT])[0]
     sweep_budget = therm_chunk(cfg, sampler=sampler)
 
     def run_phase(state, total_sweeps, a_scale, cycle0, collect=False,
@@ -206,7 +250,7 @@ def simulate_parallel_tempering(
         group = max(1, sweep_budget // interval)
         acc = np.zeros((max(n_t - 1, 0),), np.int64)
         att = np.zeros_like(acc)
-        moves = np.zeros((c,), np.int64)
+        moves = np.zeros((state.n_chains,), np.int64)
         samples, p_samples, e_at_p, f_samples = [], [], [], []
         done = sweep0 = 0
         while done < cycles:
@@ -214,7 +258,7 @@ def simulate_parallel_tempering(
             state, a_blk, t_blk, traces = pt_cycles(
                 state, w_t, cfg, temps_c, betas_t, a_scale, chains_per_t,
                 interval, k, cycle0 + done, ekey, sampler,
-                collect_trace=collect, a_c=a_c)
+                collect_trace=collect, a_c=a_c, shard=shard, seed=key0)
             acc += a_blk
             att += t_blk
             moves += state.accepted.cpu().numpy().astype(np.int64)
@@ -249,7 +293,9 @@ def simulate_parallel_tempering(
     prod_sweeps = -(-params.maxsteps // interval) * interval
     prod_sps = prod_sweeps * c / max(time.perf_counter() - t0, 1e-9)
 
-    e_tr = np.concatenate(samples) if samples else np.zeros((0, c))
+    e_tr = gather_chain_axis(np.concatenate(samples) if samples
+                             else np.zeros((0, state.n_chains)), 1, shard)
+    moves = gather_chain_axis(moves, 0, shard)
     e_t = e_tr.reshape(len(e_tr), n_t, chains_per_t)
     mean_e, err_e, acc_moves, cv = ladder_stats(e_t, moves, prod_sweeps,
                                                 temps, cfg)
@@ -257,13 +303,38 @@ def simulate_parallel_tempering(
     ts = TSweepResults(
         temps=temps, mean_energy=mean_e, err_energy=err_e,
         acceptance=acc_moves, cv=cv, energy_samples=e_t,
-        pressure_samples=np.stack(p_s).reshape(shape_t) if p_s else None,
-        energy_at_pressure=np.stack(e_p).reshape(shape_t) if e_p else None,
-        sweeps_per_second=prod_sps, **stack_fields(f_s, n_t, chains_per_t))
+        pressure_samples=(gather_chain_axis(np.stack(p_s), 1, shard)
+                          .reshape(shape_t) if p_s else None),
+        energy_at_pressure=(gather_chain_axis(np.stack(e_p), 1, shard)
+                            .reshape(shape_t) if e_p else None),
+        sweeps_per_second=prod_sps,
+        **stack_fields(f_s, n_t, chains_per_t, shard))
     return state, PTResults(
         tsweep=ts, pair_t_lo=temps[:-1], pair_t_hi=temps[1:],
         swap_acceptance=acc / np.maximum(att, 1), swap_attempts=att,
         exchange_interval=interval, probe_acceptance=probe_acc)
+
+
+def pool_pt_across_processes(res: PTResults, cfg: SMCConfig) -> PTResults:
+    """Pool per-process PT results (tpu_smc/pt.py:490-509): the replica
+    axis concatenated (tsweep.pool_tsweep_across_processes), the per-pair
+    swap attempts summed and the acceptance weighted by them (every
+    process owns complete ladders, so its exchanges are its own).
+    Collective; every rank gets the pooled result."""
+    from .distributed import allgather_chain_axis
+    from .tsweep import pool_tsweep_across_processes
+
+    ts = pool_tsweep_across_processes(res.tsweep, cfg)
+    att = allgather_chain_axis(
+        np.asarray(res.swap_attempts, np.int64)[None])      # [P, n_t-1]
+    acc = allgather_chain_axis(
+        (np.asarray(res.swap_acceptance)
+         * np.asarray(res.swap_attempts))[None])
+    att_sum = att.sum(axis=0)
+    return res._replace(tsweep=ts,
+                        swap_acceptance=acc.sum(axis=0) / np.maximum(att_sum,
+                                                                     1),
+                        swap_attempts=att_sum)
 
 
 def write_pt_csv(d, cfg: SMCConfig, res: PTResults):

@@ -124,9 +124,12 @@ def per_chain_wall_energy(r: torch.Tensor, w: torch.Tensor,
 def init_ensemble_state(cfg: SMCConfig, key: torch.Tensor, n_chains: int,
                         r0: np.ndarray | None = None,
                         w: np.ndarray | None = None,
-                        device="cuda") -> tuple[ChainState, torch.Tensor]:
+                        device="cuda",
+                        chain_offset: int = 0) -> tuple[ChainState,
+                                                        torch.Tensor]:
     """`n_chains` chains from one common start configuration (every MPI
-    rank of the reference starts from the common R0, SMC.c:43-45).
+    rank of the reference starts from the common R0, SMC.c:43-45), keyed
+    as chains chain_offset .. chain_offset + n_chains - 1 of the seed.
 
     w: the shared [M*M, 2] wall table (default: the reference's), or
     per-chain tables [C, M*M, 2]; with per-chain tables each chain's
@@ -138,13 +141,13 @@ def init_ensemble_state(cfg: SMCConfig, key: torch.Tensor, n_chains: int,
                              f"chains ({n_chains})")
         state, _ = init_chain_state(cfg, key, r0=r0, w=np.asarray(w)[0],
                                     device=device)
-        state = batch_chain_state(state, n_chains)
+        state = batch_chain_state(state, n_chains, chain_offset)
         w_t = torch.as_tensor(np.asarray(w), dtype=cfg.torch_dtype,
                               device=device)
         return state.replace(energy=per_chain_wall_energy(state.r, w_t, cfg)
                              .to(state.energy.dtype)), w_t
     state, w_t = init_chain_state(cfg, key, r0=r0, w=w, device=device)
-    return batch_chain_state(state, n_chains), w_t
+    return batch_chain_state(state, n_chains, chain_offset), w_t
 
 
 def broadcast_resumed_chain(state: ChainState, n_chains: int) -> ChainState:

@@ -14,6 +14,14 @@ Output: `tsweep_*.csv` with one row per temperature
 where E carries the 3NT/2 kinetic offset (SMC.c:210-211), E_err is the
 replica error bar (spread of chain means / sqrt(chains - 1)), and
 cv = var(E)/T^2 (SMC.c:249) pooled over the level's chains.
+
+Over several processes a ladder runs in one of two ways: complete
+replica ladders per process, pooled at the end
+(`pool_tsweep_across_processes`), or ONE ladder whose flat chain axis is
+cut into contiguous rank ranges (`LadderShard`, --global-ladder): each
+rank sweeps its range keyed by the global chain index, the samples are
+gathered before the statistics, and every rank holds the global result,
+bitwise the single-process run's.
 """
 
 from __future__ import annotations
@@ -25,8 +33,29 @@ import numpy as np
 import torch
 
 from .config import RunParams, SMCConfig
-from .state import ChainState, init_ensemble_state
+from .state import ChainState, fold_in, init_ensemble_state
 from .system import build_walls
+
+
+class LadderShard(NamedTuple):
+    """This process's share of ONE ladder spanning the processes
+    (--global-ladder): chains [chain0, chain0 + count) of the flat,
+    temperature-major ladder-chain axis."""
+    chain0: int
+    count: int
+
+
+def gather_chain_axis(x: np.ndarray | None, axis: int,
+                      shard: LadderShard | None):
+    """x with its chain axis `axis` gathered from every rank in rank
+    order (the global ladder), contiguous; x itself without a shard."""
+    if x is None or shard is None:
+        return x
+    from .distributed import allgather_chain_axis
+
+    moved = np.ascontiguousarray(np.moveaxis(np.asarray(x), axis, 0))
+    return np.ascontiguousarray(np.moveaxis(allgather_chain_axis(moved), 0,
+                                            axis))
 
 
 class TSweepResults(NamedTuple):
@@ -59,14 +88,17 @@ class TSweepResults(NamedTuple):
 
 def _ladder_block(state: ChainState, w, cfg: SMCConfig,
                   temps_c: torch.Tensor, a_scale: float, n_sweeps: int,
-                  sampler: str, collect_trace: bool = False, a_c=None):
+                  sampler: str, collect_trace: bool = False, a_c=None,
+                  chain0: int = 0, seed=None):
     """n_sweeps sweeps of the ladder on one engine with per-chain rows
-    A = a_scale * (a_c or gamma*T) and T = temps_c [C]. Returns
-    (state, SweepStats or None)."""
+    A = a_scale * (a_c or gamma*T) and T = temps_c [C]; chain0 and seed
+    (the global ladder's chain 0 key on a shard) as the engines take
+    them. Returns (state, SweepStats or None)."""
     from . import ensemble as ens
 
     base = cfg.gamma * temps_c if a_c is None else a_c
-    rows = dict(a_per_chain=a_scale * base, t_per_chain=temps_c)
+    rows = dict(a_per_chain=a_scale * base, t_per_chain=temps_c,
+                chain0=chain0, seed=seed)
     if sampler == "zsorted":
         state, stats = ens.ensemble_sweeps_zsorted(state, w, cfg, 0.0,
                                                    n_sweeps, **rows)
@@ -74,6 +106,7 @@ def _ladder_block(state: ChainState, w, cfg: SMCConfig,
         state, stats = ens.ensemble_sweeps_dense(state, w, cfg, 0.0,
                                                  n_sweeps, **rows)
     elif sampler == "torch":
+        rows["stream_seed"] = rows.pop("seed")
         state, stats = ens.ensemble_sweeps(state, w, cfg, 0.0, n_sweeps,
                                            collect_trace=collect_trace,
                                            **rows)
@@ -149,12 +182,15 @@ def _fields(cfg: SMCConfig, state: ChainState, w, fo: FieldOptions,
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
-def stack_fields(samples: list, n_t: int, chains_per_t: int) -> dict:
+def stack_fields(samples: list, n_t: int, chains_per_t: int,
+                 shard: LadderShard | None = None) -> dict:
     """The boundaries' `_fields` dicts stacked into TSweepResults fields
-    [B, n_t, chains_per_t, bins]."""
+    [B, n_t, chains_per_t, bins] (a shard's gathered from every rank
+    first)."""
     if not samples:
         return {}
-    return {k: np.stack([s[k] for s in samples]).reshape(
+    return {k: gather_chain_axis(np.stack([s[k] for s in samples]), 1,
+                                 shard).reshape(
         (-1, n_t, chains_per_t) + samples[0][k].shape[1:])
         for k in samples[0]}
 
@@ -173,18 +209,32 @@ def ladder_stats(e_t: np.ndarray, moves: np.ndarray, sweeps: int,
 
 
 def ladder_start(cfg: SMCConfig, key: torch.Tensor, c: int, r0, w, device,
-                 state0: ChainState | None):
-    """(state, wall tensor) of a ladder of c chains: a fresh ensemble, or
-    the resumed state0 after checking its chain count."""
+                 state0: ChainState | None,
+                 shard: LadderShard | None = None):
+    """(state, wall tensor, chain 0 key) of a ladder of c chains: a fresh
+    ensemble (a shard's chains of it), or the resumed state0 after
+    checking its chain count. The chain 0 key is the GLOBAL chain 0's,
+    from which the engines' streams and the exchanges derive."""
+    if shard is not None:
+        if state0 is not None or np.ndim(w) == 3:
+            raise ValueError("a global-ladder shard starts fresh, with one "
+                             "shared wall table")
+        state, w_t = init_ensemble_state(cfg, key, shard.count, r0=r0, w=w,
+                                         device=device,
+                                         chain_offset=shard.chain0)
+        return state, w_t, fold_in(torch.as_tensor(key), [0])[0]
     if state0 is None:
-        return init_ensemble_state(cfg, key, c, r0=r0, w=w, device=device)
+        state, w_t = init_ensemble_state(cfg, key, c, r0=r0, w=w,
+                                         device=device)
+        return state, w_t, state.key[0].cpu()
     if state0.n_chains != c:
         raise ValueError(f"resumed ladder state has {state0.n_chains} "
                          f"chains; this ladder needs {c}")
     if w is None:
         w = build_walls(cfg)[0]
     return state0, torch.as_tensor(np.asarray(w), dtype=cfg.torch_dtype,
-                                   device=state0.r.device)
+                                   device=state0.r.device), \
+        state0.key[0].cpu()
 
 
 def simulate_temperature_sweep(
@@ -200,6 +250,7 @@ def simulate_temperature_sweep(
     device="cuda",
     state0: ChainState | None = None,
     fields: FieldOptions = FieldOptions(),
+    shard: LadderShard | None = None,
 ) -> tuple[ChainState, TSweepResults]:
     """The full ladder: thermalization (A doubled) + production, energies
     sampled at the gather cadence and (pressure, energy) pairs, with the
@@ -211,24 +262,33 @@ def simulate_temperature_sweep(
     per-level mobility overriding gamma*T (tuning.tune_mobility_ladder),
     held fixed through the run. state0: resume from a ladder state
     (io.load_checkpoint of an earlier ladder's final state, the same
-    temperature-major layout; usually with eqsteps 0)."""
+    temperature-major layout; usually with eqsteps 0). shard: this
+    process's chains of one ladder spanning the processes; the returned
+    state is the shard's, the results the whole ladder's (collective:
+    every rank calls it with its shard)."""
     from .driver import _sync, therm_chunk
 
     temps = np.asarray(temps, dtype=np.float64)
     n_t = len(temps)
     c = n_t * chains_per_t
-    state, w_t = ladder_start(cfg, key, c, r0, w, device, state0)
+    state, w_t, key0 = ladder_start(cfg, key, c, r0, w, device, state0,
+                                    shard)
+    mine = slice(0, c) if shard is None else slice(
+        shard.chain0, shard.chain0 + shard.count)
+    chain0 = mine.start
     f64 = dict(dtype=torch.float64, device=device)
-    temps_c = torch.as_tensor(np.repeat(temps, chains_per_t), **f64)
+    temps_c = torch.as_tensor(np.repeat(temps, chains_per_t)[mine], **f64)
     a_c = (None if a_per_t is None else torch.as_tensor(
-        np.repeat(np.asarray(a_per_t, np.float64), chains_per_t), **f64))
+        np.repeat(np.asarray(a_per_t, np.float64), chains_per_t)[mine],
+        **f64))
+    blk = dict(a_c=a_c, chain0=chain0, seed=key0)
 
     chunk = therm_chunk(cfg, sampler=sampler)
     done = 0
     while done < params.eqsteps:
         k = min(params.eqsteps - done, chunk)
         state = _sync(_ladder_block(state, w_t, cfg, temps_c, 2.0, k,
-                                    sampler, a_c=a_c)[0])
+                                    sampler, **blk)[0])
         done += k
     state = state.replace(accepted=torch.zeros_like(state.accepted))
 
@@ -237,13 +297,13 @@ def simulate_temperature_sweep(
     lapse = max(1, params.gather_lapse)
     chunk_g = max(lapse, (chunk // lapse) * lapse)
     e_samples, p_samples, e_at_p, f_samples = [], [], [], []
-    prod_moves = np.zeros((c,), np.int64)
+    prod_moves = np.zeros((state.n_chains,), np.int64)
     done = 0
     t0 = time.perf_counter()
     while done < params.maxsteps:
         k = min(params.maxsteps - done, chunk_g)
         state, stats = _ladder_block(state, w_t, cfg, temps_c, 1.0, k,
-                                     sampler, collect_trace=True, a_c=a_c)
+                                     sampler, collect_trace=True, **blk)
         e_samples.append(stats.energy[lapse - 1::lapse].cpu().numpy())
         p_samples.append(_pressure(cfg, state.r, w_t))
         e_at_p.append(state.energy.cpu().numpy())
@@ -254,17 +314,53 @@ def simulate_temperature_sweep(
         done += k
     prod_sps = done * c / max(time.perf_counter() - t0, 1e-9)
 
-    e_tr = np.concatenate(e_samples)               # [gathers, C]
+    e_tr = gather_chain_axis(np.concatenate(e_samples), 1, shard)
+    prod_moves = gather_chain_axis(prod_moves, 0, shard)
     e_t = e_tr.reshape(len(e_tr), n_t, chains_per_t)
     mean_e, err_e, acc, cv = ladder_stats(e_t, prod_moves, done, temps, cfg)
     shape_t = (-1, n_t, chains_per_t)
     return state, TSweepResults(
         temps=temps, mean_energy=mean_e, err_energy=err_e, acceptance=acc,
         cv=cv, energy_samples=e_t,
-        pressure_samples=np.stack(p_samples).reshape(shape_t),
-        energy_at_pressure=np.stack(e_at_p).reshape(shape_t),
+        pressure_samples=gather_chain_axis(np.stack(p_samples), 1,
+                                           shard).reshape(shape_t),
+        energy_at_pressure=gather_chain_axis(np.stack(e_at_p), 1,
+                                             shard).reshape(shape_t),
         sweeps_per_second=prod_sps,
-        **stack_fields(f_samples, n_t, chains_per_t))
+        **stack_fields(f_samples, n_t, chains_per_t, shard))
+
+
+def pool_tsweep_across_processes(res: TSweepResults,
+                                 cfg: SMCConfig) -> TSweepResults:
+    """Pool per-process ladder results (tpu_smc/tsweep.py:430-476):
+    every process ran complete replica ladders of its own, so the
+    replica axis is concatenated in rank order and the per-T statistics
+    recomputed from the full sample set (reweighting then sees P times
+    the samples); acceptance is the mean of the ranks' and the rate
+    their sum. Collective; every rank gets the pooled result."""
+    from .distributed import allgather_chain_axis
+
+    def cat_replicas(a):
+        if a is None or a.size == 0:
+            return a
+        moved = np.moveaxis(np.asarray(a), 2, 0)     # [R_local, G, n_t, ..]
+        return np.moveaxis(allgather_chain_axis(moved), 0, 2)
+
+    e_t = cat_replicas(res.energy_samples)           # [G, n_t, R_total]
+    kinetic = 1.5 * cfg.n * res.temps
+    chain_means = e_t.mean(axis=0)                   # [n_t, R_total]
+    r_tot = chain_means.shape[1]
+    acc = allgather_chain_axis(np.asarray(res.acceptance)[None]).mean(axis=0)
+    return res._replace(
+        mean_energy=chain_means.mean(axis=1) + kinetic,
+        err_energy=chain_means.std(axis=1) / max(1, r_tot - 1) ** 0.5,
+        acceptance=acc, cv=e_t.var(axis=(0, 2)) / res.temps ** 2,
+        energy_samples=e_t,
+        **{name: cat_replicas(getattr(res, name)) for name in
+           ("pressure_samples", "energy_at_pressure") + FIELD_NAMES},
+        sweeps_per_second=(float(allgather_chain_axis(np.asarray(
+            [[res.sweeps_per_second]])).sum())
+            if res.sweeps_per_second is not None else None))
 
 
 def write_tsweep_csv(d, cfg: SMCConfig, res: TSweepResults):

@@ -126,10 +126,14 @@ def tune_mobility(cfg: SMCConfig, state: ChainState, w: torch.Tensor,
                   target: float = 0.5, sampler: str = "torch",
                   sweeps_per_block: int = 25, max_blocks: int = 16,
                   tol: float = 0.02, burn_in_blocks: int = 2,
-                  seed: int | None = None):
+                  seed: int | None = None, chain0: int = 0,
+                  pooled: bool = False):
     """Tune one A for every chain of `state` (leading chain axis) to the
     target acceptance. The kernel engines probe through the dense kernel. Returns (advanced state, TuneResult): the
-    tuning sweeps double as burn-in."""
+    tuning sweeps double as burn-in. chain0: the global index of the
+    state's chain 0; pooled: every probe's acceptance is the job's,
+    gathered from every process (collective), so that every process
+    tunes the same A as one process running all the chains would."""
     _check_target(target)
     from . import ensemble as ens
 
@@ -141,11 +145,15 @@ def tune_mobility(cfg: SMCConfig, state: ChainState, w: torch.Tensor,
         state = state.replace(accepted=torch.zeros_like(state.accepted))
         if sampler in ("dense", "zsorted"):
             state, _ = ens.ensemble_sweeps_dense(state, w, cfg, a_val, k,
-                                                 seed=seed)
+                                                 seed=seed, chain0=chain0)
         else:
             state, _ = ens.ensemble_sweeps(state, w, cfg, a_val, k,
-                                           stream_seed=seed)
+                                           stream_seed=seed, chain0=chain0)
         moves = state.accepted.cpu().numpy().astype(np.int64)
+        if pooled:
+            from .distributed import allgather_chain_axis
+
+            moves = allgather_chain_axis(moves)
         return float(moves.mean()) / (k * cfg.n)
 
     a, acc, history, blocks = search_mobility(
