@@ -55,7 +55,9 @@ Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
      = 4 and 8, from the equilibrated ensemble (400 dense sweeps from
      the lattice) and from a cluster at the x seam, and K4 against its
      plain version at N = 1024 x 64, one sweep (the same schedule,
-     fallback counts equal, carried E against a recompute);
+     fallback counts equal, carried E against a recompute), and at N =
+     32 x 32 clusters with walls on a sweep whose schedule draws one row
+     twice in a row, the first of the two moves accepted on some chains;
   3. the main path: `tpu_smc_torch.cli.main` at N = 1024 x 512 chains
      (auto -> zsorted, z-skip launches) and N = 108 x 512 (auto -> dense),
      each reproducing the mean energy and acceptance recorded for it
@@ -166,15 +168,19 @@ Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
      at sort cadences 8 and 16 (N = 1024 x 512); K1-pbc at N = 4000 x
      128 and K1-rn at N = 108 x 512 against their plain versions and
      timed in the same turns as K1, and K5 on one plane of the reference-
-     noise run ([328, 512]); K1-xs (k = 4) at N = 1024 x 256 against its
-     plain version and timed in the same turns, K1-xs (k = 4, 8) beside
+     noise run ([328, 512]): its device time in a CUDA graph beside an
+     empty kernel's on its grid, and its time per wrapper call; K1-xs
+     (k = 4) at N = 1024 x 256 against its plain version and timed in the
+     same turns, K1-xs (k = 4, 8) beside
      K2 in turns at scripts/probe_xsort.py's N = 1024 x 512 and 4096 x
      256, and K4 at N = 1024 x 256 against its plain version and beside
      K2 per sweep in turns; first, where a move's time goes: the SM
      clock cycles per move in each phase (envelope, passes, reductions,
      wall terms, draws, acceptance, end barrier) from diagnostic launches
-     of K1 (N = 108 x 512), K2 (N = 1024 x 512) and K3 (N = 32768 x 128),
-     their outputs held bitwise the main path's instantiation's.
+     of K1 (N = 108 x 512), K2 (N = 1024 x 512), K3 (N = 32768 x 128)
+     and K4 (N = 1024 x 256; its first phase the schedule's row and the
+     mover's loads), their outputs held bitwise the main path's
+     instantiation's.
   5. last (a profiled process keeps CUPTI's per-launch cost, which phase
      4's timing must not pay), the diagnostics and tooling: (a) the N =
      1024 x 512 run again with --profile-dir (mean E and acceptance
@@ -723,7 +729,8 @@ def compare_banded(cfg, w, r, e, words, label: str, window: int = 128,
           f"others (fallback fraction {float(fb_k.double().mean()) / cfg.n:.4f}"
           f" per chain), max |dx| {max_err:.3g}, max |E - recompute| "
           f"{float(err.max()):.3g}", flush=True)
-    return dict(out=outk, max_err=max_err, plain_ms=plain_ms, args=args)
+    return dict(out=outk, max_err=max_err, plain_ms=plain_ms, args=args,
+                plain_diag=dp)
 
 
 def phase_xs_banded(device):
@@ -770,6 +777,49 @@ def phase_xs_banded(device):
     words = en._per_sweep_randomness(state, cfg, 21, 1)[0][0]
     compare_banded(cfg, w, state.r[:64], state.energy[:64], words,
                    "K4 vs plain N=1024 C=64")
+    compare_repeated_row(device)
+
+
+# K4's repeated-row case: a sweep of N = 32 whose schedule under these
+# words draws row 13 at moves 2 and 3 (tests/test_torch_banded.py pins
+# it), from z-separated clusters where some moves take the window
+REPEAT_WORDS, REPEAT_MOVE = (3, 7), 2
+
+
+def clusters(seed: int) -> np.ndarray:
+    """32 particles in 8 groups of 4 along z, 14 apart (squares of side
+    1.12, jittered), for a 10 x 10 x 120 box: [32, 3] float64."""
+    rng = np.random.default_rng(seed)
+    sq = np.array([[0, 0], [1.12, 0], [0, 1.12], [1.12, 1.12]])
+    r = []
+    for g in range(8):
+        xy = rng.uniform(-4.0, 3.0, 2) + sq
+        z = -49.0 + 14.0 * g + rng.uniform(-0.3, 0.3, 4)
+        r.append(np.column_stack([xy + rng.normal(0, 0.05, (4, 2)), z]))
+    return np.concatenate(r)
+
+
+def compare_repeated_row(device):
+    """K4 against its plain version (compare_banded) on a sweep whose
+    schedule draws one row twice in a row, the first of the two moves
+    accepted on some chains and rejected on others: N = 32 x 32 clusters
+    with walls, W = 8, d_z = 24.5."""
+    from tpu_smc_torch.config import SMCConfig
+    from tpu_smc_torch.state import init_ensemble_state, seed_words
+
+    cfg = SMCConfig(n=32, box_l=10.0, box_lz=120.0, gamma=0.02)
+    state, w = init_ensemble_state(cfg, seed_words(5), 32, r0=clusters(5),
+                                   device=device)
+    cmp = compare_banded(cfg, w, state.r, state.energy, REPEAT_WORDS,
+                         "K4 vs plain N=32 C=32, a row drawn twice in a row",
+                         window=8, d_z=24.5)
+    d, m = cmp["plain_diag"], REPEAT_MOVE
+    took = int(d["accept"][m].sum())
+    check(int(d["rows"][m]) == int(d["rows"][m + 1]) and 0 < took < 32,
+          f"repeated-row premise: rows {d['rows'][m:m + 2].tolist()}, move "
+          f"{m} accepted on {took} of 32 chains")
+    print(f"  K4 repeated row: row {int(d['rows'][m])} at moves {m} and "
+          f"{m + 1}, move {m} accepted on {took} of 32 chains", flush=True)
 
 
 # ----------------------------------------------------------------------
@@ -2918,6 +2968,32 @@ def cuda_ms(fn, reps: int = 3) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def graph_ms(fn, launches: int = 100, reps: int = 5) -> float:
+    """Device ms per call of fn: `launches` calls captured in one CUDA
+    graph and the graph replayed `reps` times between CUDA events, so no
+    host work (the wrapper's Python, its allocation, ctypes) lies between
+    the launches; it ran once, at capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / (reps * launches)
+
+
 def kernel_templates(source: str) -> dict:
     """{kernel: its bool template parameters' names, in order}, read from
     the __global__ declarations of csrc/sweep.cu's text."""
@@ -2974,10 +3050,22 @@ def cycle_split(device, card: str) -> None:
     (kernels.sweep.PHASES, csrc/sweep.cu `Laps`), lapped by lane 0 of the
     wall warp of each chain in a diagnostic launch and averaged over the
     chains, at K1 (dense, N = 108 x 512, 2 sweeps), K2 (z-skip, N = 1024 x
-    512, 2 sweeps) and K3 (streamed, the large-N main path's N = 32768 x
-    128, 1 sweep); the lapped launch's outputs are held bitwise those of
-    the main path's instantiation."""
+    512, 2 sweeps), K3 (streamed, the large-N main path's N = 32768 x
+    128, 1 sweep) and K4 (N = 1024 x 256, 1 sweep, W = 128;
+    kernels.banded.PHASES); the lapped launch's outputs are held bitwise
+    those of the main path's instantiation."""
     from tpu_smc_torch.kernels import sweep as ks
+
+    def split(label, run, moves, phases):
+        d = {"cycles": True}
+        check(bitwise(run(diag=d), run()), f"cycle split {label}: the lapped "
+              "launch is not bitwise the main path's")
+        per = d["cycles"].double().mean(0) / moves
+        total = float(per.sum())
+        print(f"  cycle split {label}: {total:.0f} cycles per move; "
+              + ", ".join(f"{k} {v:.0f} ({v / total:.1%})"
+                          for k, v in zip(phases, per.tolist()))
+              + f" ({card})", flush=True)
 
     big = large_n_config()
     cases = (("K1", 108, 512, False, False, 2, None),
@@ -2991,16 +3079,20 @@ def cycle_split(device, card: str) -> None:
                if stream else
                (lambda **kw: ks.sweep_block(*args, cfg, sweeps, cfg.proposal_a,
                                             zskip=zskip, **kw)))
-        d = {"cycles": True}
-        check(bitwise(run(diag=d), run()), f"cycle split {label}: the lapped "
-              "launch is not bitwise the main path's")
-        per = d["cycles"].double().mean(0) / (sweeps * cfg.n)
-        total = float(per.sum())
-        print(f"  cycle split {label} N={n} x {c}, {sweeps} sweep(s): "
-              f"{total:.0f} cycles per move; " + ", ".join(
-                  f"{k} {v:.0f} ({v / total:.1%})"
-                  for k, v in zip(ks.PHASES, per.tolist()))
-              + f" ({card})", flush=True)
+        split(f"{label} N={n} x {c}, {sweeps} sweep(s)", run,
+              sweeps * cfg.n, ks.PHASES)
+    # K4 at its main path's shape (banded_case's): one sweep, W = 128
+    from tpu_smc_torch import ensemble as en
+    from tpu_smc_torch.kernels import banded as kb
+
+    cfg, state, w = equilibrated(device)
+    x, y, z, margin = kb.sort_and_margin(state.r, cfg, 128)
+    wa, wb = ks.wall_coeff_rows(w, cfg)
+    args = (x, y, z, state.energy.reshape(1, -1).to(torch.float32), wa, wb,
+            margin, en._per_sweep_randomness(state, cfg, 31, 1)[0][0], cfg,
+            cfg.proposal_a, 128, 12.0)
+    split(f"K4 N={cfg.n} x {state.n_chains}, 1 sweep, W=128",
+          lambda **kw: kb.banded_sweep_block(*args, **kw), cfg.n, kb.PHASES)
 
 
 def kernel_case(n: int, c: int, zskip: bool, device, sweeps: int = 2,
@@ -3140,19 +3232,27 @@ def noise_case(device, words, n: int, c: int, s2a: float, err: float,
                card: str):
     """K5 at the main path's shape (one plane of the reference-noise run,
     [noise_rows(n), c], its first seed words and scale; err: its max
-    |kernel - plain| there): its ms, the plain version's
-    (reference_noise_plane on the card), and the bound of writing the
-    plane. Returns the kernels-line fields."""
+    |kernel - plain| there): its device ms (graph_ms: launches in one
+    CUDA graph) beside the launch floor, an empty kernel on K5's grid
+    launched the same way; the ms of a call through the Python wrapper
+    (launches back to back, the host's share included); the plain
+    version's (reference_noise_plane on the card); and the bound of
+    writing the plane. Returns the kernels-line fields, ms the device
+    time."""
     from tpu_smc_torch.kernels import sweep as ks
 
     rows = ks.noise_rows(n)
-    ms = cuda_ms(lambda: ks.debug_reference_noise(words, n, c, s2a, device),
-                 reps=20)
+    launch = lambda: ks.debug_reference_noise(words, n, c, s2a, device)
+    ms = graph_ms(launch)
+    floor_ms = graph_ms(lambda: ks.empty_launch(n, c, device))
+    call_ms = cuda_ms(launch, reps=20)
     plain_ms = cuda_ms(lambda: ks.reference_noise_plane(words, n, c, s2a,
                                                         device), reps=3)
     t_bytes = 4 * rows * c / PEAK_BYTES * 1e3
     t_ops = FLOPS_PER_PAIR * rows // 2 * c / PEAK_F32 * 1e3
-    print(f"  debug_reference_noise [{rows}, {c}]: kernel {ms:.4f} ms, plain "
+    print(f"  debug_reference_noise [{rows}, {c}]: kernel {ms:.4f} ms on the "
+          f"device (CUDA graph) beside the empty kernel's {floor_ms:.4f} ms, "
+          f"{call_ms:.4f} ms per call through the wrapper, plain "
           f"{plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.4f} ms "
           f"({'bytes' if t_bytes > t_ops else 'operations'}), max |kernel - "
           f"plain| {err:.3g} ({card})", flush=True)

@@ -2,7 +2,8 @@
 """The sweep kernels of this tree against those of another checkout (an
 earlier design of csrc/sweep.cu), on one card: every output bitwise equal
 on the same inputs in each mode, then the two timed in turns at the main
-path's shapes. The ptxas table and the per-move cycle split are
+path's shapes, and K5's device time in a CUDA graph beside an empty
+kernel's. The ptxas table and the per-move cycle split are
 chip_smoke.py's.
 
     python3 kernel_ab.py --parent DIR     # against DIR/tpu_smc_torch
@@ -60,10 +61,14 @@ def turns_ms(fa, fb, rounds: int, reps: int):
 def cases(device):
     """(label, launch((sweep, banded) modules) -> outputs, timed, rounds,
     reps): every mode of the two kernels that run sweep_chain, and K4 and
-    K5, which share its device functions; `timed` marks the main path's
-    shapes."""
+    K5, which share its device functions: K4 at the main path's shape,
+    where every move falls back, where every move takes the window, and
+    on a sweep that draws a row twice in a row; K5 at the main path's
+    plane and at planes that end in a ragged tail; `timed` marks the main
+    path's shapes."""
     from tpu_smc_torch import ensemble as en
     from tpu_smc_torch.config import SMCConfig
+    from tpu_smc_torch.state import init_ensemble_state, seed_words
 
     out = []
 
@@ -115,21 +120,78 @@ def cases(device):
     stream("K3 M=10 N=108 x 64", 108, 64,
            cfg=SMCConfig(n=108, m=10, box_l=10.0, box_lz=24.0))
 
-    cfg, state, w = cs.equilibrated(device)
-    words = en._per_sweep_randomness(state, cfg, 21, 1)[0][0]
+    def banded(label, cfg, state, w, words, window, d_z=12.0, timed=False):
+        """K4 on one sweep from `state`; the outputs and the schedule
+        (rows_out). The sort and margins are made once, by this tree."""
+        from tpu_smc_torch.kernels import banded as kb
+        from tpu_smc_torch.kernels import sweep as ks
 
-    def banded(m, window=128):
-        ks, kb = m
         x, y, z, margin = kb.sort_and_margin(state.r, cfg, window)
         wa, wb = ks.wall_coeff_rows(w, cfg)
-        return kb.banded_sweep_block(
-            x, y, z, state.energy.reshape(1, -1).to(torch.float32), wa, wb,
-            margin, words, cfg, cfg.proposal_a, window, 12.0)
+        args = (x, y, z, state.energy.reshape(1, -1).to(torch.float32), wa,
+                wb, margin, words, cfg, cfg.proposal_a, window, d_z)
 
-    out.append(("K4 N=1024 x 256, W=128", banded, True, 3, 10))
-    out.append(("K5 [12288, 256]", lambda m: (m[0].debug_reference_noise(
-        (12345, 678), 4096, 256, 0.3, device),), False, 3, 10))
+        def launch(m):
+            d = {}
+            return m[1].banded_sweep_block(*args, diag=d) + (d["rows"],)
+        out.append((label, launch, timed, 3, 10))
+
+    cfg, state, w = cs.equilibrated(device)
+    banded("K4 N=1024 x 256, W=128", cfg, state, w,
+           en._per_sweep_randomness(state, cfg, 21, 1)[0][0], 128,
+           timed=True)
+    # tests/test_torch_cuda.py's test_banded_kernel_matches_plain state:
+    # at W = 32 every move falls back, at W = 512 >= n every move takes
+    # the window
+    cfg5 = SMCConfig.for_n(512)
+    st5, w5 = init_ensemble_state(cfg5, seed_words(2), 32, device=device)
+    st5, _ = en.ensemble_sweeps_dense(st5, w5, cfg5, cfg5.proposal_a, 2,
+                                      seed=2)
+    words5 = en._per_sweep_randomness(st5, cfg5, 3, 1)[0][0]
+    banded("K4 N=512 x 32, W=32 (every move falls back)", cfg5, st5, w5,
+           words5, 32)
+    banded("K4 N=512 x 32, W=512 (every move takes the window)", cfg5, st5,
+           w5, words5, 512)
+    cfgc = SMCConfig(n=32, box_l=10.0, box_lz=120.0, gamma=0.02)
+    stc, wc = init_ensemble_state(cfgc, seed_words(5), 32,
+                                  r0=cs.clusters(5), device=device)
+    banded("K4 N=32 x 32 clusters, W=8: a row drawn twice in a row", cfgc,
+           stc, wc, cs.REPEAT_WORDS, 8, d_z=24.5)
+
+    def noise(label, n, c, timed=False):
+        out.append((label, lambda m: (m[0].debug_reference_noise(
+            (12345, 678), n, c, NOISE_S2A, device),), timed, 3, 10))
+
+    noise("K5 [328, 512]", 108, 512, timed=True)
+    noise("K5 [12288, 256]", 4096, 256)
+    noise("K5 [24, 37] (ragged tail)", 7, 37)
+    noise("K5 [15000, 301] (grid-stride loop, ragged tail)", 5000, 301)
     return out
+
+
+# K5's timed shape (the main path's plane) and scale sqrt(2A), A = 1.1
+NOISE_SHAPE = (108, 512)
+NOISE_S2A = 1.4832396974191326
+
+
+def noise_device_ms(mods: dict, device, rounds: int = 3) -> None:
+    """K5's device time at NOISE_SHAPE (chip_smoke.graph_ms: launches in
+    one CUDA graph) for the parent and this tree in turns, beside the
+    launch floor (this tree's empty kernel on K5's grid)."""
+    n, c = NOISE_SHAPE
+    run = {k: (lambda m=m: m[0].debug_reference_noise(
+        (12345, 678), n, c, NOISE_S2A, device)) for k, m in mods.items()}
+    times = {"parent": [], "this": [], "floor": []}
+    for _ in range(rounds):
+        for k in ("parent", "this", "this", "parent"):
+            times[k].append(cs.graph_ms(run[k]))
+        times["floor"].append(cs.graph_ms(
+            lambda: mods["this"][0].empty_launch(n, c, device)))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"  device time (CUDA graph) K5 [{mods['this'][0].noise_rows(n)}, "
+          f"{c}]: parent {med['parent']:.4f} ms, this {med['this']:.4f} ms, "
+          f"empty kernel on K5's grid {med['floor']:.4f} ms "
+          f"({cs.card_line()})", flush=True)
 
 
 def main() -> int:
@@ -174,6 +236,7 @@ def main() -> int:
         tp, tt = turns_ms(run["parent"], run["this"], rounds, reps)
         print(f"  in turns {label}: parent {tp:.3f} ms, this {tt:.3f} ms "
               f"({tt / tp:.3f}x, {tp / tt:.2f}x faster) ({card})", flush=True)
+    noise_device_ms(mods, device)
     if failed:
         print(f"kernel_ab: outputs differ from the parent in: {failed}",
               file=sys.stderr)

@@ -238,6 +238,17 @@ def test_schedule_arithmetic_and_spread():
     assert spread.min() > 0.6 * 200 and spread.max() < 1.4 * 200
 
 
+def test_schedule_draws_a_row_twice_in_a_row():
+    """The premise of K4's repeated-row cases on the card
+    (tests/test_torch_cuda.py test_banded_kernel_repeated_row,
+    chip_smoke.py compare_repeated_row, kernel_ab.py): under the seed
+    words (3, 7) the schedule of an N = 32 sweep draws row 13 at moves 2
+    and 3."""
+    rows = kb.banded_rows((3, 7), 32)
+    assert int(rows[2]) == int(rows[3]) == 13
+    assert int((rows[1:] == rows[:-1]).sum()) == 2       # moves 2 and 27
+
+
 def test_banded_refusals():
     cfg, state, w, _ = _f32_inputs(2, 1, 4)
     with pytest.raises(NotImplementedError, match="reference noise"):

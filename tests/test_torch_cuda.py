@@ -2,7 +2,8 @@
 with identical Philox draws, z-skip on/off bitwise, the streamed kernel
 (K3) bitwise the resident one, the capacity routing, and the wrapper's
 checks; one chain bitwise chain 0 of eight (a launch, and the single-
-chain driver), and a checkpoint round trip of a card state.
+chain driver), and a checkpoint round trip of a card state; K4 on a sweep
+that draws a row twice in a row, and K5 on planes with a ragged tail.
 
 Needs an NVIDIA GPU and nvcc (the kernel has no CPU mode); skips
 elsewhere. Imports no JAX, so it runs on a machine without it:
@@ -306,6 +307,28 @@ def test_debug_reference_noise_matches_plane(cuda):
     assert float((d - p).abs().max()) <= 1e-6
 
 
+@pytest.mark.parametrize("n,c", [(7, 37), (5000, 301)])
+def test_debug_reference_noise_ragged_tail(cuda, n, c):
+    """K5 on planes that end in a ragged tail: 12 pairs x 37 chains
+    (the last block of 32 chains holds 5; two pairs a thread over 8 pair
+    rows a step leave 4 of the second step's 8 rows past the end) and
+    7500 pairs x 301 chains, more than one wave of blocks covers, so the
+    grid-stride loop turns over and ends mid-step: within 1e-6 of
+    reference_noise_plane; seed words in a tensor on the card (read by
+    the kernel) give bitwise the plane of host words."""
+    words = (2024, 99)
+    before = ks.sweep_block.launches["debug_reference_noise"]
+    d = ks.debug_reference_noise(words, n, c, 0.3, cuda)
+    on_card = ks.debug_reference_noise(
+        torch.tensor(words, dtype=torch.int32, device=cuda), n, c, 0.3, cuda)
+    p = ks.reference_noise_plane(words, n, c, 0.3, cuda)
+    torch.cuda.synchronize()
+    assert ks.sweep_block.launches["debug_reference_noise"] == before + 2
+    assert d.shape == (ks.noise_rows(n), c)
+    assert float((d - p).abs().max()) <= 1e-6
+    assert torch.equal(d, on_card)
+
+
 def _xsorted_args(n, c, k, device, r0=None, seed=5):
     """Kernel inputs of one sweep on rows sorted by z-band of 128 k rows
     and by x within each band (ensemble.xsort_perm)."""
@@ -361,12 +384,14 @@ def test_xskip_kernel_bitwise_dense(cuda, n, k, seam):
     assert bool((dx["visited"] < dd["visited"]).all())
 
 
-def _banded_against_plain(cuda, cfg, state, w, window, d_z):
+def _banded_against_plain(cuda, cfg, state, w, window, d_z, words=None,
+                          diag=None):
     """K4 and its plain version on one sweep from `state`: the same
     schedule, a banded launch counted, per-chain fallback counts equal
     where the trajectories agree, positions and energies within the
-    tolerances, carried E against a recompute. Returns the fallback
-    counts [C]."""
+    tolerances, carried E against a recompute. words: the sweep's seed
+    words (default: the state's stream under seed 3); diag: filled by
+    the plain version. Returns the fallback counts [C]."""
     from tpu_smc_torch.kernels import banded as kb
     from tpu_smc_torch.potentials import total_energy
 
@@ -374,13 +399,14 @@ def _banded_against_plain(cuda, cfg, state, w, window, d_z):
     x, y, z, margin = kb.sort_and_margin(state.r, cfg, window)
     wa, wb = ks.wall_coeff_rows(w, cfg)
     e = state.energy.reshape(1, -1).float()
-    words = ten._per_sweep_randomness(state, cfg, 3, 1)[0][0]
+    if words is None:
+        words = ten._per_sweep_randomness(state, cfg, 3, 1)[0][0]
     args = (x, y, z, e, wa, wb, margin, words, cfg, cfg.proposal_a, window,
             d_z)
     before = ks.sweep_block.launches["banded"]
     dk = {}
     outk = kb.banded_sweep_block(*args, diag=dk)
-    outp = kb.banded_sweep_plain(*args)
+    outp = kb.banded_sweep_plain(*args, diag=diag)
     torch.cuda.synchronize()
     assert ks.sweep_block.launches["banded"] == before + 1
     assert torch.equal(dk["rows"].long(), kb.banded_rows(words, cfg.n, cuda))
@@ -435,6 +461,24 @@ def test_banded_kernel_partial_window(cuda):
     assert 0 < int(fallback.sum()) < cfg.n * 32
     # some chains take the window on most moves
     assert int(fallback.min()) < cfg.n // 2
+
+
+def test_banded_kernel_repeated_row(cuda):
+    """K4 against its plain version on a sweep whose schedule draws row
+    13 at moves 2 and 3 (the words (3, 7) at N = 32; test_torch_banded.py
+    pins it), with walls: the kernel takes the second move's position
+    and wall terms from the first's proposal when it accepted and from
+    its slots when it rejected; here move 2 accepts on some chains and
+    rejects on others, and moves take the window or fall back."""
+    cfg = SMCConfig(n=32, box_l=10.0, box_lz=120.0, gamma=0.02)
+    state, w = init_ensemble_state(cfg, seed_words(5), 32, r0=_clusters(5),
+                                   device=cuda)
+    dp = {}
+    fallback = _banded_against_plain(cuda, cfg, state, w, 8, 24.5,
+                                     words=(3, 7), diag=dp)
+    assert int(dp["rows"][2]) == int(dp["rows"][3]) == 13
+    assert 0 < int(dp["accept"][2].sum()) < 32
+    assert 0 < int(fallback.sum()) < cfg.n * 32
 
 
 def test_banded_refuses_beyond_capacity(cuda):

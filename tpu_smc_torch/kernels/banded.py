@@ -51,6 +51,10 @@ from ..config import SMCConfig
 from . import sweep as ks
 
 BIG = 1e15     # margin of a clipped side and of pad rows
+# the phases of a K4 move whose SM clock cycles a diagnostic launch sums
+# per chain (diag={"cycles": True}; csrc/sweep.cu `Phase`, in its order,
+# the first one K4's schedule row and the mover's loads)
+PHASES = ("schedule and loads",) + ks.PHASES[1:]
 
 
 def window_margin(z: torch.Tensor, n: int, window: int) -> torch.Tensor:
@@ -219,8 +223,11 @@ def banded_sweep_block(x, y, z, e, wa, wb, margin, words, cfg: SMCConfig, a,
     capacity (`kernels.sweep.capacity`) raises, since the planes live in
     shared memory (tpu_smc's banded kernel is VMEM-resident only). CPU
     tensors run `banded_sweep_plain`. diag: on CUDA, filled with "rows",
-    the schedule [n] the kernel drew (chain 0's). chain0: the global
-    index of column 0, as in kernels.sweep.sweep_block.
+    the schedule [n] the kernel drew (chain 0's); with "cycles": True,
+    the SM clock cycles of each move phase (`PHASES`) summed over the
+    sweep, [C, len(PHASES)] int64, from a diagnostic launch whose results
+    are bitwise a plain one's. chain0: the global index of column 0, as
+    in kernels.sweep.sweep_block.
 
     Returns (x, y, z, e [1, C], accepted [1, C] int32, fallback moves
     [1, C] int32)."""
@@ -257,13 +264,16 @@ def banded_sweep_block(x, y, z, e, wa, wb, margin, words, cfg: SMCConfig, a,
     fb = torch.empty_like(acc)
     rows = (torch.empty((cfg.n,), dtype=torch.int32, device=dev)
             if diag is not None else None)
+    cycles = (torch.empty((c, len(PHASES)), dtype=torch.int64, device=dev)
+              if diag is not None and diag.get("cycles") else None)
     lib = ks.build()
     with torch.cuda.device(dev):
         err = lib.smc_banded_launch(
             x.data_ptr(), y.data_ptr(), z.data_ptr(), margin.data_ptr(),
             e.data_ptr(), wa.data_ptr(), wb.data_ptr(), scales.data_ptr(),
             xo.data_ptr(), yo.data_ptr(), zo.data_ptr(), eo.data_ptr(),
-            acc.data_ptr(), fb.data_ptr(), ks._ptr(rows), cfg.n, n_pad, c,
+            acc.data_ptr(), fb.data_ptr(), ks._ptr(rows), ks._ptr(cycles),
+            cfg.n, n_pad, c,
             cfg.m, int(cfg.use_walls), int(words[0]), int(words[1]),
             int(window), float(d_z), *ks._geometry(cfg), int(chain0),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -271,6 +281,8 @@ def banded_sweep_block(x, y, z, e, wa, wb, margin, words, cfg: SMCConfig, a,
     ks._count("banded", cfg, a, None, 0, None, None, None)
     if diag is not None:
         diag["rows"] = rows
+        if cycles is not None:
+            diag["cycles"] = cycles
     return xo, yo, zo, eo, acc, fb
 
 

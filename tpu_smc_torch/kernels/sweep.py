@@ -711,10 +711,12 @@ def build() -> ctypes.CDLL:
     lib.smc_sweep_capacity.argtypes = [I, I] + [ctypes.POINTER(
         ctypes.c_longlong)] * 2
     lib.smc_sweep_capacity.restype = I
-    lib.smc_banded_launch.argtypes = [P] * 15 + [I] * 8 + [D] * 7 + [I, P]
+    lib.smc_banded_launch.argtypes = [P] * 16 + [I] * 8 + [D] * 7 + [I, P]
     lib.smc_banded_launch.restype = I
-    lib.smc_debug_reference_noise.argtypes = [P] + [I] * 4 + [D, I, P]
+    lib.smc_debug_reference_noise.argtypes = [P, I, I, P, I, I, D, I, P]
     lib.smc_debug_reference_noise.restype = I
+    lib.smc_empty_launch.argtypes = [I, I, P]
+    lib.smc_empty_launch.restype = I
     _Build.lib = lib
     return lib
 
@@ -989,22 +991,42 @@ def debug_reference_noise(words, n: int, c: int, s2a: float, device="cuda",
     as tpu_smc's debug_reference_noise); column c holds global chain
     chain0 + c's pairs. A CUDA `device` launches the
     kernel and counts a "debug_reference_noise" launch in
-    sweep_block.launches; the CPU runs reference_noise_plane."""
+    sweep_block.launches; the CPU runs reference_noise_plane. Words in a
+    tensor on the launch's card are read by the kernel, not the host, so
+    the call does not wait for the card."""
     device = torch.device(device)
     if device.type != "cuda":
         return reference_noise_plane(words, n, c, float(s2a), device,
                                      chain0=chain0)
     rows = noise_rows(n)
     out = torch.empty((rows, c), dtype=torch.float32, device=device)
+    on_card = torch.is_tensor(words) and words.is_cuda
+    if on_card:
+        words = words.to(device=device, dtype=torch.int64).reshape(-1)
+        words = words[:2].contiguous()
+        k0 = k1 = 0
+    else:
+        k0, k1 = int(words[0]), int(words[1])
     lib = build()
     with torch.cuda.device(device):
         err = lib.smc_debug_reference_noise(
-            out.data_ptr(), rows, c, int(words[0]), int(words[1]),
-            float(s2a), int(chain0),
+            out.data_ptr(), rows, c, words.data_ptr() if on_card else None,
+            k0, k1, float(s2a), int(chain0),
             torch.cuda.current_stream(device).cuda_stream)
     _raise_on("smc_debug_reference_noise", err)
     sweep_block.launches["debug_reference_noise"] += 1
     return out
+
+
+def empty_launch(n: int, c: int, device="cuda") -> None:
+    """An empty kernel on K5's grid for a [noise_rows(n), c] plane: the
+    launch floor K5's device time is read against. Computes nothing and
+    counts no launch; CUDA only."""
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        err = build().smc_empty_launch(
+            noise_rows(n), c, torch.cuda.current_stream(device).cuda_stream)
+    _raise_on("smc_empty_launch", err)
 
 
 sweep_block.launches = {"dense": 0, "zskip": 0, "xskip": 0, "stream": 0,
