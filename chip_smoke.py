@@ -118,11 +118,11 @@ Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
      zsorted + xsort 4 and banded engines, each within 4 combined SE of
      dense in mean E and within 0.01 in acceptance; then the ensemble
      family on the plain engine's CUDA graphs (no kernel launched, the
-     counts read back as 0): the slab GCMC `100 300 3 1.1 --gcmc MU
+     counts read back as 0): the slab GCMC `100 200 3 1.1 --gcmc MU
      --chains 512 --z-bins 32` (N0 = 108, cap 216; N <= cap, tracked vs
      exact energy within 1e-4 relative at every resync, acceptances in
      (0, 1], T ln<rho> + in-run mu_ex within 0.1 of MU, tpu_smc's CSV
-     headers) and 100 + 50 sweeps, a checkpoint and 250 more bitwise its
+     headers) and 100 + 50 sweeps, a checkpoint and 150 more bitwise its
      final r and active; the Widom -> GCMC loop at tests/test_gcmc.py's
      state point (N = 32, cap 64, 512 chains each); the isotherm
      `--gcmc-grid=-9.5:-7:8 --bulk --n 32 --chains 512` (<N> rising);
@@ -152,7 +152,15 @@ Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
      unsharded call, K1 and K2 with chain0 = 256 against their plain
      versions as in phase 2, the particle-sharded energy of one N =
      32768 density-matched chain over 4 shards within 1e-5 relative of
-     the full recompute;
+     the full recompute; (e) the batched drivers in one process over
+     [cuda:0, cuda:0], each bitwise the one-device call and both timed:
+     the tsweep ladder N = 108, 4 T x 128 (K1-at), the PT ladder N =
+     1024, 8 T x 64, every 16 (z-skip K1-at; swap counts), tune_mobility
+     of the N = 1024 x 512 ensemble, the NPT isobars N = 108, 8 P x 512
+     and Gibbs N = 96 x 256 (plain engine graphs, resync every 25), and
+     a CLI PT ladder (N = 108, 4 x 128, MBAR) and the CLI NPT isobars
+     with the device helper patched to [cuda:0, cuda:0], their CSVs
+     byte-identical to the unpatched run;
   4. at the main path's shapes (N = 108 x 512 dense, N = 1024 x 512
      z-skip): kernel vs plain as in phase 2, the plain time and the
      bound, for the uniform form and for per-chain (A, T) and per-chain
@@ -2100,7 +2108,7 @@ def resume_drill(label: str, common: list, card: str):
 # 1.2 (-0.00819, -0.00503), so that <N> lands near N0
 GCMC_MU = round(1.1 * math.log(108 / (33.0 * 33.0 * 200.0)) - 0.0066, 4)
 # sweeps of the ensemble-family runs (eq, max)
-ENS_DEPTH = {"gcmc": (100, 300), "gcmc_split": 150, "loop_nvt": (100, 300),
+ENS_DEPTH = {"gcmc": (100, 200), "gcmc_split": 150, "loop_nvt": (100, 300),
              "loop_gcmc": (200, 400), "isotherm": (60, 200),
              "isobars": (150, 300), "npt": (50, 100),
              "loop_npt_nvt": (300, 600), "loop_npt": (500, 1000),
@@ -2142,7 +2150,7 @@ def drive_gcmc(card: str):
     against exact energy within 1e-4 relative at every resync, the three
     acceptances in (0, 1], T ln<rho> + mu_ex(in run) within 0.1 of MU,
     tpu_smc's CSV names and headers; then 100 + 50 sweeps, a checkpoint
-    and 250 more: final r and active bitwise the unbroken run's."""
+    and the rest: final r and active bitwise the unbroken run's."""
     from tpu_smc_torch import gcmc as tg
     from tpu_smc_torch.config import SMCConfig
 
@@ -2719,15 +2727,197 @@ def drive_sharded(device, card: str) -> dict:
     return counts
 
 
+def same_results(a, b) -> list:
+    """The fields of two results (NamedTuples of arrays, floats and None,
+    nested) that differ to the bit, the measured rate aside."""
+    bad = []
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if f == "sweeps_per_second":
+            continue
+        if hasattr(x, "_fields"):
+            bad += [f"{f}.{g}" for g in same_results(x, y)]
+        elif (x is None) != (y is None) or x is not None and not \
+                np.array_equal(np.asarray(x), np.asarray(y), equal_nan=(
+                    np.asarray(x).dtype.kind == "f")):
+            bad.append(f)
+    return bad
+
+
+def same_states(a, b) -> list:
+    """The fields of two chain-state dataclasses that differ."""
+    return [f.name for f in dataclasses.fields(a)
+            if not torch.equal(getattr(a, f.name), getattr(b, f.name))]
+
+
+def one_and_sharded(fn):
+    """fn(None) (one device) then fn(devices) on [cuda:0, cuda:0], each a
+    main-path run timed on the host clock around synchronised calls:
+    ((state, results) of each, launch counts of both, ms of each)."""
+    dev = torch.device("cuda", 0)
+    out, ms = [], []
+    with main_path() as lc:
+        for devices in (None, [dev, dev]):
+            t0 = time.perf_counter()
+            out.append(fn(devices))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+    return out, lc, ms
+
+
+def check_same(out, label: str, ms, card: str, extra: str = ""):
+    """(e)'s verdict on one item: results and state bitwise."""
+    (s1, r1), (s2, r2) = out
+    bad = same_results(r1, r2) + same_states(s1, s2)
+    check(not bad, f"(e) {label}: the sharded run differs in {bad}")
+    print(f"  (e) {label}: bitwise one device{extra}; {ms[0]:.1f} ms one "
+          f"device, {ms[1]:.1f} ms sharded over [cuda:0, cuda:0] ({card})",
+          flush=True)
+
+
+# (e)'s CLI runs: a PT ladder with MBAR, and the NPT isobars
+LOCAL_CLI = (
+    ("CLI ladder N=108, 4 T x 128, PT every 10, MBAR",
+     ["50", "150", "3", "1.1", "--n", "108", "--temperatures",
+      "1.0,1.1,1.2,1.3", "--chains-per-t", "128", "--pt-exchange", "10",
+      "--reweight", "1.0:1.3:7", "--seed", "2024"]),
+    ("CLI NPT isobars N=108, 8 P x 512, 20 + 40",
+     ["20", "40", "10", "2.0", "--npt-grid", "0.3:2.5:8", "--n", "108",
+      "--rho", "0.3", "--gamma", "0.02", "--lj-cutoff", "1.8", "--chains",
+      "512", "--seed", "9"]))
+
+
+def drive_local_devices(tmp: Path, card: str):
+    """(e) the batched drivers with their chains split over [cuda:0,
+    cuda:0] in one process, each bitwise the one-device call and both
+    timed: the tsweep ladder N = 108, 4 T x 128 (dense K1-at); the PT
+    ladder at (a)'s width (N = 1024, 8 T x 64, z-skip K1-at, exchange
+    every 16), swap counts included; tune_mobility of the N = 1024 x 512
+    ensemble (dense probes); the NPT isobars N = 108, 8 P x 512 and
+    Gibbs N = 96 x 256 (plain engine graphs); the CLI ladder and NPT
+    isobars with the device helper patched, their CSVs byte-identical to
+    the unpatched run. Returns the launch counts (uniform, ladders)."""
+    from tpu_smc_torch import cli, cli_ensembles
+    from tpu_smc_torch import gcmc as tg
+    from tpu_smc_torch import gibbs as tgb
+    from tpu_smc_torch import npt as tn
+    from tpu_smc_torch import pt as tpt
+    from tpu_smc_torch import tsweep as tts
+    from tpu_smc_torch import tuning as ttune
+    from tpu_smc_torch.config import RunParams, SMCConfig
+    from tpu_smc_torch.state import init_ensemble_state, seed_words
+
+    ladders, uniform = {}, {}
+    temps4 = [1.0, 1.1, 1.2, 1.3]
+    out, lc, ms = one_and_sharded(
+        lambda devs: tts.simulate_temperature_sweep(
+            SMCConfig.for_n(108), RunParams(100, 300, 6), temps4,
+            seed_words(2024), chains_per_t=128, sampler="dense",
+            device="cuda", devices=devs))
+    check(lc["dense"] > 0 and lc["per_chain_at"] == lc["dense"],
+          f"(e) tsweep launches {lc}")
+    check_same(out, "tsweep N=108, 4 T x 128, 100 + 300 (K1-at)", ms, card)
+    add_counts(ladders, lc)
+
+    temps8 = [0.9, 1.0, 1.1, 1.2, 1.3, 1.4, 1.5, 1.6]
+    out, lc, ms = one_and_sharded(
+        lambda devs: tpt.simulate_parallel_tempering(
+            SMCConfig.for_n(1024), RunParams(32, 96, 3), temps8,
+            seed_words(2024), chains_per_t=64, exchange_interval=16,
+            sampler="zsorted", device="cuda", devices=devs))
+    check(lc["zskip"] > 0 and lc["per_chain_at"] == lc["zskip"]
+          + lc["dense"], f"(e) PT launches {lc}")
+    att = out[1][1].swap_attempts
+    check_same(out, "PT N=1024, 8 T x 64, every 16, 32 + 96 (z-skip "
+               "K1-at)", ms, card, f", swap attempts {att.tolist()}, "
+               f"acceptance {np.round(out[1][1].swap_acceptance, 3).tolist()}")
+    add_counts(ladders, lc)
+
+    cfg = SMCConfig.for_n(1024)
+    st, w = init_ensemble_state(cfg, seed_words(7), 512)
+    out, lc, ms = one_and_sharded(
+        lambda devs: ttune.tune_mobility(
+            cfg, st, w, target=0.5, sampler="zsorted", seed=5,
+            sweeps_per_block=10, max_blocks=6, devices=devs))
+    check(lc["dense"] > 0 and lc["per_chain_at"] == 0,
+          f"(e) tuning launches {lc}")
+    (s1, t1), (s2, t2) = out
+    bad = same_states(s1, s2)
+    check(t1 == t2 and not bad, f"(e) tune_mobility: A {t1.proposal_a} "
+          f"against {t2.proposal_a}, states differ in {bad}")
+    print(f"  (e) tune_mobility N=1024 x 512 (dense probes, {t1.sweeps_used}"
+          f" sweeps): A = {t2.proposal_a:.6g}, history bitwise one device; "
+          f"{ms[0]:.1f} ms one device, {ms[1]:.1f} ms sharded over "
+          f"[cuda:0, cuda:0] ({card})", flush=True)
+    add_counts(uniform, lc)
+
+    ncfg = SMCConfig.bulk(n=108, temperature=2.0, rho=0.3, gamma=0.02,
+                          lj_cutoff=1.8, lj_shift=True)
+    p_c = np.repeat(np.linspace(0.3, 2.5, 8), 512)
+    out, lc, ms = one_and_sharded(
+        lambda devs: tn.simulate_npt(ncfg, p_c, 20, 40, seed_words(9),
+                                     n_chains=len(p_c), dlnv=0.1, seed=9,
+                                     chunk=25, device="cuda",
+                                     devices=devs))
+    check(not any(lc.values()), f"(e) NPT launches {lc}")
+    check_same(out, "NPT isobars N=108, 8 P x 512, 20 + 40 (resync every "
+               "25)", ms, card)
+    gcfg = SMCConfig.bulk(n=96, temperature=0.75, rho=0.6, gamma=0.02,
+                          lj_cutoff=1.8, lj_shift=True)
+    out, lc, ms = one_and_sharded(
+        lambda devs: tgb.simulate_gibbs(gcfg, 40, 60, seed_words(7), 96,
+                                        n_chains=256, dlnv=0.08,
+                                        n_transfer=24, seed=7, chunk=25,
+                                        device="cuda", devices=devs),
+)
+    check(not any(lc.values()), f"(e) Gibbs launches {lc}")
+    check(out[1][1].n_conserved, "(e) Gibbs: N1 + N2 != N")
+    check_same(out, "Gibbs N=96 x 256, 40 + 60 (resync every 25)", ms, card)
+
+    # the CLI: the device helper of every mode patched to [cuda:0, cuda:0]
+    asked = []
+
+    def two(device, n, nproc, label=""):
+        asked.append((n, label))
+        return (torch.device("cuda", 0),) * 2
+
+    for i, (label, argv) in enumerate(LOCAL_CLI):
+        files, ms = [], []
+        for k in (0, 1):
+            d = tmp / f"local{i}_{k}"
+            with contextlib.ExitStack() as stack:
+                if k:
+                    stack.enter_context(patched(cli, _chain_devices=two))
+                    stack.enter_context(patched(cli_ensembles,
+                                                _chain_devices=two))
+                _, lc, dt, _ = run_main(argv + ["--data-dir", str(d)])
+            files.append({p.name: p.read_bytes() for p in d.rglob("*.csv")})
+            ms.append(1e3 * dt)
+            add_counts(ladders, lc)
+        diff = sorted(set(files[0]) ^ set(files[1])) + [
+            k for k in files[0] if files[0][k] != files[1].get(k)]
+        check(asked and files[0] and not diff,
+              f"(e) {label}: CSVs differ from the one-device run: {diff}")
+        print(f"  (e) {label}: {len(files[0])} CSVs byte-identical to the "
+              f"unpatched run (helper asked for {asked[-1]}); cli.main "
+              f"{ms[0]:.1f} ms one device, {ms[1]:.1f} ms sharded ({card})",
+              flush=True)
+    return uniform, ladders
+
+
 def phase_multiprocess(device, card: str):
-    """The phase's runs (a)-(d). Returns their launch counts summed:
-    (uniform (A, T) runs (a) and (d), the ladders (b) and (c))."""
+    """The phase's runs (a)-(e). Returns their launch counts summed:
+    (uniform (A, T) runs (a), (d) and (e)'s tuning, the ladders (b), (c)
+    and (e)'s)."""
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         uniform = drive_split_main(tmp, card)
         ladders = drive_global_ladder(tmp, card)
         add_counts(ladders, drive_per_process_ladders(tmp, card))
-    return add_counts(uniform, drive_sharded(device, card)), ladders
+        e_uniform, e_ladders = drive_local_devices(tmp, card)
+    add_counts(ladders, e_ladders)
+    return add_counts(uniform, drive_sharded(device, card), e_uniform), \
+        ladders
 
 
 # ----------------------------------------------------------------------
@@ -3529,7 +3719,8 @@ def main() -> int:
     lmp, lmp_ladders = phase_multiprocess(device, card)
     kept.cleanup()
     phase_line("main path, multi-process and sharded (split CLI, global "
-               "ladder, per-process ladders, sharded engines)", t0)
+               "ladder, per-process ladders, sharded engines, sharded "
+               "drivers)", t0)
 
     t0 = time.perf_counter()
     cycle_split(device, card)

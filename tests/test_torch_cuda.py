@@ -3,7 +3,9 @@ with identical Philox draws, z-skip on/off bitwise, the streamed kernel
 (K3) bitwise the resident one, the capacity routing, and the wrapper's
 checks; one chain bitwise chain 0 of eight (a launch, and the single-
 chain driver), and a checkpoint round trip of a card state; K4 on a sweep
-that draws a row twice in a row, and K5 on planes with a ragged tail.
+that draws a row twice in a row, and K5 on planes with a ragged tail;
+the plain engine and the batched drivers (tsweep, PT, tuning, NPT,
+Gibbs) with their chains split over [cuda:0, cuda:0], bitwise one call.
 
 Needs an NVIDIA GPU and nvcc (the kernel has no CPU mode); skips
 elsewhere. Imports no JAX, so it runs on a machine without it:
@@ -959,3 +961,118 @@ def test_two_shards_on_one_card_bitwise(cuda, engine):
                  (one[1].energy, two[1].energy),
                  (one[1].accepted, two[1].accepted)):
         assert torch.equal(u, v)
+
+
+def _same(a, b) -> bool:
+    """Results (NamedTuples of arrays, floats and None, nested) equal to
+    the bit, the measured rate aside."""
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if f == "sweeps_per_second":
+            continue
+        if hasattr(x, "_fields"):
+            if not _same(x, y):
+                return False
+        elif (x is None) != (y is None) or x is not None and not \
+                np.array_equal(np.asarray(x), np.asarray(y), equal_nan=(
+                    np.asarray(x).dtype.kind == "f")):
+            return False
+    return True
+
+
+def test_plain_engine_two_shards_on_one_card_bitwise(cuda):
+    """The plain engine's CUDA graphs over [cuda:0, cuda:0] (one graph
+    per shard's chain0 range, the same shapes), uniform and with
+    per-chain (A, T) rows: bitwise the single call, traces included."""
+    cfg = SMCConfig.for_n(108)
+    state, w = init_ensemble_state(cfg, seed_words(3), 64, device=cuda)
+    mesh = ten.make_mesh(devices=[cuda, cuda])
+    t_c = torch.linspace(1.0, 1.3, 64, dtype=torch.float64, device=cuda)
+    for rows in ({}, dict(a_per_chain=cfg.gamma * t_c, t_per_chain=t_c)):
+        one = ten.ensemble_sweeps(state, w, cfg, cfg.proposal_a, 3,
+                                  collect_trace=True, stream_seed=9, **rows)
+        two = ten.ensemble_sweeps_sharded(state, w, cfg, cfg.proposal_a, 3,
+                                          9, mesh, collect_trace=True,
+                                          **rows)
+        for u, v in ((one[0].r, two[0].r), (one[0].energy, two[0].energy),
+                     (one[1].energy, two[1].energy),
+                     (one[1].accepted, two[1].accepted)):
+            assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("driver", ["tsweep", "pt", "tune", "npt", "gibbs"])
+def test_drivers_on_two_shards_of_one_card_bitwise(cuda, driver):
+    """tsweep, PT (swap counts), tune_mobility, NPT and Gibbs with their
+    chains split over [cuda:0, cuda:0]: bitwise the one-device run,
+    results and state."""
+    import dataclasses as dc
+
+    from tpu_smc_torch import gibbs as tgb
+    from tpu_smc_torch import npt as tnpt
+    from tpu_smc_torch import pt as tpt
+    from tpu_smc_torch import tsweep as tts
+    from tpu_smc_torch import tuning as ttune
+    from tpu_smc_torch.config import RunParams
+
+    two = [cuda, cuda]
+    temps = [1.0, 1.2, 1.4, 1.6]
+    if driver in ("tsweep", "pt"):
+        cfg = SMCConfig.for_n(1024 if driver == "pt" else 108)
+        kw = dict(chains_per_t=32, device=cuda,
+                  sampler="zsorted" if driver == "pt" else "dense")
+        if driver == "pt":
+            fn, kw["exchange_interval"] = tpt.simulate_parallel_tempering, 4
+        else:
+            fn = tts.simulate_temperature_sweep
+        runs = [fn(cfg, RunParams(8, 16, 2), temps, seed_words(4),
+                   devices=d, **kw) for d in (None, two)]
+    elif driver == "tune":
+        cfg = SMCConfig.for_n(108)
+        st, w = init_ensemble_state(cfg, seed_words(5), 128, device=cuda)
+        runs = [ttune.tune_mobility(cfg, st, w, target=0.5, sampler="dense",
+                                    seed=9, sweeps_per_block=4,
+                                    max_blocks=4, devices=d)
+                for d in (None, two)]
+    elif driver == "npt":
+        cfg = SMCConfig.bulk(n=108, temperature=2.0, rho=0.3, gamma=0.02,
+                             lj_cutoff=1.8, lj_shift=True)
+        p_c = np.repeat([0.3, 1.0, 2.5, 0.7], 32)
+        runs = [tnpt.simulate_npt(cfg, p_c, 6, 10, seed_words(9),
+                                  n_chains=128, dlnv=0.1, seed=9, chunk=8,
+                                  gr_bins=8, track_virial=True, device=cuda,
+                                  devices=d) for d in (None, two)]
+    else:
+        cfg = SMCConfig.bulk(n=96, temperature=0.75, rho=0.6, gamma=0.02,
+                             lj_cutoff=1.8, lj_shift=True)
+        runs = [tgb.simulate_gibbs(cfg, 6, 10, seed_words(7), 96,
+                                   n_chains=128, dlnv=0.08, n_transfer=24,
+                                   seed=7, chunk=8, device=cuda, devices=d)
+                for d in (None, two)]
+    (s1, r1), (s2, r2) = runs
+    assert r1 == r2 if driver == "tune" else _same(r1, r2)
+    for f in dc.fields(s1):
+        assert torch.equal(getattr(s1, f.name), getattr(s2, f.name)), f.name
+
+
+@pytest.mark.parametrize("n", [108, 1024])
+def test_box_pair_sums_do_not_follow_the_chain_count(cuda, n):
+    """Under a per-chain box (NPT, Gibbs) a chain's pair energy and
+    virial are the same bits whether 1, 8 or all 64 chains share the
+    call (potentials.fixed_order_sum; torch's own sum over the rows
+    changes its order below 16 chains)."""
+    from tpu_smc_torch import potentials as tp
+
+    cfg = SMCConfig.bulk(n=n, temperature=2.0, rho=0.3, gamma=0.02,
+                         lj_cutoff=1.8, lj_shift=True)
+    rng = np.random.default_rng(n)
+    r = torch.as_tensor(rng.uniform(-cfg.box_l / 2, cfg.box_l / 2,
+                                    (64, n, 3)), dtype=torch.float32,
+                        device=cuda)
+    box = torch.as_tensor(cfg.box_l * rng.uniform(0.98, 1.02, 64),
+                          dtype=torch.float32, device=cuda)
+    for fn in (tp.pair_energy_total, tp.pair_virial_pressure):
+        whole = fn(r, cfg, box=box)
+        for c in (1, 8):
+            parts = torch.cat([fn(r[i:i + c], cfg, box=box[i:i + c])
+                               for i in range(0, 64, c)])
+            assert torch.equal(parts, whole)

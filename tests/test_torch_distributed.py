@@ -501,21 +501,21 @@ def test_init_distributed_checks_before_the_rendezvous(argv):
 
 def test_cards_of_a_process(monkeypatch, capsys):
     """On a host with two cards: a one-process run shards its chains over
-    both when they divide (and says so), stays on one with a note when
-    they do not, and never under the plain engine or on the CPU; a
-    process of a multi-process run keeps to one card, rank mod cards."""
+    both when they divide (and says so, in tpu_smc's words), on every
+    engine, stays on one with a note when they do not, and never on the
+    CPU; a process of a multi-process run keeps to one card, rank mod
+    cards."""
     taken = []
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "set_device", taken.append)
-    assert tcli._chain_devices("cuda", 8, 1, "zsorted") == (
+    assert tcli._chain_devices("cuda", 8, 1) == (
         torch.device("cuda:0"), torch.device("cuda:1"))
-    assert "Sharding 8 chains over 2 local devices" in capsys.readouterr().out
-    assert tcli._chain_devices("cuda", 7, 1, "dense") is None
-    assert ("7 chains do not divide over 2 local devices; running on one"
+    assert "Sharding 8 chains over 2 devices" in capsys.readouterr().out
+    assert tcli._chain_devices("cuda", 7, 1) is None
+    assert ("7 chains do not divide over 2 devices; running on one device"
             in capsys.readouterr().out)
-    for args in (("cuda", 8, 2, "dense"), ("cuda", 8, 1, "torch"),
-                 ("cpu", 8, 1, "dense")):
+    for args in (("cuda", 8, 2), ("cpu", 8, 1)):
         assert tcli._chain_devices(*args) is None
     assert capsys.readouterr().out == ""
     notes = [tcli._take_card("cuda", r) for r in range(3)]

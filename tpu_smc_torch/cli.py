@@ -22,6 +22,11 @@ spanning the processes (--global-ladder).
     python -m tpu_smc_torch ... --seed S --coordinator HOST:PORT \
         --num-processes P --process-id p        (one command per process)
 
+Left-out positionals are asked for on stdin, as the reference's main.c
+asks. On a host with several cards a one-process run splits its chains
+(an ensemble, a ladder, NPT, the isobars, Gibbs, the coexistence curve)
+over them when they divide, bitwise the run on one card.
+
 Runs on the CUDA device unless `--device cpu` is given. The two options
 of the JAX CLI that `--device` and `--dtype` replace (--platform, --x64)
 are recognised and refused by name.
@@ -51,10 +56,15 @@ def build_parser() -> argparse.ArgumentParser:
         prog="tpu_smc_torch",
         description="Smart Monte Carlo of a confined LJ fluid, chain "
                     "ensembles on a CUDA GPU (PyTorch port of tpu_smc)")
-    p.add_argument("eqsteps", type=int, help="equilibration sweeps")
-    p.add_argument("maxsteps", type=int, help="production sweeps")
-    p.add_argument("numdata", type=int, help="number of gathers")
-    p.add_argument("temperature", type=float, help="temperature")
+    p.add_argument("eqsteps", type=int, nargs="?", default=None,
+                   help="equilibration sweeps; prompted for when omitted "
+                        "(main.c:20-30)")
+    p.add_argument("maxsteps", type=int, nargs="?", default=None,
+                   help="production sweeps")
+    p.add_argument("numdata", type=int, nargs="?", default=None,
+                   help="number of gathers")
+    p.add_argument("temperature", type=float, nargs="?", default=None,
+                   help="temperature")
     p.add_argument("--n", type=int, default=108, help="particles (SMC.h:29)")
     p.add_argument("--m", type=int, default=3,
                    help="wall grid per dim (SMC.h:26)")
@@ -213,6 +223,23 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _prompt_missing(args) -> None:
+    """Ask for the positionals that were left out, as the reference does
+    with scanf when argc != 5 (main.c:20-30), in tpu_smc's words
+    (tpu_smc/cli.py:334-352)."""
+    prompts = (
+        ("eqsteps", int, "Enter the number of equilibration steps: "),
+        ("maxsteps", int, "Enter the number of simulation steps: "),
+        ("numdata", int, "Enter the number of microstates to analyze: "),
+        ("temperature", float,
+         "Enter the temperature in normalized units: "),
+    )
+    for name, cast, text in prompts:
+        if getattr(args, name) is None:
+            print(text, end="", flush=True)
+            setattr(args, name, cast(input()))
+
+
 @contextlib.contextmanager
 def profiled(args):
     """The simulation call's context: profiling.trace(args.profile_dir) on
@@ -362,6 +389,7 @@ def main(argv=None) -> int:
                        "to the PyTorch package (use python -m tpu_smc)\n")
     if args.chains < 1:
         parser.exit(2, "tpu_smc_torch: --chains must be >= 1\n")
+    _prompt_missing(args)
     from . import cli_ensembles
 
     mode = cli_ensembles.mode_of(args)
@@ -608,18 +636,20 @@ def _window_maintenance(args, cfg, widx, st, stopper, w, seed: int,
 
 
 def _options(args, sampler: str, seed: int, state, w, cfg,
-             chain0: int = 0):
+             chain0: int = 0, devices=None):
     """(state, ObservableOptions) of a run whose state holds the chains
-    from global index chain0, the proposal mobility tuned on `state`
-    first under --target-acceptance (on the job's pooled acceptance
-    under --coordinator, so every process gets the same A)."""
+    from global index chain0, sharded over `devices` when given
+    (_chain_devices), the proposal mobility tuned on `state` first under
+    --target-acceptance (on those devices; on the job's pooled
+    acceptance under --coordinator, so every process gets the same A)."""
     from .driver import ObservableOptions
 
     opts = ObservableOptions(collect_sweep_trace=not args.no_trace,
                              sampler=sampler, stream_seed=seed,
                              gr_bins=args.gr_bins, z_bins=args.z_bins,
                              widom_k=args.widom,
-                             ptensor_bins=args.ptensor_bins, chain0=chain0)
+                             ptensor_bins=args.ptensor_bins, chain0=chain0,
+                             devices=devices)
     if args.target_acceptance:
         import dataclasses
 
@@ -628,7 +658,8 @@ def _options(args, sampler: str, seed: int, state, w, cfg,
         state, tr = tune_mobility(cfg, state, w,
                                   target=args.target_acceptance,
                                   sampler=sampler, seed=seed, chain0=chain0,
-                                  pooled=bool(args.coordinator))
+                                  pooled=bool(args.coordinator),
+                                  devices=devices)
         opts = dataclasses.replace(opts, proposal_a=tr.proposal_a)
         print(f"Auto-tuned proposal mobility: A = {tr.proposal_a:0.4g} "
               f"(gamma = {tr.gamma:0.3g}, acceptance {tr.acceptance:0.3f} "
@@ -715,25 +746,32 @@ def _take_card(device: str, rank: int) -> str:
     return f", this process on cuda:{card}"
 
 
-def _chain_devices(device: str, c: int, nproc: int,
-                   sampler: str) -> tuple | None:
-    """The cards a one-process run shards its c chains over (bitwise one
-    card): every local card, when there are several, the engine is a
-    kernel engine and the chains divide over them; else None (one card),
-    with a note when only the division stood in the way. A process of a
-    multi-process run keeps to its one card (main)."""
+def _chain_devices(device: str, n: int, nproc: int,
+                   label: str = "") -> tuple | None:
+    """The cards a one-process run shards its n chains over, bitwise one
+    card (tpu_smc's _auto_chain_mesh and its ladder and ensemble
+    meshes, with their lines; `label` names the chains: "ladder", "NPT",
+    ...): every local card, when there are several and the chains
+    divide over them; else None (one card), with tpu_smc's note when
+    only the division stood in the way. Every engine shards. A process
+    of a multi-process run keeps to its one card (_take_card), and the
+    CPU has none."""
     import torch
 
     n_dev = torch.cuda.device_count() if device == "cuda" else 1
-    if nproc > 1 or n_dev < 2 or sampler not in ("dense", "zsorted"):
+    if nproc > 1 or n_dev < 2:
         return None
-    if c % n_dev:
-        print(f"Note: {c} chains do not divide over {n_dev} local devices; "
-              "running on one")
+    if n % n_dev:
+        # tpu_smc's wording: the ladder's note names the ladder,
+        # _auto_chain_mesh's and the ensemble's do not
+        what = "ladder chains" if label == "ladder" else "chains"
+        print(f"Note: {n} {what} do not divide over {n_dev} devices; "
+              "running on one device")
         return None
     from .ensemble import make_mesh
 
-    print(f"Sharding {c} chains over {n_dev} local devices")
+    print(f"Sharding {n} {label + ' ' if label else ''}chains over {n_dev} "
+          "devices")
     return tuple(make_mesh(n_dev))
 
 
@@ -760,13 +798,10 @@ def _run_ensemble(args, cfg, params, d, state, w, sampler: str,
     for ci in range(c):
         pos_writers[ci].append(r[ci])
 
+    devices = _chain_devices(args.device, c, nproc)
     print(f"Ensemble sweep engine: {_engine_label(sampler, cfg, args.device)}")
-    state, opts = _options(args, sampler, seed, state, w, cfg, chain0)
-    devices = _chain_devices(args.device, c, nproc, sampler)
-    if devices:
-        import dataclasses
-
-        opts = dataclasses.replace(opts, devices=devices)
+    state, opts = _options(args, sampler, seed, state, w, cfg, chain0,
+                           devices)
     ck_suffix = f".p{rank}" if nproc > 1 else ""
     with _install_signal_stop() as stopper:
         def on_window(widx, st, outs):
@@ -1069,6 +1104,7 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
         print(f"Quenched wall disorder ladder: {wall_k} realizations "
               f"x {g_rep} replicas per level (wall seeds "
               f"{args.wall_seed}..{args.wall_seed + wall_k - 1})")
+    devices = _chain_devices(args.device, len(temps) * cpt, nproc, "ladder")
     print(f"Temperature sweep: {len(temps)} temperatures x {cpt} chains, "
           f"one ensemble ({sampler} engine)")
     a_per_t = None
@@ -1096,7 +1132,8 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
     kw = dict(chains_per_t=cpt, w=w_ladder, sampler=sampler,
               a_per_t=a_per_t, device=args.device, state0=state0,
               fields=FieldOptions(args.gr_bins, args.z_bins, args.sk_kmax,
-                                  args.widom, args.ptensor_bins), shard=shard)
+                                  args.widom, args.ptensor_bins), shard=shard,
+              devices=devices)
     if args.pt_exchange:
         from .pt import simulate_parallel_tempering, write_pt_csv
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .cli import profiled
+from .cli import _chain_devices, profiled
 
 
 def add_arguments(p) -> None:
@@ -321,6 +321,7 @@ def _run_npt(args, cfg, params, d, seed, key) -> int:
         n_ch = state0.n_chains
     if args.npt_grid:
         return _run_npt_isobars(args, cfg, params, key, d, seed)
+    devices = _chain_devices(args.device, n_ch, 1, "NPT")
     v_floor = (2.0 * cfg.lj_cutoff) ** 3
     print(f"Constant-pressure MC: P = {args.npt:g}, {n_ch} chain(s), dlnV "
           f"{args.npt_dlnv:g}, rc {cfg.lj_cutoff:g} (hard volume floor "
@@ -330,7 +331,7 @@ def _run_npt(args, cfg, params, d, seed, key) -> int:
             cfg, args.npt, 0 if state0 is not None else params.eqsteps,
             params.maxsteps, key, n_chains=n_ch, dlnv=args.npt_dlnv,
             gr_bins=args.gr_bins, state0=state0, seed=seed,
-            device=args.device)
+            device=args.device, devices=devices)
     print("\n###  Constant-pressure results  ###")
     print(f"Mean density: {nres.mean_density:f} ± {nres.err_density:f}  "
           f"(<V> = {nres.mean_v:f})")
@@ -377,10 +378,11 @@ def _run_npt_isobars(args, cfg, params, key, d, seed) -> int:
     print(f"Equation of state: {len(grid)} pressures x {reps} replicas, "
           f"one ensemble (dlnV {args.npt_dlnv:g}, rc {cfg.lj_cutoff:g}, "
           f"starting box {cfg.box_l:g}^3)")
+    devices = _chain_devices(args.device, len(p_c), 1, "NPT isobar")
     with profiled(args):
         _, res = simulate_npt(cfg, p_c, params.eqsteps, params.maxsteps,
                               key, n_chains=len(p_c), dlnv=args.npt_dlnv,
-                              seed=seed, device=args.device)
+                              seed=seed, device=args.device, devices=devices)
     v_tr = res.volume_trace
     rho_chain = (cfg.n / v_tr).mean(axis=0).reshape(len(grid), reps)
     rho_mean = rho_chain.mean(axis=1)
@@ -461,11 +463,13 @@ def _run_gibbs(args, cfg, params, d, seed, key) -> int:
           f"{rho_all:g}, per-box start {cfg.box_l:g}^3, capacity "
           f"{cap}/box, {n_tr} transfers/sweep, dlnV {args.npt_dlnv:g}, "
           f"{n_ch} chain(s)")
+    devices = _chain_devices(args.device, n_ch, 1, "Gibbs")
     with profiled(args):
         gstate, gres = simulate_gibbs(
             cfg, 0 if state0 is not None else params.eqsteps,
             params.maxsteps, key, cap, n_chains=n_ch, dlnv=args.npt_dlnv,
-            n_transfer=n_tr, state0=state0, seed=seed, device=args.device)
+            n_transfer=n_tr, state0=state0, seed=seed, device=args.device,
+            devices=devices)
     print("\n###  Gibbs-ensemble results  ###")
     print(f"Branch densities (sorted per sweep): vapor {gres.rho_lo:f} ± "
           f"{gres.err_lo:f}, liquid {gres.rho_hi:f} ± {gres.err_hi:f}")
@@ -514,11 +518,13 @@ def _run_gibbs_binodal(args, cfg, params, key, d, seed) -> int:
     print(f"Gibbs coexistence curve: {len(grid)} temperatures x {reps} "
           f"replicas, N = {cfg.n} total, overall rho = {rho_all:g}, "
           f"capacity {cap}/box, {n_tr} transfers/sweep, one ensemble")
+    devices = _chain_devices(args.device, len(temps_c), 1, "Gibbs ladder")
     with profiled(args):
         state, res = simulate_gibbs(
             cfg, params.eqsteps, params.maxsteps, key, cap,
             n_chains=len(temps_c), dlnv=args.npt_dlnv, n_transfer=n_tr,
-            temperatures=temps_c, seed=seed, device=args.device)
+            temperatures=temps_c, seed=seed, device=args.device,
+            devices=devices)
     rows = binodal_from_results(state, res, temps_c, cfg)
     _rate(res)
     print("\n###  Coexistence curve  ###")

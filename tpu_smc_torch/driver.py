@@ -122,8 +122,8 @@ class ObservableOptions:
     # global index of the state's chain 0: a process's share of a
     # multi-process run (every draw is keyed by the global chain index)
     chain0: int = 0
-    # devices of a chain-sharded run (ensemble.make_mesh; dense and
-    # zsorted only); None: the state's own device
+    # devices of a chain-sharded run (ensemble.make_mesh; every
+    # engine); None: the state's own device
     devices: tuple | None = None
 
 

@@ -22,7 +22,8 @@ from .driver import (GatherOut, ObservableOptions, SimResults, _sync,
                      is_device_fault, restore_from_host, snapshot_to_host,
                      therm_chunk)
 from .ensemble import (ensemble_sweeps, ensemble_sweeps_dense,
-                       ensemble_sweeps_dense_sharded, ensemble_sweeps_zsorted,
+                       ensemble_sweeps_dense_sharded, ensemble_sweeps_sharded,
+                       ensemble_sweeps_zsorted,
                        ensemble_sweeps_zsorted_sharded)
 from .observables import (autocorrelation, cluster_histograms_chains,
                           density_mobility_update,
@@ -41,13 +42,16 @@ def _advance(state: ChainState, w, cfg: SMCConfig, a: float, n_sweeps: int,
     chain opts.chain0, over opts.devices when given (the sharded
     engines). Returns (state, trace)."""
     c0 = opts.chain0
+    if opts.devices and opts.sampler == "torch":
+        return ensemble_sweeps_sharded(state, w, cfg, a, n_sweeps,
+                                       opts.stream_seed, list(opts.devices),
+                                       collect_trace=collect_trace,
+                                       chain0=c0)
     if opts.devices and opts.sampler in ("dense", "zsorted"):
         fn = (ensemble_sweeps_zsorted_sharded if opts.sampler == "zsorted"
               else ensemble_sweeps_dense_sharded)
         return fn(state, w, cfg, a, n_sweeps, opts.stream_seed,
                   list(opts.devices), chain0=c0)
-    if opts.devices:
-        raise ValueError("a device list runs the dense or zsorted engine")
     if opts.sampler == "zsorted":
         return ensemble_sweeps_zsorted(state, w, cfg, a, n_sweeps,
                                        seed=opts.stream_seed, chain0=c0)

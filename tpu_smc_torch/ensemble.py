@@ -464,9 +464,12 @@ def make_mesh(n_devices: int | None = None, devices=None) -> list:
     return devs
 
 
-def _map_leaves(state: ChainState, fn) -> ChainState:
-    return ChainState(**{f.name: fn(getattr(state, f.name))
-                         for f in dataclasses.fields(ChainState)})
+def _map_leaves(state, fn):
+    """fn of every field of a chain-state dataclass (ChainState, and the
+    ensemble family's NPTState, GibbsState), all with a leading chain
+    axis."""
+    return type(state)(**{f.name: fn(getattr(state, f.name))
+                          for f in dataclasses.fields(state)})
 
 
 def _split(n_chains: int, parts: int) -> int:
@@ -479,18 +482,20 @@ def _split(n_chains: int, parts: int) -> int:
 def shard_ensemble(state: ChainState, devices, chain0: int = 0) -> list:
     """[(shard state, chain0 of the shard)]: the state's chains cut into
     len(devices) contiguous ranges, each on its device; `chain0` is the
-    global index of the state's own chain 0."""
+    global index of the state's own chain 0. Any chain-state dataclass
+    (_map_leaves) splits so."""
     per = _split(state.n_chains, len(devices))
     return [(_map_leaves(state, lambda x, k=k, d=d:
                          x[k * per:(k + 1) * per].to(d)), chain0 + k * per)
             for k, d in enumerate(devices)]
 
 
-def concat_states(parts, device) -> ChainState:
-    """Shard states concatenated along the chain axis on `device`."""
-    return ChainState(**{
+def concat_states(parts, device):
+    """Shard states (of one chain-state dataclass) concatenated along the
+    chain axis on `device`."""
+    return type(parts[0])(**{
         f.name: torch.cat([getattr(p, f.name).to(device) for p in parts])
-        for f in dataclasses.fields(ChainState)})
+        for f in dataclasses.fields(parts[0])})
 
 
 def gather_global_state(parts, device="cpu") -> ChainState:
@@ -520,9 +525,9 @@ def _sharded(engine, state: ChainState, w: torch.Tensor, cfg: SMCConfig,
              a, n_sweeps: int, seed, devices, a_per_chain, t_per_chain,
              chain0: int, **kw):
     """One call of `engine` per shard on its device, with the shard's
-    chain0, per-chain rows and wall tables; the states and traces
-    concatenated back on the state's device. seed None: the state's
-    chain 0 key, for every shard."""
+    chain0, per-chain rows and wall tables; the states and traces (None
+    where the engine collects none) concatenated back on the state's
+    device. seed None: the state's chain 0 key, for every shard."""
     c, home = state.n_chains, state.r.device
     if seed is None:
         seed = state.key[0].cpu()
@@ -538,10 +543,31 @@ def _sharded(engine, state: ChainState, w: torch.Tensor, cfg: SMCConfig,
         outs.append(engine(st, wk, cfg, a, n_sweeps, seed=seed, chain0=c0,
                            **rows, **kw))
     new = concat_states([o[0] for o in outs], home)
+    if outs[0][1] is None:
+        return new, None
     stats = SweepStats(*(torch.cat([getattr(o[1], f).to(home)
                                     for o in outs], dim=1)
                          for f in SweepStats._fields))
     return new, stats
+
+
+def ensemble_sweeps_sharded(state: ChainState, w: torch.Tensor,
+                            cfg: SMCConfig, a: float, n_sweeps: int, seed,
+                            devices, collect_trace: bool = False,
+                            a_per_chain=None, t_per_chain=None,
+                            chain0: int = 0):
+    """ensemble_sweeps (the plain engine, CUDA graphs on the card) with
+    the chain axis split over `devices`, as ensemble_sweeps_dense_sharded
+    (tpu_smc partitions its XLA engine the same way): every draw is keyed
+    by the global chain index and each chain's arithmetic is its own, so
+    the call is bitwise the unsharded one. Traces [S, C] when
+    collect_trace, else None."""
+    def plain(st, wk, cfg, a, n, seed, chain0, **rows):
+        return ensemble_sweeps(st, wk, cfg, a, n, collect_trace=collect_trace,
+                               stream_seed=seed, chain0=chain0, **rows)
+
+    return _sharded(plain, state, w, cfg, a, n_sweeps, seed, devices,
+                    a_per_chain, t_per_chain, chain0)
 
 
 def ensemble_sweeps_dense_sharded(state: ChainState, w: torch.Tensor,

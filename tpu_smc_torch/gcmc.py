@@ -482,6 +482,33 @@ def resync(energy: torch.Tensor, exact: torch.Tensor, drift: list):
     return exact.to(energy.dtype)
 
 
+def run_parts(parts, n_sweeps: int, chunk: int, block, exact,
+              drift: list):
+    """n_sweeps sweeps of every part [(state, chain0)] of a chain-sharded
+    ensemble (one part: the unsharded run), in blocks that end at the
+    absolute multiples of `chunk`: block(state, chain0, k) -> (state,
+    traces) on each part, one after another from this thread (each
+    part's launches go to its device); at every multiple the tracked
+    energies are replaced by exact(state) (resync), with one drift
+    entry, the largest over the parts. Returns (parts, [[traces of each
+    part] per block])."""
+    traces = []
+    done = 0
+    while done < n_sweeps:
+        s0 = int(parts[0][0].sweeps[0])
+        k = min(chunk - s0 % chunk, n_sweeps - done)
+        out = [block(st, c0, k) for st, c0 in parts]
+        if (s0 + k) % chunk == 0:
+            worst: list = []
+            out = [(st.replace(energy=resync(st.energy, exact(st), worst)),
+                    tr) for st, tr in out]
+            drift.append(max(worst))
+        parts = [(st, c0) for (st, _), (_, c0) in zip(out, parts)]
+        traces.append([tr for _, tr in out])
+        done += k
+    return parts, traces
+
+
 def _rate(acc, att) -> float:
     acc = int(np.asarray(acc).sum())
     att = int(np.asarray(att).sum())

@@ -43,8 +43,8 @@ from .ensemble import (move_draws, stream_uniforms, stream_words,
                        visiting_orders)
 from .gcmc import (_GIBBS_VOLUME_SALT, _TRANSFER_SALT, _accept, _rate,
                    _rows, _set_rows, batch_state, cubic_grid, first_free,
-                   kth_active, masked_disp_pass, resync, total_energy_masked,
-                   widom_weight, zero_counters)
+                   kth_active, masked_disp_pass, run_parts,
+                   total_energy_masked, widom_weight, zero_counters)
 from .kernels.sweep import chain_scales
 from .potentials import energy_force_single
 from .sampler import run_step
@@ -239,13 +239,18 @@ def gibbs_sweep(state: GibbsState, cfg: SMCConfig, a, dlnv,
 
 def gibbs_block(state: GibbsState, cfg: SMCConfig, a, dlnv,
                 n_transfer: int, n_sweeps: int, temperature=None,
-                seed=None):
+                seed=None, chain0: int = 0):
     """n_sweeps Gibbs sweeps of every chain from the port's streams
     (tpu_smc.gibbs.gibbs_block), each one replayed CUDA graph on the
-    card (sampler.run_step, one per (cfg, A, dlnv, X, T)); temperature:
-    a scalar or one per chain (a coexistence curve). Returns (state,
-    traces): N1, V1, E1, E2 [S, C] after each sweep, as tpu_smc's, and
-    N2 [S, C], which the driver's conservation check reads."""
+    card (sampler.run_step, one per (cfg, A, dlnv, X, T, chain0));
+    temperature: a scalar or one per chain (a coexistence curve).
+    chain0: the global index of the state's chain 0, the chain word of
+    every draw (the displacement pass's 2 chain0 + box, the volume and
+    transfer streams' chain0), with seed the run seed or the global
+    chain 0's key (ensemble.stream_base): a shard of a wider ensemble is
+    bitwise those chains of it. Returns (state, traces): N1, V1, E1, E2
+    [S, C] after each sweep, as tpu_smc's, and N2 [S, C], which the
+    driver's conservation check reads."""
     c, _, cap = state.active.shape
     dev, dtype = state.r.device, state.r.dtype
     a, dlnv = float(a), float(dlnv)
@@ -261,10 +266,11 @@ def gibbs_block(state: GibbsState, cfg: SMCConfig, a, dlnv,
 
     def step(r, active, l, energy, s2a, wd, wv, wt, order, *t_arg):
         t = t_arg[0] if t_arg else t_f
-        noise, unif = move_draws(wd, cap, 2 * c, s2a, order, dtype)
-        uv = stream_uniforms(wv, 1, c, 0, dtype)[:, 0]
-        u = stream_uniforms(wt, n_transfer, c, 0, dtype)
-        u2 = stream_uniforms(wt, n_transfer, c, 1, dtype)
+        noise, unif = move_draws(wd, cap, 2 * c, s2a, order, dtype,
+                                 2 * chain0)
+        uv = stream_uniforms(wv, 1, c, 0, dtype, chain0)[:, 0]
+        u = stream_uniforms(wt, n_transfer, c, 0, dtype, chain0)
+        u2 = stream_uniforms(wt, n_transfer, c, 1, dtype, chain0)
         return _gibbs_core(r, active, l, energy, cfg, a, dlnv, t,
                            noise.reshape(c, 2, cap, 3),
                            unif.reshape(c, 2, cap), None, uv[:, 0],
@@ -275,7 +281,7 @@ def gibbs_block(state: GibbsState, cfg: SMCConfig, a, dlnv,
     if per_chain:
         extra = (torch.as_tensor(np.asarray(temperature, np.float64),
                                  dtype=dtype, device=dev).expand(c),)
-    key = ("gibbs", cfg, a, dlnv, n_transfer, t_f)
+    key = ("gibbs", cfg, a, dlnv, n_transfer, t_f, chain0)
     tr = [[] for _ in range(5)]
     for s in range(n_sweeps):
         state = _advance(state, n_transfer, *run_step(
@@ -360,7 +366,7 @@ def simulate_gibbs(cfg: SMCConfig, eqsteps: int, maxsteps: int, key,
                    cap: int, n_chains: int = 1, dlnv: float = 0.05,
                    n_transfer: int | None = None, chunk: int = 200,
                    state0: GibbsState | None = None, temperatures=None,
-                   seed=None, device="cuda"):
+                   seed=None, device="cuda", devices=None):
     """Gibbs driver (tpu_smc.gibbs.simulate_gibbs): eqsteps sweeps with A
     doubled and maxsteps production sweeps of every chain. cfg.n is the
     TOTAL particle count and cfg.box_l the initial per-box side, so the
@@ -368,7 +374,12 @@ def simulate_gibbs(cfg: SMCConfig, eqsteps: int, maxsteps: int, key,
     chain (a coexistence curve, binodal_from_results). key, seed and
     state0 as in gcmc.simulate_gcmc; the tracked energies are replaced
     by the exact recompute at every absolute multiple of `chunk`
-    sweeps. Returns (state, GibbsResults)."""
+    sweeps. devices: the chains split over these devices as in
+    npt.simulate_npt, bitwise the one-device run. Returns (state,
+    GibbsResults)."""
+    from .driver import _sync
+    from .ensemble import concat_states, shard_ensemble
+
     a = cfg.proposal_a
     n_transfer = max(1, cfg.n // 4) if n_transfer is None else n_transfer
     if state0 is not None:
@@ -381,33 +392,38 @@ def simulate_gibbs(cfg: SMCConfig, eqsteps: int, maxsteps: int, key,
     temps = (None if temperatures is None
              else np.broadcast_to(np.asarray(temperatures, np.float64),
                                   (n_chains,)).copy())
+    if seed is None:
+        seed = state.key[0].cpu()      # the global chain 0's streams
+    parts = shard_ensemble(state, devices) if devices else [(state, 0)]
     drift: list = []
 
-    def do(state, n_sweeps, aa):
-        traces = []
-        done = 0
-        while done < n_sweeps:
-            k = min(chunk - int(state.sweeps[0]) % chunk, n_sweeps - done)
-            state, tr = gibbs_block(state, cfg, aa, dlnv, n_transfer, k,
-                                    temperature=temps, seed=seed)
-            if int(state.sweeps[0]) % chunk == 0:
-                w = state.r.new_zeros((0,))
-                state = state.replace(energy=resync(
-                    state.energy, total_energy_masked(
-                        state.r, state.active, w, cfg, box=state.l), drift))
-            traces.append(tr)
-            done += k
-        return state, traces
+    def run(parts, n_sweeps, aa):
+        def block(st, c0, k):
+            return gibbs_block(
+                st, cfg, aa, dlnv, n_transfer, k,
+                temperature=(None if temps is None
+                             else temps[c0:c0 + st.n_chains]),
+                seed=seed, chain0=c0)
 
-    state, _ = do(state, eqsteps, 2.0 * a)
-    state = zero_counters(state, COUNTERS)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        return run_parts(parts, n_sweeps, chunk, block, lambda st:
+                         total_energy_masked(st.r, st.active,
+                                             st.r.new_zeros((0,)), cfg,
+                                             box=st.l), drift)
+
+    parts, _ = run(parts, eqsteps, 2.0 * a)
+    parts = [(zero_counters(st, COUNTERS), c0) for st, c0 in parts]
+    for st, _ in parts:
+        _sync(st)
     t0 = time.perf_counter()
-    state, traces = do(state, maxsteps, a)
+    parts, traces = run(parts, maxsteps, a)
+    for st, _ in parts:
+        _sync(st)
+    state = (parts[0][0] if len(parts) == 1
+             else concat_states([p for p, _ in parts], dev))
     if traces:
-        n1, v1, e1, e2, n2 = (torch.cat([t[i] for t in traces]).cpu().numpy()
-                              for i in range(5))
+        n1, v1, e1, e2, n2 = (np.concatenate(
+            [np.concatenate([tr[i].cpu().numpy() for tr in blk], 1)
+             for blk in traces]) for i in range(5))
         v1, e1, e2 = (x.astype(np.float64) for x in (v1, e1, e2))
         n_ok = bool((n1 + n2 == cfg.n).all())
     else:

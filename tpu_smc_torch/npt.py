@@ -35,7 +35,7 @@ import torch
 from .config import SMCConfig
 from .ensemble import (move_draws, stream_uniforms, stream_words,
                        visiting_orders)
-from .gcmc import (_VOLUME_SALT, _rate, batch_state, cubic_grid, resync,
+from .gcmc import (_VOLUME_SALT, _rate, batch_state, cubic_grid, run_parts,
                    zero_counters)
 from .kernels.sweep import chain_scales
 from .potentials import pair_energy_total, pair_virial_pressure
@@ -139,14 +139,17 @@ def _chain_t(t, c, dtype, dev):
 
 def npt_block(state: NPTState, cfg: SMCConfig, pressure, a, dlnv,
               n_sweeps: int, temperature=None, gr_bins: int = 0,
-              track_virial: bool = False, seed=None):
+              track_virial: bool = False, seed=None, chain0: int = 0):
     """n_sweeps NPT sweeps of every chain from the port's streams
     (tpu_smc.npt.npt_block), each one replayed CUDA graph on the card
-    (sampler.run_step, one per (cfg, A, dlnv, T)). pressure and
-    temperature: scalars or one per chain. Returns (state, traces): E
-    and V [S, C] after each sweep, the reduced pair histogram summed
-    over chains [S, gr_bins] and the virial pressure [S, C] (None where
-    off)."""
+    (sampler.run_step, one per (cfg, A, dlnv, T, chain0)). pressure and
+    temperature: scalars or one per chain. chain0: the global index of
+    the state's chain 0, the chain word of every draw (displacements
+    and the volume move), with seed the run seed or the global chain
+    0's key (ensemble.stream_base): a shard of a wider ensemble is
+    bitwise those chains of it. Returns (state, traces): E and V [S, C]
+    after each sweep, the reduced pair histogram summed over chains
+    [S, gr_bins] and the virial pressure [S, C] (None where off)."""
     c, n = state.r.shape[:2]
     dev, dtype = state.r.device, state.r.dtype
     a, dlnv = float(a), float(dlnv)
@@ -164,12 +167,12 @@ def npt_block(state: NPTState, cfg: SMCConfig, pressure, a, dlnv,
 
     def step(r, l, energy, p_c, s2a, wd, wv, order, *t_arg):
         t = t_arg[0] if t_arg else t_f
-        noise, unif = move_draws(wd, n, c, s2a, order, dtype)
-        uv = stream_uniforms(wv, 1, c, 0, dtype)[:, 0]
+        noise, unif = move_draws(wd, n, c, s2a, order, dtype, chain0)
+        uv = stream_uniforms(wv, 1, c, 0, dtype, chain0)[:, 0]
         return _npt_core(r, l, energy, cfg, p_c, a, dlnv, t, noise, unif, 0,
                          uv[:, 0], uv[:, 1], order=order)
 
-    key = ("npt", cfg, a, dlnv, t_f)
+    key = ("npt", cfg, a, dlnv, t_f, chain0)
     extra = () if t_c is None else (t_c,)
     tr = [[] for _ in range(4)]
     for s in range(n_sweeps):
@@ -260,14 +263,21 @@ def simulate_npt(cfg: SMCConfig, pressure, eqsteps: int, maxsteps: int,
                  key, n_chains: int = 1, dlnv: float = 0.05,
                  gr_bins: int = 0, track_virial: bool = False,
                  chunk: int = 200, state0: NPTState | None = None,
-                 temperatures=None, seed=None, device="cuda"):
+                 temperatures=None, seed=None, device="cuda", devices=None):
     """NPT driver (tpu_smc.npt.simulate_npt): eqsteps thermalization
     sweeps with A doubled (SMC.c:110-125) and maxsteps production sweeps
     of every chain. pressure, temperatures: scalars or one per chain
     (an isobar family, or a (T, P) grid for reweight_tp). key, seed and
     state0 as in gcmc.simulate_gcmc; the tracked energy is replaced by
     the exact recompute at every absolute multiple of `chunk` sweeps.
-    Returns (state, NPTResults)."""
+    devices: the chains split over these devices (ensemble.make_mesh;
+    tpu_smc's `mesh`), one contiguous range each with its pressures and
+    temperatures, every draw keyed by the global chain index: bitwise
+    the one-device run. The returned state is on `device` (state0's
+    own when given). Returns (state, NPTResults)."""
+    from .driver import _sync
+    from .ensemble import concat_states, shard_ensemble
+
     a = cfg.proposal_a
     if state0 is not None:
         if state0.n_chains != n_chains:
@@ -278,42 +288,45 @@ def simulate_npt(cfg: SMCConfig, pressure, eqsteps: int, maxsteps: int,
         state = batch_state(init_npt_state(cfg, key, device=device),
                             n_chains)
     dev = state.r.device
+    if seed is None:
+        seed = state.key[0].cpu()      # the global chain 0's streams
     ps = np.broadcast_to(np.asarray(pressure, np.float64),
                          (n_chains,)).copy()
     temps = (None if temperatures is None
              else np.broadcast_to(np.asarray(temperatures, np.float64),
                                   (n_chains,)).copy())
+    parts = shard_ensemble(state, devices) if devices else [(state, 0)]
     drift: list = []
 
-    def do(state, n_sweeps, collect, aa):
-        traces = []
-        done = 0
-        while done < n_sweeps:
-            k = min(chunk - int(state.sweeps[0]) % chunk, n_sweeps - done)
-            state, tr = npt_block(state, cfg, ps, aa, dlnv, k,
-                                  temperature=temps,
-                                  gr_bins=gr_bins if collect else 0,
-                                  track_virial=track_virial and collect,
-                                  seed=seed)
-            if int(state.sweeps[0]) % chunk == 0:
-                state = state.replace(energy=resync(
-                    state.energy, pair_energy_total(state.r, cfg,
-                                                    box=state.l), drift))
-            traces.append(tr)
-            done += k
-        return state, traces
+    def run(parts, n_sweeps, collect, aa):
+        def block(st, c0, k):
+            sl = slice(c0, c0 + st.n_chains)
+            return npt_block(
+                st, cfg, ps[sl], aa, dlnv, k,
+                temperature=None if temps is None else temps[sl],
+                gr_bins=gr_bins if collect else 0,
+                track_virial=track_virial and collect, seed=seed, chain0=c0)
 
-    state, _ = do(state, eqsteps, False, 2.0 * a)
-    state = zero_counters(state, ("accepted", "vol_acc", "vol_att"))
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        return run_parts(parts, n_sweeps, chunk, block, lambda st:
+                         pair_energy_total(st.r, cfg, box=st.l), drift)
+
+    parts, _ = run(parts, eqsteps, False, 2.0 * a)
+    parts = [(zero_counters(st, ("accepted", "vol_acc", "vol_att")), c0)
+             for st, c0 in parts]
+    for st, _ in parts:
+        _sync(st)
     t0 = time.perf_counter()
-    state, traces = do(state, maxsteps, True, a)
+    parts, traces = run(parts, maxsteps, True, a)
+    for st, _ in parts:
+        _sync(st)
+    state = (parts[0][0] if len(parts) == 1
+             else concat_states([p for p, _ in parts], dev))
+    traces = [_join_traces(trs) for trs in traces]
 
     def cat(i):
         if not traces or traces[0][i] is None:
             return None
-        return torch.cat([t[i] for t in traces]).double().cpu().numpy()
+        return np.concatenate([t[i] for t in traces])
 
     e_tr, v_tr = cat(0), cat(1)
     if e_tr is None:
@@ -322,6 +335,19 @@ def simulate_npt(cfg: SMCConfig, pressure, eqsteps: int, maxsteps: int,
     return state, _npt_results(cfg, state, ps, e_tr, v_tr, cat(3), cat(2),
                                maxsteps, drift,
                                n_chains * maxsteps / max(wall, 1e-12))
+
+
+def _join_traces(trs) -> tuple:
+    """npt_block's traces of every part as float64 host arrays, joined on
+    the chain axis; the chain-summed pair histograms added."""
+    out = []
+    for i, xs in enumerate(zip(*trs)):
+        if xs[0] is None:
+            out.append(None)
+            continue
+        xs = [x.double().cpu().numpy() for x in xs]
+        out.append(sum(xs[1:], xs[0]) if i == 2 else np.concatenate(xs, 1))
+    return tuple(out)
 
 
 def _npt_results(cfg, state, ps, e_tr, v_tr, p_tr, g_tr, maxsteps, drift,

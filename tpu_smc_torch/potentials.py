@@ -154,8 +154,35 @@ def _pair_dr2_rows(R: torch.Tensor, r0: int, r1: int, cfg: SMCConfig,
 def _pair_sum(R: torch.Tensor, cfg: SMCConfig, term, box=None,
               active=None) -> torch.Tensor:
     """Sum over ordered pairs i != j within the cutoff of term(inv6,
-    mask) [..., rows, N] per chain, row chunk by row chunk: each row's
-    sum over j, then the rows."""
+    mask) [..., rows, N] per configuration (the leading axes), in blocks
+    of a fixed count of configurations within PAIR_BUDGET: each
+    configuration's sum then takes the same row chunks whatever the
+    count of chains beside it, so that a chain-sharded run is bitwise
+    the unsharded one (the row chunk of a call over every chain at once
+    shrinks as the chains grow). Within a block, row chunk by row chunk:
+    each row's sum over j, then the rows."""
+    n = R.shape[-2]
+    lead = R.shape[:-2]
+    step = max(1, PAIR_BUDGET // max(n * n, 1))
+    flat = R.reshape((-1,) + R.shape[-2:])
+    if flat.shape[0] <= step:
+        return _pair_sum_block(R, cfg, term, box, active)
+    box_f = None if box is None else box.expand(lead).reshape(-1)
+    act_f = (None if active is None
+             else active.expand(lead + (n,)).reshape(-1, n))
+    return torch.cat([_pair_sum_block(
+        flat[b0:b0 + step], cfg, term,
+        None if box_f is None else box_f[b0:b0 + step],
+        None if act_f is None else act_f[b0:b0 + step])
+        for b0 in range(0, flat.shape[0], step)]).reshape(lead)
+
+
+def _pair_sum_block(R: torch.Tensor, cfg: SMCConfig, term, box=None,
+                    active=None) -> torch.Tensor:
+    """_pair_sum of one block of configurations. Under a per-chain box
+    (NPT, Gibbs: their volume moves sum each shard's chains on its own)
+    the rows are added in a fixed order (fixed_order_sum); the fixed
+    box's sums run on whole ensembles and keep torch's."""
     n = R.shape[-2]
     rows = pair_row_chunk(max(1, R[..., 0, 0].numel()), n)
     total = R.new_zeros(R.shape[:-2])
@@ -164,8 +191,27 @@ def _pair_sum(R: torch.Tensor, cfg: SMCConfig, term, box=None,
                                    active)
         safe = torch.where(mask, dr2, torch.ones_like(dr2))
         inv6 = 1.0 / (safe * safe * safe)
-        total = total + term(inv6, mask).sum(-1).sum(-1)
+        per_row = term(inv6, mask).sum(-1)
+        total = total + (per_row.sum(-1) if box is None
+                         else fixed_order_sum(per_row))
     return total
+
+
+def fixed_order_sum(x: torch.Tensor) -> torch.Tensor:
+    """x [..., R] summed over its last axis in one order on every device
+    and at any count of leading entries: zeros pad R to a power of two,
+    then halves are added elementwise. torch's CUDA sum over that axis
+    changes its order with the count of outputs (on an H100, with fewer
+    than 16 chains at R >= 96), so a chain's sum would follow the
+    chains that share its call."""
+    r = x.shape[-1]
+    p = 1 << max(r - 1, 0).bit_length()
+    if p != r:
+        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (p - r,))], -1)
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
 
 
 def pair_energy_total(R: torch.Tensor, cfg: SMCConfig, box=None,

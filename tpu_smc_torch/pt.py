@@ -38,9 +38,10 @@ import torch
 
 from .config import RunParams, SMCConfig
 from .state import ChainState, fold_in
-from .tsweep import (FieldOptions, LadderShard, TSweepResults, _fields,
-                     _ladder_block, _pressure, gather_chain_axis,
-                     ladder_stats, stack_fields)
+from .tsweep import (FieldOptions, LadderPart, LadderShard, TSweepResults,
+                     _fields, _pressure, gather_chain_axis, host_cat,
+                     join_ladder, ladder_blocks, ladder_stats, parts_moves,
+                     split_ladder, stack_fields)
 
 _EXCHANGE_SALT = 0x9C0FFEE
 
@@ -127,6 +128,65 @@ def exchange_global(state: ChainState, betas_t: torch.Tensor,
                           rbin=g.rbin[mine].contiguous()), acc, att)
 
 
+def exchange_parts(parts, betas_t: torch.Tensor, chains_per_t: int,
+                   key: torch.Tensor, parity: int,
+                   shard: LadderShard | None = None):
+    """exchange_global over a process's LadderParts: their (r, E, rbin)
+    gathered to the first part's device in chain order, the step run
+    there once (on the whole ladder, with the other ranks' chains under
+    a shard), and each part handed back its slice; no host round trip.
+    Returns (parts, accepts, attempts)."""
+    if len(parts) == 1:
+        st, acc, att = exchange_global(parts[0].state, betas_t, chains_per_t,
+                                       key, parity, shard)
+        return [parts[0]._replace(state=st)], acc, att
+    dev0 = parts[0].state.r.device
+
+    def whole(name):
+        return torch.cat([getattr(p.state, name).to(dev0) for p in parts])
+
+    g = parts[0].state.replace(r=whole("r"), energy=whole("energy"),
+                               rbin=whole("rbin"))
+    g, acc, att = exchange_global(g, betas_t, chains_per_t, key, parity,
+                                  shard)
+    out, k0 = [], 0
+    for p in parts:
+        dev, sl = p.state.r.device, slice(k0, k0 + p.state.n_chains)
+        out.append(p._replace(state=p.state.replace(
+            r=g.r[sl].to(dev), energy=g.energy[sl].to(dev),
+            rbin=g.rbin[sl].to(dev))))
+        k0 = sl.stop
+    return out, acc, att
+
+
+def pt_cycles_parts(parts, cfg: SMCConfig, betas_t: torch.Tensor,
+                    a_scale: float, chains_per_t: int, interval: int,
+                    n_cycles: int, cycle0: int, ekey: torch.Tensor,
+                    sampler: str, collect_trace: bool = False,
+                    shard: LadderShard | None = None, seed=None):
+    """pt_cycles over LadderParts (tsweep.split_ladder): each cycle's
+    sweeps one engine call per part, then one exchange of the whole
+    ladder (exchange_parts). Returns (parts, accepts, attempts, energy
+    traces per part: a list of [interval, C_part] per cycle)."""
+    n_t = betas_t.shape[0]
+    nacc = np.zeros((max(n_t - 1, 0),), np.int64)
+    natt = np.zeros_like(nacc)
+    traces = [[] for _ in parts]
+    for k in range(n_cycles):
+        parts, stats = ladder_blocks(parts, cfg, a_scale, interval, sampler,
+                                     collect_trace=collect_trace, seed=seed)
+        if collect_trace:
+            for tr, st in zip(traces, stats):
+                tr.append(st.energy)
+        abs_k = cycle0 + k
+        parts, acc, att = exchange_parts(parts, betas_t, chains_per_t,
+                                         fold_in(ekey, [abs_k])[0],
+                                         abs_k % 2, shard)
+        nacc += acc.cpu().numpy()
+        natt += att.cpu().numpy()
+    return parts, nacc, natt, traces
+
+
 def pt_cycles(state: ChainState, w, cfg: SMCConfig, temps_c: torch.Tensor,
               betas_t: torch.Tensor, a_scale: float, chains_per_t: int,
               interval: int, n_cycles: int, cycle0: int, ekey: torch.Tensor,
@@ -140,24 +200,13 @@ def pt_cycles(state: ChainState, w, cfg: SMCConfig, temps_c: torch.Tensor,
     (exchange_global). Returns (state, accepts [n_t-1] int64, attempts
     [n_t-1] int64, energy traces [interval, C] per cycle when
     collect_trace)."""
-    n_t = betas_t.shape[0]
-    nacc = np.zeros((max(n_t - 1, 0),), np.int64)
-    natt = np.zeros_like(nacc)
-    traces = []
-    for k in range(n_cycles):
-        state, stats = _ladder_block(
-            state, w, cfg, temps_c, a_scale, interval, sampler,
-            collect_trace=collect_trace, a_c=a_c,
-            chain0=0 if shard is None else shard.chain0, seed=seed)
-        if collect_trace:
-            traces.append(stats.energy)
-        abs_k = cycle0 + k
-        state, acc, att = exchange_global(state, betas_t, chains_per_t,
-                                          fold_in(ekey, [abs_k])[0],
-                                          abs_k % 2, shard)
-        nacc += acc.cpu().numpy()
-        natt += att.cpu().numpy()
-    return state, nacc, natt, traces
+    part = LadderPart(state, w, temps_c, a_c,
+                      0 if shard is None else shard.chain0)
+    parts, nacc, natt, traces = pt_cycles_parts(
+        [part], cfg, betas_t, a_scale, chains_per_t, interval, n_cycles,
+        cycle0, ekey, sampler, collect_trace=collect_trace, shard=shard,
+        seed=seed)
+    return parts[0].state, nacc, natt, traces[0]
 
 
 class PTResults(NamedTuple):
@@ -201,6 +250,7 @@ def simulate_parallel_tempering(
     state0: ChainState | None = None,
     fields: FieldOptions = FieldOptions(),
     shard: LadderShard | None = None,
+    devices=None,
 ) -> tuple[ChainState, PTResults]:
     """The ladder with replica exchange every `exchange_interval` sweeps
     ("auto": measure the swap acceptance on a 40-cycle probe after
@@ -214,7 +264,10 @@ def simulate_parallel_tempering(
     continues the uninterrupted one's exchanges. fields: the paired
     field samples taken with each (P, E) pair (tsweep._fields). shard:
     this process's chains of one ladder spanning the processes, as in
-    tsweep.simulate_temperature_sweep (collective)."""
+    tsweep.simulate_temperature_sweep (collective). devices: the chains
+    split over these devices as in simulate_temperature_sweep, every
+    exchange gathered to the first (exchange_parts); bitwise the
+    one-device run, swap counts and the auto probe included."""
     from .driver import therm_chunk
     from .tsweep import ladder_start
 
@@ -232,15 +285,18 @@ def simulate_parallel_tempering(
         shard.chain0, shard.chain0 + shard.count)
     f64 = dict(dtype=torch.float64, device=device)
     temps_c = torch.as_tensor(np.repeat(temps, chains_per_t)[mine], **f64)
+    dev0 = torch.device(devices[0]) if devices else device
     betas_t = torch.as_tensor(1.0 / temps, dtype=cfg.torch_dtype,
-                              device=device)
+                              device=dev0)
     a_c = (None if a_per_t is None else torch.as_tensor(
         np.repeat(np.asarray(a_per_t, np.float64), chains_per_t)[mine],
         **f64))
+    home = state.r.device
+    parts = split_ladder(state, w_t, temps_c, a_c, mine.start, devices)
     ekey = fold_in(key0, [_EXCHANGE_SALT])[0]
     sweep_budget = therm_chunk(cfg, sampler=sampler)
 
-    def run_phase(state, total_sweeps, a_scale, cycle0, collect=False,
+    def run_phase(parts, total_sweeps, a_scale, cycle0, collect=False,
                   lapse=1):
         """ceil(total_sweeps / interval) cycles in groups of
         max(1, budget // interval), each group harvested (accept counts,
@@ -255,41 +311,42 @@ def simulate_parallel_tempering(
         done = sweep0 = 0
         while done < cycles:
             k = min(group, cycles - done)
-            state, a_blk, t_blk, traces = pt_cycles(
-                state, w_t, cfg, temps_c, betas_t, a_scale, chains_per_t,
-                interval, k, cycle0 + done, ekey, sampler,
-                collect_trace=collect, a_c=a_c, shard=shard, seed=key0)
+            parts, a_blk, t_blk, traces = pt_cycles_parts(
+                parts, cfg, betas_t, a_scale, chains_per_t, interval, k,
+                cycle0 + done, ekey, sampler, collect_trace=collect,
+                shard=shard, seed=key0)
             acc += a_blk
             att += t_blk
-            moves += state.accepted.cpu().numpy().astype(np.int64)
             if collect:
-                e_blk = torch.cat(traces).cpu().numpy()
+                e_blk = host_cat([torch.cat(tr) for tr in traces], 1)
                 samples.append(e_blk[(lapse - 1 - sweep0) % lapse::lapse])
                 sweep0 += e_blk.shape[0]
-                p_samples.append(_pressure(cfg, state.r, w_t))
-                e_at_p.append(state.energy.cpu().numpy())
+                whole = join_ladder(parts, home)
+                p_samples.append(_pressure(cfg, whole.r, w_t))
+                e_at_p.append(whole.energy.cpu().numpy())
                 if fields.any():
-                    f_samples.append(_fields(cfg, state, w_t, fields, lapse))
-            state = state.replace(accepted=torch.zeros_like(state.accepted))
+                    f_samples.append(_fields(cfg, whole, w_t, fields, lapse))
+            blk_moves, parts = parts_moves(parts)
+            moves += blk_moves
             done += k
-        return (state, acc, att, samples, moves, p_samples, e_at_p,
+        return (parts, acc, att, samples, moves, p_samples, e_at_p,
                 f_samples, cycle0 + cycles)
 
     # thermalization: A doubled (SMC.c:110, 125); exchanges run but are
     # not counted
-    state, *_, cyc = run_phase(state, params.eqsteps, 2.0,
+    parts, *_, cyc = run_phase(parts, params.eqsteps, 2.0,
                                int(state.sweeps[0]) // interval)
     probe_acc = None
     if auto:
-        state, acc_p, att_p, *_, cyc = run_phase(state, 40 * interval, 1.0,
+        parts, acc_p, att_p, *_, cyc = run_phase(parts, 40 * interval, 1.0,
                                                  cyc)
         probe_acc = acc_p / np.maximum(att_p, 1)
         interval = choose_exchange_interval(probe_acc)
 
     lapse = max(1, params.gather_lapse)
     t0 = time.perf_counter()
-    state, acc, att, samples, moves, p_s, e_p, f_s, _ = run_phase(
-        state, params.maxsteps, 1.0, cyc, collect=True, lapse=lapse)
+    parts, acc, att, samples, moves, p_s, e_p, f_s, _ = run_phase(
+        parts, params.maxsteps, 1.0, cyc, collect=True, lapse=lapse)
     prod_sweeps = -(-params.maxsteps // interval) * interval
     prod_sps = prod_sweeps * c / max(time.perf_counter() - t0, 1e-9)
 
@@ -309,7 +366,7 @@ def simulate_parallel_tempering(
                             .reshape(shape_t) if e_p else None),
         sweeps_per_second=prod_sps,
         **stack_fields(f_s, n_t, chains_per_t, shard))
-    return state, PTResults(
+    return join_ladder(parts, home), PTResults(
         tsweep=ts, pair_t_lo=temps[:-1], pair_t_hi=temps[1:],
         swap_acceptance=acc / np.maximum(att, 1), swap_attempts=att,
         exchange_interval=interval, probe_acceptance=probe_acc)

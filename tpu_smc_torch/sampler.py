@@ -185,21 +185,31 @@ class GraphStep:
 _STEPS: dict = {}       # captured GraphSteps by key, newest last
 
 
+# captured GraphSteps kept per device: a run sharded over k cards
+# alternates k devices' graphs in every sweep, each card's modes (the
+# doubled thermalization A beside production, a ladder's per-chain rows)
+# then stay captured
+STEPS_PER_DEVICE = 8
+
+
 def run_step(key, fn, args):
     """fn(*args): eagerly for CPU tensors; on the card through the
     GraphStep captured for `key` (the step's mode and every static value
     fn closes over) and the arguments' shapes and dtypes, captured on
-    first use; the eight most recent are kept."""
+    first use; the STEPS_PER_DEVICE most recent of each device are
+    kept."""
     if not args[0].is_cuda:
         return fn(*args)
-    key = (key, tuple((tuple(a.shape), a.dtype, str(a.device))
-                      for a in args))
+    dev = str(args[0].device)
+    key = (key, dev, tuple((tuple(a.shape), a.dtype, str(a.device))
+                           for a in args))
     step = _STEPS.pop(key, None)
     if step is None:
         step = GraphStep(fn, args)
     _STEPS[key] = step
-    while len(_STEPS) > 8:
-        del _STEPS[next(iter(_STEPS))]
+    mine = [k for k in _STEPS if k[1] == dev]
+    for old in mine[:-STEPS_PER_DEVICE]:
+        del _STEPS[old]
     return step(*args)
 
 

@@ -115,6 +115,75 @@ def _ladder_block(state: ChainState, w, cfg: SMCConfig,
     return state, (stats if collect_trace else None)
 
 
+class LadderPart(NamedTuple):
+    """One device's contiguous chains of a ladder: its state, wall table
+    (shared, or its chains' rows of per-chain tables), per-chain T and
+    mobility rows, and the global index of its chain 0."""
+    state: ChainState
+    w: torch.Tensor
+    temps_c: torch.Tensor
+    a_c: torch.Tensor | None
+    chain0: int
+
+
+def split_ladder(state: ChainState, w, temps_c, a_c, chain0: int,
+                 devices=None) -> list:
+    """The ladder's chains as LadderParts: one part on the state's device
+    without `devices`, else one contiguous range per device
+    (ensemble.shard_ensemble), the per-chain rows and wall tables going
+    with their chains."""
+    if not devices:
+        return [LadderPart(state, w, temps_c, a_c, chain0)]
+    from .ensemble import _rows_of, shard_ensemble
+
+    c, per = state.n_chains, state.n_chains // len(devices)
+    parts = []
+    for k, (st, c0) in enumerate(shard_ensemble(state, devices, chain0)):
+        dev, sl = st.r.device, slice(k * per, (k + 1) * per)
+        parts.append(LadderPart(
+            st, (w[sl] if w.dim() == 3 else w).to(dev),
+            temps_c[sl].to(dev), _rows_of(a_c, sl, c, dev), c0))
+    return parts
+
+
+def join_ladder(parts, device) -> ChainState:
+    """The parts' states concatenated in chain order on `device`."""
+    if len(parts) == 1:
+        return parts[0].state
+    from .ensemble import concat_states
+
+    return concat_states([p.state for p in parts], device)
+
+
+def ladder_blocks(parts, cfg: SMCConfig, a_scale: float, n_sweeps: int,
+                  sampler: str, collect_trace: bool = False, seed=None):
+    """_ladder_block on every part, one after another from this thread
+    (each part's launches go to its device). Returns (parts, [stats or
+    None per part])."""
+    out, stats = [], []
+    for p in parts:
+        st, s = _ladder_block(p.state, p.w, cfg, p.temps_c, a_scale,
+                              n_sweeps, sampler, collect_trace=collect_trace,
+                              a_c=p.a_c, chain0=p.chain0, seed=seed)
+        out.append(p._replace(state=st))
+        stats.append(s)
+    return out, stats
+
+
+def host_cat(tensors, axis: int) -> np.ndarray:
+    """Per-part tensors joined on the host on the chain axis `axis`, in
+    chain order."""
+    return np.concatenate([t.cpu().numpy() for t in tensors], axis)
+
+
+def parts_moves(parts) -> tuple:
+    """(accepted moves [C] int64 on the host, the parts with their
+    counters set to zero)."""
+    moves = host_cat([p.state.accepted for p in parts], 0).astype(np.int64)
+    return moves, [p._replace(state=p.state.replace(
+        accepted=torch.zeros_like(p.state.accepted))) for p in parts]
+
+
 def _pressure(cfg: SMCConfig, r: torch.Tensor, w) -> np.ndarray:
     """Per-chain virial pressure (pressure + wallsPressure, SMC.c:140),
     shared or per-chain walls, bounded chain batches."""
@@ -251,6 +320,7 @@ def simulate_temperature_sweep(
     state0: ChainState | None = None,
     fields: FieldOptions = FieldOptions(),
     shard: LadderShard | None = None,
+    devices=None,
 ) -> tuple[ChainState, TSweepResults]:
     """The full ladder: thermalization (A doubled) + production, energies
     sampled at the gather cadence and (pressure, energy) pairs, with the
@@ -265,7 +335,10 @@ def simulate_temperature_sweep(
     temperature-major layout; usually with eqsteps 0). shard: this
     process's chains of one ladder spanning the processes; the returned
     state is the shard's, the results the whole ladder's (collective:
-    every rank calls it with its shard)."""
+    every rank calls it with its shard). devices: this process's chains
+    split over these devices (ensemble.make_mesh; tpu_smc's `mesh`), one
+    contiguous range each, every engine keyed by the global chain index:
+    bitwise the one-device run. The returned state is on `device`."""
     from .driver import _sync, therm_chunk
 
     temps = np.asarray(temps, dtype=np.float64)
@@ -275,22 +348,23 @@ def simulate_temperature_sweep(
                                     shard)
     mine = slice(0, c) if shard is None else slice(
         shard.chain0, shard.chain0 + shard.count)
-    chain0 = mine.start
     f64 = dict(dtype=torch.float64, device=device)
     temps_c = torch.as_tensor(np.repeat(temps, chains_per_t)[mine], **f64)
     a_c = (None if a_per_t is None else torch.as_tensor(
         np.repeat(np.asarray(a_per_t, np.float64), chains_per_t)[mine],
         **f64))
-    blk = dict(a_c=a_c, chain0=chain0, seed=key0)
+    home = state.r.device
+    parts = split_ladder(state, w_t, temps_c, a_c, mine.start, devices)
 
     chunk = therm_chunk(cfg, sampler=sampler)
     done = 0
     while done < params.eqsteps:
         k = min(params.eqsteps - done, chunk)
-        state = _sync(_ladder_block(state, w_t, cfg, temps_c, 2.0, k,
-                                    sampler, **blk)[0])
+        parts, _ = ladder_blocks(parts, cfg, 2.0, k, sampler, seed=key0)
+        for p in parts:
+            _sync(p.state)
         done += k
-    state = state.replace(accepted=torch.zeros_like(state.accepted))
+    _, parts = parts_moves(parts)
 
     # Production: energies subsampled at the gather cadence, acceptance
     # from the cumulative counters (harvested every call).
@@ -302,15 +376,19 @@ def simulate_temperature_sweep(
     t0 = time.perf_counter()
     while done < params.maxsteps:
         k = min(params.maxsteps - done, chunk_g)
-        state, stats = _ladder_block(state, w_t, cfg, temps_c, 1.0, k,
-                                     sampler, collect_trace=True, **blk)
-        e_samples.append(stats.energy[lapse - 1::lapse].cpu().numpy())
-        p_samples.append(_pressure(cfg, state.r, w_t))
-        e_at_p.append(state.energy.cpu().numpy())
+        parts, stats = ladder_blocks(parts, cfg, 1.0, k, sampler,
+                                     collect_trace=True, seed=key0)
+        e_samples.append(host_cat([s.energy[lapse - 1::lapse]
+                                   for s in stats], 1))
+        # the observables of the whole ladder on its device: a chain's
+        # sums then do not depend on the chains of its shard
+        whole = join_ladder(parts, home)
+        p_samples.append(_pressure(cfg, whole.r, w_t))
+        e_at_p.append(whole.energy.cpu().numpy())
         if fields.any():
-            f_samples.append(_fields(cfg, state, w_t, fields, lapse))
-        prod_moves += state.accepted.cpu().numpy().astype(np.int64)
-        state = state.replace(accepted=torch.zeros_like(state.accepted))
+            f_samples.append(_fields(cfg, whole, w_t, fields, lapse))
+        moves, parts = parts_moves(parts)
+        prod_moves += moves
         done += k
     prod_sps = done * c / max(time.perf_counter() - t0, 1e-9)
 
@@ -319,7 +397,7 @@ def simulate_temperature_sweep(
     e_t = e_tr.reshape(len(e_tr), n_t, chains_per_t)
     mean_e, err_e, acc, cv = ladder_stats(e_t, prod_moves, done, temps, cfg)
     shape_t = (-1, n_t, chains_per_t)
-    return state, TSweepResults(
+    return join_ladder(parts, home), TSweepResults(
         temps=temps, mean_energy=mean_e, err_energy=err_e, acceptance=acc,
         cv=cv, energy_samples=e_t,
         pressure_samples=gather_chain_axis(np.stack(p_samples), 1,

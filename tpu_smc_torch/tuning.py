@@ -127,23 +127,33 @@ def tune_mobility(cfg: SMCConfig, state: ChainState, w: torch.Tensor,
                   sweeps_per_block: int = 25, max_blocks: int = 16,
                   tol: float = 0.02, burn_in_blocks: int = 2,
                   seed: int | None = None, chain0: int = 0,
-                  pooled: bool = False):
+                  pooled: bool = False, devices=None):
     """Tune one A for every chain of `state` (leading chain axis) to the
-    target acceptance. The kernel engines probe through the dense kernel. Returns (advanced state, TuneResult): the
-    tuning sweeps double as burn-in. chain0: the global index of the
-    state's chain 0; pooled: every probe's acceptance is the job's,
-    gathered from every process (collective), so that every process
-    tunes the same A as one process running all the chains would."""
+    target acceptance. The kernel engines probe through the dense
+    kernel. Returns (advanced state, TuneResult): the tuning sweeps
+    double as burn-in. chain0: the global index of the state's chain 0;
+    pooled: every probe's acceptance is the job's, gathered from every
+    process (collective), so that every process tunes the same A as one
+    process running all the chains would. devices: every probe block
+    runs with the chains split over these devices (the sharded engines;
+    tpu_smc's `mesh`), its acceptance pooled over them in chain order,
+    so the tuned A is bitwise one device's."""
     _check_target(target)
     from . import ensemble as ens
 
     t = float(cfg.temperature)
     k = sweeps_per_block
+    dense = sampler in ("dense", "zsorted")
 
     def measure(a_val: float) -> float:
         nonlocal state
         state = state.replace(accepted=torch.zeros_like(state.accepted))
-        if sampler in ("dense", "zsorted"):
+        if devices:
+            fn = (ens.ensemble_sweeps_dense_sharded if dense
+                  else ens.ensemble_sweeps_sharded)
+            state, _ = fn(state, w, cfg, a_val, k, seed, list(devices),
+                          chain0=chain0)
+        elif dense:
             state, _ = ens.ensemble_sweeps_dense(state, w, cfg, a_val, k,
                                                  seed=seed, chain0=chain0)
         else:
