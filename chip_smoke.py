@@ -118,11 +118,11 @@ Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
      zsorted + xsort 4 and banded engines, each within 4 combined SE of
      dense in mean E and within 0.01 in acceptance; then the ensemble
      family on the plain engine's CUDA graphs (no kernel launched, the
-     counts read back as 0): the slab GCMC `100 200 3 1.1 --gcmc MU
+     counts read back as 0): the slab GCMC `100 100 3 1.1 --gcmc MU
      --chains 512 --z-bins 32` (N0 = 108, cap 216; N <= cap, tracked vs
      exact energy within 1e-4 relative at every resync, acceptances in
      (0, 1], T ln<rho> + in-run mu_ex within 0.1 of MU, tpu_smc's CSV
-     headers) and 100 + 50 sweeps, a checkpoint and 150 more bitwise its
+     headers) and 100 + 50 sweeps, a checkpoint and 50 more bitwise its
      final r and active; the Widom -> GCMC loop at tests/test_gcmc.py's
      state point (N = 32, cap 64, 512 chains each); the isotherm
      `--gcmc-grid=-9.5:-7:8 --bulk --n 32 --chains 512` (<N> rising);
@@ -160,7 +160,20 @@ Needs one CUDA device and nvcc; imports neither jax nor tpu_smc. Phases:
      and Gibbs N = 96 x 256 (plain engine graphs, resync every 25), and
      a CLI PT ladder (N = 108, 4 x 128, MBAR) and the CLI NPT isobars
      with the device helper patched to [cuda:0, cuda:0], their CSVs
-     byte-identical to the unpatched run;
+     byte-identical to the unpatched run; (f) on [cuda:0, cuda:0], each
+     bitwise one device and both timed: the GCMC isotherm family (N0 =
+     108, cap 216 x 512, mu per chain, z and g(r) profiles, resyncs),
+     a dense bulk GCMC at 8 + 8 chains with cap 96 (also once outside
+     split_of, which has to differ: what the split's order repairs) and
+     the umbrella windows (8 x 8, REUS every 10); each rank's cards:
+     phase 3's N = 1024 x 512 run
+     over 2 ranks x 2 shards (every rank's helper patched to [cuda:0,
+     cuda:0]; K2) with every CSV byte-identical to phase 3's, and (b)'s
+     global ladder over 2 ranks x 2 shards byte-identical to its one
+     process; the row order: torch's sum of 108 terms in an 8-row and a
+     16-row call, and the N = 108 x 16 CLI run of the bulk fluid at rho
+     0.5 (K1-pbc) over 2 ranks x 8 chains with every CSV byte-identical
+     to one process;
   4. at the main path's shapes (N = 108 x 512 dense, N = 1024 x 512
      z-skip): kernel vs plain as in phase 2, the plain time and the
      bound, for the uniform form and for per-chain (A, T) and per-chain
@@ -2108,11 +2121,11 @@ def resume_drill(label: str, common: list, card: str):
 # 1.2 (-0.00819, -0.00503), so that <N> lands near N0
 GCMC_MU = round(1.1 * math.log(108 / (33.0 * 33.0 * 200.0)) - 0.0066, 4)
 # sweeps of the ensemble-family runs (eq, max)
-ENS_DEPTH = {"gcmc": (100, 200), "gcmc_split": 150, "loop_nvt": (100, 300),
-             "loop_gcmc": (200, 400), "isotherm": (60, 200),
-             "isobars": (150, 300), "npt": (50, 100),
-             "loop_npt_nvt": (300, 600), "loop_npt": (500, 1000),
-             "gibbs": (600, 400), "gibbs_temps": (50, 100)}
+ENS_DEPTH = {"gcmc": (100, 100), "gcmc_split": 150, "loop_nvt": (100, 150),
+             "loop_gcmc": (100, 200), "isotherm": (60, 200),
+             "isobars": (100, 200), "npt": (50, 100),
+             "loop_npt_nvt": (150, 300), "loop_npt": (250, 500),
+             "gibbs": (600, 250), "gibbs_temps": (50, 100)}
 
 
 def ens_run(argv, module, name: str, label: str, card: str):
@@ -2444,7 +2457,9 @@ def phase_ensemble_family(card: str):
 
 # A child rank: cli.main as `python -m tpu_smc_torch` runs it, the kernels'
 # plain versions made to fail if called, its launch counts and wall
-# seconds printed on its last line.
+# seconds printed on its last line. A first argument --cards=0,0 gives
+# the rank those cards, as cli._host_cards gives a rank its share of a
+# host with more cards than ranks.
 CHILD = r"""
 import json, sys, time
 sys.path.insert(0, sys.argv[1])
@@ -2454,8 +2469,12 @@ def refuse(*args, **kw):
     raise RuntimeError("a plain version ran on the main path")
 ks.sweep_block_plain = ks.sweep_block_stream_plain = refuse
 kb.banded_sweep_plain = refuse
+argv = sys.argv[2:]
+if argv[0].startswith("--cards="):
+    cards = [int(c) for c in argv.pop(0)[len("--cards="):].split(",")]
+    cli._host_cards = lambda rank, hosts, n_cards: cards
 t0 = time.perf_counter()
-rc = cli.main(sys.argv[2:])
+rc = cli.main(argv)
 print("CHILD " + json.dumps({"rc": rc, "s": time.perf_counter() - t0,
                              "launches": ks.sweep_block.launches}),
       flush=True)
@@ -2472,12 +2491,14 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(argv, label: str, tmp: Path, nproc: int = 2) -> list:
+def run_ranks(argv, label: str, tmp: Path, nproc: int = 2,
+              cards: str = "") -> list:
     """`argv` as nproc ranks of one --coordinator job, children on the
-    card, each within CHILD_TIMEOUT s; any failure kills every child and
-    fails. Returns [(output, child record)] per rank, the record with the
-    process's wall seconds from its start (torch import and CUDA start
-    included) as "s_proc" beside cli.main's "s"."""
+    card, each within CHILD_TIMEOUT s (cards: each rank's cards, e.g.
+    "0,0", in place of its share of the host's); any failure kills every
+    child and fails. Returns [(output, child record)] per rank, the
+    record with the process's wall seconds from its start (torch import
+    and CUDA start included) as "s_proc" beside cli.main's "s"."""
     port = free_port()
     procs, logs, ends = [], [], {}
     t0 = time.perf_counter()
@@ -2486,7 +2507,8 @@ def run_ranks(argv, label: str, tmp: Path, nproc: int = 2) -> list:
             log = open(tmp / f"{label}.rank{rank}.log", "w+")
             logs.append(log)
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", CHILD, str(ROOT), *argv,
+                [sys.executable, "-c", CHILD, str(ROOT),
+                 *([f"--cards={cards}"] if cards else []), *argv,
                  "--coordinator", f"127.0.0.1:{port}", "--num-processes",
                  str(nproc), "--process-id", str(rank)],
                 cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, text=True))
@@ -2592,6 +2614,7 @@ def drive_global_ladder(tmp: Path, card: str) -> dict:
     t0 = time.perf_counter()
     out1, l1, dt1, _ = run_main(GLOBAL_LADDER + [
         "--data-dir", str(tmp / "gl1"), "--checkpoint", str(tmp / "gl1.npz")])
+    RUNS["gl1_s"] = dt1
     ranks = run_ranks(GLOBAL_LADDER + [
         "--global-ladder", "--data-dir", str(tmp / "gl2"), "--checkpoint",
         str(tmp / "gl2.npz")], "global_ladder", tmp)
@@ -2765,12 +2788,13 @@ def one_and_sharded(fn):
     return out, lc, ms
 
 
-def check_same(out, label: str, ms, card: str, extra: str = ""):
-    """(e)'s verdict on one item: results and state bitwise."""
+def check_same(out, label: str, ms, card: str, extra: str = "",
+               tag: str = "(e)"):
+    """(e)'s and (f)'s verdict on one item: results and state bitwise."""
     (s1, r1), (s2, r2) = out
     bad = same_results(r1, r2) + same_states(s1, s2)
-    check(not bad, f"(e) {label}: the sharded run differs in {bad}")
-    print(f"  (e) {label}: bitwise one device{extra}; {ms[0]:.1f} ms one "
+    check(not bad, f"{tag} {label}: the sharded run differs in {bad}")
+    print(f"  {tag} {label}: bitwise one device{extra}; {ms[0]:.1f} ms one "
           f"device, {ms[1]:.1f} ms sharded over [cuda:0, cuda:0] ({card})",
           flush=True)
 
@@ -2905,19 +2929,231 @@ def drive_local_devices(tmp: Path, card: str):
     return uniform, ladders
 
 
+# (f)'s depths: the GCMC family and the dense 8 + 8 split (eq, max,
+# resync every), the umbrella windows (eq, max; REUS every 10)
+F_DEPTH = {"gcmc": (4, 8, 6), "gcmc8": (6, 12, 6), "umbrella": (10, 30)}
+# (f)'s row order run, 16 chains over 2 ranks x 8: a dense bulk fluid,
+# where every order shows (in the reference slab, a dilute gas, a row of
+# pair terms holds a few nonzero ones, which add alike in any order)
+C2_RUN = ("bulk N=108, rho 0.5", ["200", "600", "6", "1.5", "--bulk", "--n",
+                                  "108", "--rho", "0.5", "--lj-cutoff", "2.5",
+                                  "--gamma", "0.01", "--chains", "16",
+                                  "--seed", "2024"])
+# (f)'s dense GCMC: a bulk fluid whose mu keeps a cap of 96 nearly full,
+# so that a move sums 96 terms a chain, most of them nonzero
+DENSE_GCMC = dict(n=96, temperature=1.5, rho=0.6, lj_cutoff=2.5, gamma=0.01)
+DENSE_GCMC_MU = 2.0
+
+
+def drive_gcmc_family_sharded(card: str):
+    """(f) the GCMC isotherm family at the slab width (N0 = 108, cap 216
+    x 512, mu per chain around MU, z and g(r) profiles, resyncs inside
+    both stages) and a dense bulk GCMC at 8 + 8 chains with cap 96 (a
+    move sums 96 terms a chain below 16 chains a call), each on [cuda:0,
+    cuda:0] against one device; the dense split also once with gcmc's
+    split_of a no-op, the order of 8-chain calls, which has to differ."""
+    import contextlib
+
+    from tpu_smc_torch import gcmc as tg
+    from tpu_smc_torch.config import SMCConfig
+    from tpu_smc_torch.state import seed_words
+
+    cfg = SMCConfig.for_n(108)
+    eq, mx, chunk = F_DEPTH["gcmc"]
+    mu = GCMC_MU + np.linspace(-0.5, 0.5, 512)
+    out, lc, ms = one_and_sharded(lambda devs: tg.simulate_gcmc(
+        cfg, mu, 216, eq, mx, seed_words(2024), n_chains=512, chunk=chunk,
+        z_bins=32, gr_bins=32, device="cuda", devices=devs))
+    check(not any(lc.values()), f"(f) GCMC family launches {lc}")
+    n_tr = out[0][1].n_trace
+    n_lo, n_hi = n_tr[:, 0].mean(), n_tr[:, -1].mean()
+    check_same(out, f"GCMC isotherm family N0=108, cap 216 x 512, mu "
+               f"{mu[0]:.3f}..{mu[-1]:.3f}, {eq} + {mx}", ms, card,
+               f", <N> {n_lo:.1f} at the lowest mu, {n_hi:.1f} at the "
+               f"highest", tag="(f)")
+    eq, mx, chunk = F_DEPTH["gcmc8"]
+    dense = SMCConfig.bulk(**DENSE_GCMC)
+
+    def eight(devs):
+        return tg.simulate_gcmc(dense, DENSE_GCMC_MU, 96, eq, mx,
+                                seed_words(7), n_chains=16, n0=88,
+                                chunk=chunk, z_bins=16, device="cuda",
+                                devices=devs)
+
+    out, lc, ms = one_and_sharded(eight)
+    with patched(tg, split_of=lambda c, k: contextlib.nullcontext()):
+        bare = eight(["cuda:0", "cuda:0"])
+    n_mean = float(out[0][1].n_trace.mean())
+    bad = same_results(out[0][1], bare[1]) + same_states(out[0][0], bare[0])
+    check(bool(bad), "(f) dense GCMC 8 + 8 outside split_of is bitwise one "
+          "device: the check reaches no order that differs")
+    check_same(out, f"dense bulk GCMC 8 + 8 chains, rho 0.6, cap 96 (<N> "
+               f"{n_mean:.1f}), {eq} + {mx}", ms, card,
+               f"; outside split_of it differs in {bad}", tag="(f)")
+
+
+def drive_umbrella_sharded(card: str):
+    """(f) the umbrella windows at the measurement layer's width (N =
+    108, 8 windows z0 -99..-92 x 8 replicas, REUS every 10) on [cuda:0,
+    cuda:0] against one device: the exchange on the joined ladder."""
+    from tpu_smc_torch import umbrella as tum
+    from tpu_smc_torch.config import RunParams, SMCConfig
+    from tpu_smc_torch.state import seed_words
+
+    eq, mx = F_DEPTH["umbrella"]
+    out, lc, ms = one_and_sharded(lambda devs: tum.simulate_umbrella(
+        SMCConfig.for_n(108), RunParams(eq, mx, 8),
+        np.linspace(-99.0, -92.0, 8), seed_words(2024), replicas=8,
+        exchange_interval=10, device="cuda", devices=devs))
+    check(not any(lc.values()), f"(f) umbrella launches {lc}")
+    sw = out[1][1].swap_acceptance
+    check_same(out, f"umbrella N=108, 8 windows x 8, REUS every 10, {eq} + "
+               f"{mx}", ms, card, f", swap acceptance "
+               f"{np.round(sw, 3).tolist()}", tag="(f)")
+
+
+def drive_ranks_of_cards(tmp: Path, card: str):
+    """(f) the ranks' own cards: phase 3's N = 1024 x 512 run over 2 ranks
+    x 2 shards (each rank's helper gives it [cuda:0, cuda:0]; K2) with
+    every CSV byte-identical to phase 3's, and (b)'s global ladder over 2
+    ranks x 2 shards (K1-at, z-skip) byte-identical to (b)'s one
+    process. Returns the launch counts (uniform, ladder)."""
+    from tpu_smc_torch.config import SMCConfig
+
+    one = RUNS[1024]
+    data = tmp / "split4"
+    ranks = run_ranks(one["argv"] + ["--data-dir", str(data)], "split4",
+                      tmp, cards="0,0")
+    cfg = SMCConfig.for_n(1024)
+    key = cfg.file_key()
+    names = [f"{st}_{key}_rank{r}.csv" for st in STEMS_RANK
+             for r in range(512)]
+    names += [f"{st}_{key}.csv" for st in ("wall", "data_ensemble",
+                                           "last_state")]
+    two = data / cfg.run_name()
+    diff = [nm for nm in names
+            if (one["dir"] / nm).read_bytes() != (two / nm).read_bytes()]
+    check(not diff, f"(f) 2 ranks x 2 shards differ from one process in "
+          f"{len(diff)} files: {diff[:4]}")
+    for rank, (text, rec) in enumerate(ranks):
+        check("Sharding 256 chains over 2 local devices" in text,
+              f"(f) rank {rank} printed no local sharding line")
+        lc = rec["launches"]
+        check(lc["zskip"] > 0 and lc["dense"] == lc["stream"] == 0,
+              f"(f) rank {rank} launches {lc}")
+    walls = [rec["s"] for _, rec in ranks]
+    print(f"  (f) N=1024 x 512 over 2 ranks x 2 shards (K2): {len(names)} "
+          f"CSVs byte-identical to one process; wall s per rank "
+          f"{walls[0]:.2f} / {walls[1]:.2f} in cli.main against "
+          f"{one['s']:.2f} s in one process ({card})", flush=True)
+    uniform = add_counts({}, *[rec for _, rec in ranks])
+
+    t0 = time.perf_counter()
+    granks = run_ranks(GLOBAL_LADDER + [
+        "--global-ladder", "--data-dir", str(tmp / "gl4"), "--checkpoint",
+        str(tmp / "gl4.npz")], "global_ladder4", tmp, cards="0,0")
+    d1, d4 = (tmp / g / cfg.run_name() for g in ("gl1", "gl4"))
+    for stem in ("tsweep", "pt", "reweight", "reweight_zprofile"):
+        nm = f"{stem}_{key}.csv"
+        check((d1 / nm).read_bytes() == (d4 / nm).read_bytes(),
+              f"(f) global ladder over 2 x 2: {nm} differs from one process")
+    with np.load(tmp / "gl1.npz") as a, np.load(tmp / "gl4.npz") as b:
+        bad = [k for k in a.files if not np.array_equal(a[k], b[k])]
+        check(sorted(a.files) == sorted(b.files) and not bad,
+              f"(f) global ladder over 2 x 2: checkpoint differs in {bad}")
+    for rank, (text, rec) in enumerate(granks):
+        check("Global ladder: 128 chains sharded over 4 devices across 2 "
+              "processes" in text and "a device shard of the ONE global "
+              "ladder" in text, f"(f) global ladder rank {rank} lines")
+    ladder = add_counts({}, *[rec for _, rec in granks])
+    check(ladder["zskip"] > 0 and ladder["per_chain_at"] == ladder["zskip"]
+          + ladder["dense"], f"(f) global ladder launches {ladder}")
+    print(f"  (f) global ladder N=1024, 4 x 32 over 2 ranks x 2 shards "
+          f"(z-skip K1-at): tsweep/pt/reweight/reweight_zprofile and the "
+          f"checkpoint byte-identical to (b)'s one process; ranks "
+          f"{granks[0][1]['s']:.1f} / {granks[1][1]['s']:.1f} s against "
+          f"(b)'s one process {RUNS['gl1_s']:.1f} s; "
+          f"{time.perf_counter() - t0:.1f} s in all ({card})", flush=True)
+    return uniform, ladder
+
+
+def drive_row_order(tmp: Path, card: str) -> dict:
+    """(f) the row order: torch's [B, 108].sum(-1) of 8 rows beside the
+    same rows in a 16-row call, and the pair energy of 16 dense bulk
+    chains in two calls of 8 beside one call of 16 (the hazard), both
+    under split_of(16, 2) against the 16-row call; then C2_RUN split
+    over 2 ranks x 8 chains (one card each; a rank's energy resync and
+    pressure sum its 8 chains) against one process: every CSV
+    byte-identical. Returns the launch counts."""
+    from tpu_smc_torch import potentials as tp
+    from tpu_smc_torch.config import SMCConfig
+    from tpu_smc_torch.state import init_ensemble_state, seed_words
+
+    x = torch.randn(16, 108, device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(5))
+    d = (x[:8].sum(-1) - x.sum(-1)[:8]).abs()
+    with tp.split_of(16, 2):
+        padded = bool(torch.equal(tp.chain_sum(x[:8]), x.sum(-1)[:8]))
+    check(padded, "(f) chain_sum under split_of(16, 2) is not the 16-row "
+          "sum")
+    # the dense bulk fluid's pair energy of 16 chains, in two calls of 8
+    cfg = SMCConfig.bulk(n=108, temperature=1.5, rho=0.5, lj_cutoff=2.5,
+                         gamma=0.01)
+    st, _ = init_ensemble_state(cfg, seed_words(3), 16, device="cuda")
+    r = st.r + 0.05 * torch.randn(st.r.shape, device="cuda",
+                                  generator=torch.Generator(
+                                      "cuda").manual_seed(6))
+    whole = tp.pair_energy_total(r, cfg)
+    halves = torch.cat([tp.pair_energy_total(r[:8], cfg),
+                        tp.pair_energy_total(r[8:], cfg)])
+    with tp.split_of(16, 2):
+        shared = torch.cat([tp.pair_energy_total(r[:8], cfg),
+                            tp.pair_energy_total(r[8:], cfg)])
+    check(torch.equal(shared, whole), "(f) the bulk pair energy in calls "
+          "of 8 under split_of(16, 2) is not the 16-chain call's")
+    rel = float(((halves - whole).abs() / whole.abs()).max())
+    print(f"  (f) row order: torch's sum of 108 normal terms differs in "
+          f"{int((d > 0).sum())} of 8 rows between an 8-row and a 16-row "
+          f"call (largest {float(d.max()):.3g}); the pair energy of 16 bulk "
+          f"chains at rho 0.5 in two calls of 8 differs in "
+          f"{int((halves != whole).sum())} of 16 chains (largest "
+          f"{rel:.3g} relative); under split_of(16, 2) both are the "
+          f"16-row call's bits ({card})", flush=True)
+    label, argv = C2_RUN
+    t0 = time.perf_counter()
+    _, l1, dt1, _ = run_main(argv + ["--data-dir", str(tmp / "c2one")])
+    ranks = run_ranks(argv + ["--data-dir", str(tmp / "c2two")], "c2", tmp)
+    files = [{p.relative_to(tmp / g): p.read_bytes()
+              for p in (tmp / g).rglob("*.csv")} for g in ("c2one", "c2two")]
+    diff = sorted(set(files[0]) ^ set(files[1])) + [
+        k for k in files[0] if files[0][k] != files[1].get(k)]
+    check(files[0] and not diff, f"(f) {label} x 16 over 2 ranks x 8: "
+          f"CSVs differ from one process: {diff[:4]}")
+    print(f"  (f) {label} x 16 over 2 ranks x 8 chains: {len(files[0])} "
+          f"CSVs byte-identical to one process; one process {dt1:.1f} s, "
+          f"ranks {ranks[0][1]['s']:.1f} / {ranks[1][1]['s']:.1f} s in "
+          f"cli.main; {time.perf_counter() - t0:.1f} s in all ({card})",
+          flush=True)
+    return add_counts({}, l1, *[rec for _, rec in ranks])
+
+
 def phase_multiprocess(device, card: str):
-    """The phase's runs (a)-(e). Returns their launch counts summed:
-    (uniform (A, T) runs (a), (d) and (e)'s tuning, the ladders (b), (c)
-    and (e)'s)."""
+    """The phase's runs (a)-(f). Returns their launch counts summed:
+    (uniform (A, T) runs (a), (d), (e)'s tuning and (f)'s CLI runs, the
+    ladders (b), (c), (e)'s and (f)'s)."""
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         uniform = drive_split_main(tmp, card)
         ladders = drive_global_ladder(tmp, card)
         add_counts(ladders, drive_per_process_ladders(tmp, card))
         e_uniform, e_ladders = drive_local_devices(tmp, card)
-    add_counts(ladders, e_ladders)
-    return add_counts(uniform, drive_sharded(device, card), e_uniform), \
-        ladders
+        drive_gcmc_family_sharded(card)
+        drive_umbrella_sharded(card)
+        f_uniform, f_ladders = drive_ranks_of_cards(tmp, card)
+        c2 = drive_row_order(tmp, card)
+    add_counts(ladders, e_ladders, f_ladders)
+    return add_counts(uniform, drive_sharded(device, card), e_uniform,
+                      f_uniform, c2), ladders
 
 
 # ----------------------------------------------------------------------
@@ -3750,7 +3986,7 @@ def main() -> int:
 
     new = (("sweep_pbc", 4000, 128, bulk_config(4000),
             "tpu_smc/kernels/sweep_pallas.py:157",
-            lbulk["pbc_z"] + lbulk32["pbc_z"]),
+            lbulk["pbc_z"] + lbulk32["pbc_z"] + lmp["pbc_z"]),
            ("sweep_refnoise", 108, 512,
             SMCConfig.for_n(108, reference_noise=True),
             "tpu_smc/kernels/sweep_pallas.py:57", lrn["reference_noise"]))

@@ -13,13 +13,16 @@ vectorised elementwise kernels finish a tensor's tail in scalar code):
    and 32 chains: torch's sum over each pair row (`[B, N, N].sum(-1)`),
    torch's sum of those rows (`[B, N].sum(-1)`), the same rows added in
    potentials.fixed_order_sum's order, the box pair energy
-   (potentials.pair_energy_total, which adds them so) and a particle's
-   pair energy (pair_energy_force_single); each printed as bitwise the
-   64-chain call or not;
+   (potentials.pair_energy_total, which adds them so), a particle's
+   pair energy (pair_energy_force_single), and in the fixed box a
+   particle's pair force and the pair energy, in torch's order and
+   under potentials.split_of (the sums padded to the 64-chain call's
+   chains, up to 16); each printed as
+   bitwise the 64-chain call or not;
 2. at C = 2, 4, ..., 64 chains, the plain engine (N = 108, 3 sweeps),
    NPT (N = 108, 4 + 6, resync every 5) and Gibbs (N = 96, 4 + 6) over
    two shards of the device against one call: the fields that differ
-   (none is bitwise).
+   (an empty list is bitwise).
 
 Imports neither jax nor tpu_smc.
 """
@@ -58,6 +61,8 @@ def differing(a, b) -> list:
         x, y = getattr(a, f), getattr(b, f)
         if f == "sweeps_per_second" or x is None:
             continue
+        if torch.is_tensor(x):
+            x, y = x.cpu(), y.cpu()
         if not np.array_equal(np.asarray(x), np.asarray(y),
                               equal_nan=np.asarray(x).dtype.kind == "f"):
             out.append(f)
@@ -84,7 +89,14 @@ def row_sums(dev) -> None:
                  "pair_energy_total(box)": tp.pair_energy_total(r, cfg,
                                                                 box=box),
                  "one particle's pair energy": tp.pair_energy_force_single(
-                     r, 3, r[:, 3], cfg, None, box)[0]}
+                     r, 3, r[:, 3], cfg, None, box)[0],
+                 "one particle's pair force": tp.pair_energy_force_single(
+                     r, 3, r[:, 3], cfg)[1],
+                 "one particle's pair force under split_of":
+                     tp.pair_energy_force_single(r, 3, r[:, 3], cfg)[1],
+                 "pair_energy_total": tp.pair_energy_total(r, cfg),
+                 "pair_energy_total under split_of": tp.pair_energy_total(
+                     r, cfg)}
         for b in (1, 2, 4, 8, 16, 32):
             parts = {k: [] for k in whole}
             for i in range(0, c, b):
@@ -99,6 +111,16 @@ def row_sums(dev) -> None:
                 parts["one particle's pair energy"].append(
                     tp.pair_energy_force_single(r[sl], 3, r[sl, 3], cfg,
                                                 None, box[sl])[0])
+                parts["one particle's pair force"].append(
+                    tp.pair_energy_force_single(r[sl], 3, r[sl, 3], cfg)[1])
+                parts["pair_energy_total"].append(
+                    tp.pair_energy_total(r[sl], cfg))
+                with tp.split_of(c, c // b):
+                    parts["one particle's pair force under split_of"].append(
+                        tp.pair_energy_force_single(r[sl], 3, r[sl, 3],
+                                                    cfg)[1])
+                    parts["pair_energy_total under split_of"].append(
+                        tp.pair_energy_total(r[sl], cfg))
             same = {k: torch.equal(torch.cat(v), whole[k])
                     for k, v in parts.items()}
             print(f"N = {n}, calls of {b} chains against one of {c}: "

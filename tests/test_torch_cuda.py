@@ -1076,3 +1076,108 @@ def test_box_pair_sums_do_not_follow_the_chain_count(cuda, n):
             parts = torch.cat([fn(r[i:i + c], cfg, box=box[i:i + c])
                                for i in range(0, 64, c)])
             assert torch.equal(parts, whole)
+
+
+@pytest.mark.parametrize("n,c,shares", [
+    (12, 64, (64, 32, 16, 8)), (32, 64, (64, 32, 16, 8)),
+    (96, 64, (64, 32, 16, 8)), (108, 64, (64, 32, 16, 8)),
+    (216, 64, (64, 32, 16, 8)), (256, 64, (64, 32, 16, 8)),
+    (1024, 64, (64, 32, 16, 8)), (4000, 16, (2,)), (32768, 4, (2,))])
+def test_row_sums_under_split_of_are_the_whole_calls(cuda, n, c, shares):
+    """torch's sum over a contiguous last axis of n terms, and the fixed
+    box's pair energy, pressure (also in wall_obs_chains' batches, as the
+    drivers take it), wall energy and one particle's pair energy and
+    force (potentials.chain_sum): c chains summed in each of `shares`
+    calls under split_of(c, shares) are the bits of the c-chain call.
+    At N = 4000 and 32768 the pair sums and the batches cut the c-chain
+    call into blocks of 4 and 1 chains."""
+    from tpu_smc_torch import potentials as tp
+    from tpu_smc_torch.observables import wall_obs_chains
+
+    cfg = SMCConfig.for_n(n)
+    rng = np.random.default_rng(n)
+    x = torch.as_tensor(rng.normal(0.0, 1.0, (c, n)), dtype=torch.float32,
+                        device=cuda)
+    state, w = init_ensemble_state(cfg, seed_words(n), c, device=cuda)
+    r = state.r + torch.as_tensor(rng.normal(0.0, 0.2, state.r.shape),
+                                  dtype=torch.float32, device=cuda)
+    fns = {"row sum": lambda s: tp.chain_sum(x[s]),
+           "pair energy": lambda s: tp.pair_energy_total(r[s], cfg),
+           "wall energy": lambda s: tp.wall_energy_total(r[s], w, cfg),
+           "pressure": lambda s: tp.total_pressure(r[s], w, cfg),
+           "batched pressure": lambda s: wall_obs_chains(
+               lambda rb, wb: tp.total_pressure(rb, wb, cfg), r[s], w, n),
+           "particle": lambda s: torch.cat([
+               t.reshape(len(t), -1) for t in tp.pair_energy_force_single(
+                   r[s], 3, r[s][:, 3], cfg)], 1)}
+    for name, fn in fns.items():
+        whole = fn(slice(0, c))
+        for k in shares:
+            b = c // k
+            with tp.split_of(c, k):
+                parts = torch.cat([fn(slice(i, i + b))
+                                   for i in range(0, c, b)])
+            assert torch.equal(parts, whole), (name, k)
+
+
+@pytest.mark.parametrize("n", [108, 1024])
+def test_plain_engine_two_shards_of_eight_bitwise(cuda, n):
+    """The plain engine over [cuda:0, cuda:0] with 8 chains a shard: the
+    slab at N = 108 (a move's pair energy sums 108 terms a chain) and a
+    dense bulk fluid at N = 1024 (its pair force, over the particle
+    axis, takes another order below 11 chains a call): bitwise the
+    16-chain call."""
+    cfg = (SMCConfig.for_n(108) if n == 108 else SMCConfig.bulk(
+        n=n, temperature=1.5, rho=0.5, lj_cutoff=2.5, gamma=0.01))
+    state, w = init_ensemble_state(cfg, seed_words(3), 16, device=cuda)
+    one = ten.ensemble_sweeps(state, w, cfg, cfg.proposal_a, 3,
+                              collect_trace=True, stream_seed=9)
+    two = ten.ensemble_sweeps_sharded(state, w, cfg, cfg.proposal_a, 3, 9,
+                                      [cuda, cuda], collect_trace=True)
+    for u, v in ((one[0].r, two[0].r), (one[0].energy, two[0].energy),
+                 (one[1].energy, two[1].energy)):
+        assert torch.equal(u, v)
+
+
+# a dense bulk fluid whose mu keeps a cap of 96 nearly full: a move sums
+# 96 terms a chain, most of them nonzero
+DENSE_GCMC = SMCConfig.bulk(n=96, temperature=1.5, rho=0.6, lj_cutoff=2.5,
+                            gamma=0.01)
+DENSE_GCMC_MU = 2.0
+
+
+@pytest.mark.parametrize("case", ["family", "eight", "umbrella"])
+def test_gcmc_and_umbrella_on_two_shards_of_one_card_bitwise(cuda, case):
+    """The GCMC isotherm family (slab, cap 216 x 32, per-chain mu, z and
+    g(r) profiles, resyncs), dense bulk GCMC at 8 + 8 chains with cap 96
+    (a sum of 96 terms a chain below 16 chains a call) and umbrella
+    windows with REUS (4 x 4), split over [cuda:0, cuda:0]: bitwise the
+    one-device run, results and state."""
+    import dataclasses as dc
+
+    from tpu_smc_torch import gcmc as tg
+    from tpu_smc_torch import umbrella as tu
+    from tpu_smc_torch.config import RunParams
+
+    two = [cuda, cuda]
+    if case == "umbrella":
+        cfg = SMCConfig.for_n(108)
+        runs = [tu.simulate_umbrella(
+            cfg, RunParams(6, 12, 3), np.linspace(-99.0, -93.0, 4),
+            seed_words(8), k_spring=4.0, replicas=4, exchange_interval=3,
+            device=cuda, devices=d) for d in (None, two)]
+    elif case == "family":
+        cfg = SMCConfig.for_n(108)
+        cap, n0, c = 216, 108, 32
+        mu = np.linspace(-9.5, -8.5, c)
+    else:
+        cfg, mu, (cap, n0, c) = DENSE_GCMC, DENSE_GCMC_MU, (96, 88, 16)
+    if case != "umbrella":
+        runs = [tg.simulate_gcmc(cfg, mu, cap, 4, 8, seed_words(6),
+                                 n_chains=c, n0=n0, chunk=5, z_bins=8,
+                                 gr_bins=8, device=cuda, devices=d)
+                for d in (None, two)]
+    (s1, r1), (s2, r2) = runs
+    assert _same(r1, r2)
+    for f in dc.fields(s1):
+        assert torch.equal(getattr(s1, f.name), getattr(s2, f.name)), f.name

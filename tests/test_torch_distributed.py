@@ -503,12 +503,15 @@ def test_cards_of_a_process(monkeypatch, capsys):
     """On a host with two cards: a one-process run shards its chains over
     both when they divide (and says so, in tpu_smc's words), on every
     engine, stays on one with a note when they do not, and never on the
-    CPU; a process of a multi-process run keeps to one card, rank mod
-    cards."""
+    CPU; processes of a multi-process run that outnumber their host's
+    cards keep to one card each, rank mod cards (three ranks on one
+    host here; tests/test_torch_shard_family.py has the other layouts)."""
     taken = []
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "set_device", taken.append)
+    monkeypatch.setattr(tdist, "allgather_object", lambda obj: [obj] * 3)
+    monkeypatch.setattr(tcli, "_RANK_CARDS", None)
     assert tcli._chain_devices("cuda", 8, 1) == (
         torch.device("cuda:0"), torch.device("cuda:1"))
     assert "Sharding 8 chains over 2 devices" in capsys.readouterr().out
@@ -518,10 +521,11 @@ def test_cards_of_a_process(monkeypatch, capsys):
     for args in (("cuda", 8, 2), ("cpu", 8, 1)):
         assert tcli._chain_devices(*args) is None
     assert capsys.readouterr().out == ""
-    notes = [tcli._take_card("cuda", r) for r in range(3)]
+    notes = [tcli._take_cards("cuda", r) for r in range(3)]
     assert taken == [0, 1, 0]
     assert notes[1] == ", this process on cuda:1"
-    assert tcli._take_card("cpu", 1) == "" and taken == [0, 1, 0]
+    assert tcli._chain_devices("cuda", 8, 3) is None
+    assert tcli._take_cards("cpu", 1) == "" and taken == [0, 1, 0]
 
 
 @pytest.mark.parametrize("argv, words", [

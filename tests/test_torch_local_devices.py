@@ -403,7 +403,7 @@ def test_device_helper_ladder_and_ensemble_lines(monkeypatch, capsys, label,
 def test_device_helper_silent_cases(monkeypatch, capsys, device, nproc,
                                     n_dev):
     """None and no line on the CPU, on one card and in a process of a
-    multi-process run (a rank keeps its one card, _take_card); tpu_smc
+    multi-process run holding one card (_take_cards); tpu_smc
     says nothing on one device either."""
     devs, got = _port_lines(monkeypatch, capsys, device, 8, nproc, "NPT",
                             n_dev)

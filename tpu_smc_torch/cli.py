@@ -25,7 +25,9 @@ spanning the processes (--global-ladder).
 Left-out positionals are asked for on stdin, as the reference's main.c
 asks. On a host with several cards a one-process run splits its chains
 (an ensemble, a ladder, NPT, the isobars, Gibbs, the coexistence curve)
-over them when they divide, bitwise the run on one card.
+over them when they divide, bitwise the run on one card; under
+--coordinator the ranks of a host share out its cards, and each splits
+its chains (or its share of a --global-ladder) over its own.
 
 Runs on the CUDA device unless `--device cpu` is given. The two options
 of the JAX CLI that `--device` and `--dtype` replace (--platform, --x64)
@@ -442,7 +444,7 @@ def main(argv=None) -> int:
                                 args.process_id)
         nproc = process_count()
         local_desc = (
-            "a shard of the ONE global ladder"
+            "a device shard of the ONE global ladder"
             if args.temperatures and args.global_ladder
             else f"{args.chains_per_t // nproc} of {args.chains_per_t} "
                  "replica ladders" if args.temperatures
@@ -450,7 +452,7 @@ def main(argv=None) -> int:
         n_dev = torch.cuda.device_count() if args.device == "cuda" else 1
         print(f"Multi-process run: process {rank}/{nproc}, {local_desc} "
               f"locally ({n_dev} local devices"
-              f"{_take_card(args.device, rank)})", flush=True)
+              f"{_take_cards(args.device, rank)})", flush=True)
 
     from . import io as smcio
     from .config import RunParams, SMCConfig
@@ -731,35 +733,67 @@ def _run_single(args, cfg, params, d, state, w, sampler: str,
     return 0
 
 
-def _take_card(device: str, rank: int) -> str:
-    """Make card rank mod (local cards) this process's current device
-    under --device cuda (the ranks of one host take its cards in turn,
-    and share them when they outnumber them; a rank never shards over
-    another's cards, _chain_devices); returns the note for the
-    multi-process line ("" on the CPU)."""
+# this process's cards under --coordinator, device names (_take_cards;
+# None on the CPU and without --coordinator)
+_RANK_CARDS: tuple | None = None
+
+
+def _host_cards(rank: int, hosts: list, n_cards: int) -> list:
+    """The cards of its host that `rank` takes: the host's ranks (those
+    whose host name, hosts[r], is rank's, in rank order) split its
+    n_cards into equal contiguous sets, the i-th rank taking cards
+    [i k, (i + 1) k), k = n_cards // (its ranks); when they outnumber
+    the cards, card rank mod n_cards, shared."""
+    mine = [r for r, h in enumerate(hosts) if h == hosts[rank]]
+    if len(mine) > n_cards:
+        return [rank % n_cards]
+    k = n_cards // len(mine)
+    i = mine.index(rank)
+    return list(range(i * k, (i + 1) * k))
+
+
+def _take_cards(device: str, rank: int) -> str:
+    """Under --device cuda, this rank's cards of its host (_host_cards,
+    the host names gathered from every rank) recorded for
+    _chain_devices, the first made the current device; returns the
+    note for the multi-process line ("" on the CPU)."""
+    import socket
+
     import torch
 
+    from .distributed import allgather_object
+
+    global _RANK_CARDS
+    _RANK_CARDS = None
     if device != "cuda":
         return ""
-    card = rank % torch.cuda.device_count()
-    torch.cuda.set_device(card)
-    return f", this process on cuda:{card}"
+    cards = _host_cards(rank, allgather_object(socket.gethostname()),
+                        torch.cuda.device_count())
+    torch.cuda.set_device(cards[0])
+    _RANK_CARDS = tuple(f"cuda:{c}" for c in cards)
+    return ", this process on " + ", ".join(_RANK_CARDS)
 
 
 def _chain_devices(device: str, n: int, nproc: int,
                    label: str = "") -> tuple | None:
-    """The cards a one-process run shards its n chains over, bitwise one
-    card (tpu_smc's _auto_chain_mesh and its ladder and ensemble
-    meshes, with their lines; `label` names the chains: "ladder", "NPT",
-    ...): every local card, when there are several and the chains
-    divide over them; else None (one card), with tpu_smc's note when
-    only the division stood in the way. Every engine shards. A process
-    of a multi-process run keeps to its one card (_take_card), and the
-    CPU has none."""
+    """The cards a run shards its n chains over, bitwise one card
+    (tpu_smc's _auto_chain_mesh and its ladder and ensemble meshes, with
+    their lines; `label` names the chains: "ladder", "NPT", ...): a
+    one-process run's every card, a multi-process rank's own cards
+    (_take_cards; tpu_smc's local devices), when there are several and
+    the chains divide over them; else None (one card), with tpu_smc's
+    note when only the division stood in the way. Every engine shards.
+    The CPU has no cards."""
     import torch
 
-    n_dev = torch.cuda.device_count() if device == "cuda" else 1
-    if nproc > 1 or n_dev < 2:
+    if nproc > 1:
+        cards = _RANK_CARDS or ()
+    elif device == "cuda":
+        cards = tuple(f"cuda:{i}" for i in range(torch.cuda.device_count()))
+    else:
+        cards = ()
+    n_dev = len(cards)
+    if n_dev < 2:
         return None
     if n % n_dev:
         # tpu_smc's wording: the ladder's note names the ladder,
@@ -771,8 +805,8 @@ def _chain_devices(device: str, n: int, nproc: int,
     from .ensemble import make_mesh
 
     print(f"Sharding {n} {label + ' ' if label else ''}chains over {n_dev} "
-          "devices")
-    return tuple(make_mesh(n_dev))
+          f"{'local ' if nproc > 1 else ''}devices")
+    return tuple(make_mesh(devices=cards))
 
 
 def _run_ensemble(args, cfg, params, d, state, w, sampler: str,
@@ -790,6 +824,7 @@ def _run_ensemble(args, cfg, params, d, state, w, sampler: str,
     from . import io as smcio
     from .driver_ensemble import (pool_ensemble_across_processes,
                                   simulate_ensemble)
+    from .potentials import split_of
 
     c = state.n_chains
     pos_writers = [smcio.PositionsWriter(d, cfg, rank=chain0 + ci)
@@ -812,7 +847,8 @@ def _run_ensemble(args, cfg, params, d, state, w, sampler: str,
             return _window_maintenance(args, cfg, widx, st, stopper, w, seed,
                                        ck_suffix=ck_suffix)
 
-        with profiled(args):
+        # a rank's chains sum as the one-process run's calls
+        with profiled(args), split_of(c * nproc, nproc):
             state, agg = simulate_ensemble(
                 cfg, params, state, w, opts=opts, on_window=on_window,
                 acf_mode=args.acf_mode, max_fault_retries=args.fault_retries)
@@ -1065,6 +1101,7 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
 
     from . import io as smcio
 
+    from .potentials import split_of
     from .state import fold_in, seed_words
     from .tsweep import (FieldOptions, LadderShard,
                          simulate_temperature_sweep, write_tsweep_csv)
@@ -1080,18 +1117,30 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
         cpt //= nproc
         # distinct per-process replica streams, pooled at the end
         key = fold_in(key, [0xD150 + rank])[0]
+    devices = None
     if global_ladder:
-        from .distributed import chain_range
+        from .distributed import allgather_object, chain_range
+        from .ensemble import make_mesh
 
+        # ONE ladder over every process's cards (a process on the CPU
+        # counts as one device): each rank's contiguous range of it,
+        # split over the rank's own cards
         ladder_c = len(temps) * cpt
-        if ladder_c % nproc:
+        cards = _RANK_CARDS or (args.device,)
+        n_dev = sum(allgather_object(len(cards)))
+        if ladder_c % n_dev or ladder_c % nproc:
             raise SystemExit(f"--global-ladder: {ladder_c} ladder chains "
                              f"(= {len(temps)} temps x {cpt}) must divide "
-                             f"over the job's {nproc} processes")
+                             f"over the job's {n_dev} devices")
         shard = LadderShard(*chain_range(ladder_c, nproc, rank))
-        last = shard.chain0 + shard.count - 1
-        print(f"Global ladder: {ladder_c} chains split over {nproc} "
-              f"processes (chains {shard.chain0}..{last} here)")
+        print(f"Global ladder: {ladder_c} chains sharded over {n_dev} "
+              f"devices across {nproc} processes (chains {shard.chain0}.."
+              f"{shard.chain0 + shard.count - 1} here)")
+        if len(cards) > 1 and shard.count % len(cards) == 0:
+            devices = tuple(make_mesh(devices=cards))
+    else:
+        devices = _chain_devices(args.device, len(temps) * cpt, nproc,
+                                 "ladder")
     wall_k = max(1, args.wall_realizations)
     w_ladder = w_np
     if w_k is not None:
@@ -1104,7 +1153,6 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
         print(f"Quenched wall disorder ladder: {wall_k} realizations "
               f"x {g_rep} replicas per level (wall seeds "
               f"{args.wall_seed}..{args.wall_seed + wall_k - 1})")
-    devices = _chain_devices(args.device, len(temps) * cpt, nproc, "ladder")
     print(f"Temperature sweep: {len(temps)} temperatures x {cpt} chains, "
           f"one ensemble ({sampler} engine)")
     a_per_t = None
@@ -1129,6 +1177,8 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
         print(f"Resumed ladder state from {args.resume} "
               f"({int(state0.sweeps[0])} sweeps done); chains are "
               "thermalized — consider eqsteps 0.")
+    # a rank's share of ONE ladder sums as the whole ladder's calls
+    split = (len(temps) * cpt, nproc if global_ladder else 1)
     kw = dict(chains_per_t=cpt, w=w_ladder, sampler=sampler,
               a_per_t=a_per_t, device=args.device, state0=state0,
               fields=FieldOptions(args.gr_bins, args.z_bins, args.sk_kmax,
@@ -1143,7 +1193,7 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
         else:
             print(f"Parallel tempering: exchange attempts every "
                   f"{args.pt_exchange} sweeps")
-        with profiled(args):
+        with profiled(args), split_of(*split):
             lstate, pt_res = simulate_parallel_tempering(
                 cfg, params, temps, key,
                 exchange_interval=args.pt_exchange, **kw)
@@ -1168,7 +1218,7 @@ def _run_ladder(args, cfg, params, d, w_np, w_k, sampler: str, seed: int,
         if rank == 0:
             print(f"Written to {pt_path}")
     else:
-        with profiled(args):
+        with profiled(args), split_of(*split):
             lstate, res = simulate_temperature_sweep(cfg, params, temps,
                                                      key, **kw)
         if nproc > 1 and not global_ladder:

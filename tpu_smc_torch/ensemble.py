@@ -45,6 +45,7 @@ import torch
 from .config import SMCConfig
 from .kernels import banded as kb
 from .kernels import sweep as ks
+from .potentials import split_of
 from .sampler import SweepStats, run_step, sweep, sweep_state
 from .state import ChainState, fold_in, seed_words
 
@@ -540,8 +541,9 @@ def _sharded(engine, state: ChainState, w: torch.Tensor, cfg: SMCConfig,
         if a_per_chain is not None:
             rows = dict(a_per_chain=_rows_of(a_per_chain, sl, c, dev),
                         t_per_chain=_rows_of(t_per_chain, sl, c, dev))
-        outs.append(engine(st, wk, cfg, a, n_sweeps, seed=seed, chain0=c0,
-                           **rows, **kw))
+        with split_of(c, len(devices)):
+            outs.append(engine(st, wk, cfg, a, n_sweeps, seed=seed,
+                               chain0=c0, **rows, **kw))
     new = concat_states([o[0] for o in outs], home)
     if outs[0][1] is None:
         return new, None
@@ -555,16 +557,26 @@ def ensemble_sweeps_sharded(state: ChainState, w: torch.Tensor,
                             cfg: SMCConfig, a: float, n_sweeps: int, seed,
                             devices, collect_trace: bool = False,
                             a_per_chain=None, t_per_chain=None,
-                            chain0: int = 0):
+                            chain0: int = 0, umbrella=None):
     """ensemble_sweeps (the plain engine, CUDA graphs on the card) with
     the chain axis split over `devices`, as ensemble_sweeps_dense_sharded
     (tpu_smc partitions its XLA engine the same way): every draw is keyed
     by the global chain index and each chain's arithmetic is its own, so
-    the call is bitwise the unsharded one. Traces [S, C] when
-    collect_trace, else None."""
+    the call is bitwise the unsharded one. umbrella: the window bias
+    (tag, k_spring, z0 [C]) of ensemble_sweeps, each shard with its own
+    rows of z0. Traces [S, C] when collect_trace, else None."""
+    c, base = state.n_chains, chain0
+
     def plain(st, wk, cfg, a, n, seed, chain0, **rows):
+        bias = None
+        if umbrella is not None:
+            k0 = chain0 - base
+            bias = umbrella[:2] + (_rows_of(
+                umbrella[2], slice(k0, k0 + st.n_chains), c,
+                st.r.device),)
         return ensemble_sweeps(st, wk, cfg, a, n, collect_trace=collect_trace,
-                               stream_seed=seed, chain0=chain0, **rows)
+                               stream_seed=seed, chain0=chain0,
+                               umbrella=bias, **rows)
 
     return _sharded(plain, state, w, cfg, a, n_sweeps, seed, devices,
                     a_per_chain, t_per_chain, chain0)

@@ -61,8 +61,9 @@ from .config import SMCConfig
 from .ensemble import (move_draws, stream_uniforms, stream_words,
                        visiting_orders)
 from .kernels.sweep import chain_scales
-from .potentials import (PAIR_BUDGET, energy_force_single,
-                         pair_energy_total, wall_energy_force_single)
+from .potentials import (PAIR_BUDGET, chain_sum, energy_force_single,
+                         pair_energy_total, split_of,
+                         wall_energy_force_single)
 from .sampler import run_step, sweep
 from .state import fold_in
 
@@ -140,7 +141,7 @@ def total_energy_masked(r: torch.Tensor, active: torch.Tensor,
     u = pair_energy_total(r, cfg, box=box, active=active)
     if cfg.use_walls:
         uw = wall_energy_force_single(r, w, cfg)[0]
-        u = u + torch.where(active, uw, torch.zeros_like(uw)).sum(-1)
+        u = u + chain_sum(torch.where(active, uw, torch.zeros_like(uw)))
     return u
 
 
@@ -160,13 +161,14 @@ def box_volume(cfg: SMCConfig) -> float:
 
 
 def exchange_draws(words: torch.Tensor, n_exchange: int, c: int,
-                   cfg: SMCConfig):
+                   cfg: SMCConfig, chain0: int = 0):
     """One sweep's exchange draws from the _EXCHANGE_SALT stream: kind
     [c, X] bool (True inserts), positions [c, X, 3] uniform over the
-    box, acceptance uniforms and picks [c, X]."""
+    box, acceptance uniforms and picks [c, X]; chain0 the global index
+    of chain 0 (the counters' chain word)."""
     dtype = cfg.torch_dtype
-    u = stream_uniforms(words, n_exchange, c, 0, dtype)
-    u2 = stream_uniforms(words, n_exchange, c, 1, dtype)
+    u = stream_uniforms(words, n_exchange, c, 0, dtype, chain0)
+    u2 = stream_uniforms(words, n_exchange, c, 1, dtype, chain0)
     pos = torch.stack([-side / 2.0 + side * u[..., k + 1] for k, side in
                        enumerate((cfg.box_l, cfg.box_l, cfg.box_lz))], -1)
     return u[..., 0] < 0.5, pos, u2[..., 0], u2[..., 1]
@@ -297,14 +299,20 @@ def _advance(state: GCMCState, dacc, r, active, energy, ia, it, da, dt, bs,
 
 def gc_block(state: GCMCState, w, cfg: SMCConfig, mu, a, n_sweeps: int,
              n_exchange: int, z_bins: int = 0, gr_bins: int = 0,
-             seed=None):
+             seed=None, chain0: int = 0, draws=None):
     """n_sweeps GC sweeps of every chain from the port's streams
     (tpu_smc.gcmc.gc_block), each one replayed CUDA graph on the card
-    (sampler.run_step, one per (cfg, A, X)); cfg is the capacity's.
-    Returns (state, traces): N and E [S, C] after each sweep, and per
-    sweep, summed over the chains, the z-histogram [S, z_bins] and the
-    active-pair histogram [S, gr_bins] with the active-pair count [S]
-    (None where off)."""
+    (sampler.run_step, one per (cfg, A, X, chain0)); cfg is the
+    capacity's, mu a scalar or one per chain. chain0: the global index
+    of the state's chain 0, the chain word of every draw, with seed the
+    run seed or the global chain 0's key (ensemble.stream_base): a shard
+    of a wider ensemble is bitwise those chains of it (npt_block).
+    draws: None, or one gc_sweep draws tuple per sweep in place of the
+    streams (tests inject tpu_smc's). Returns (state, traces): N and E
+    [S, C] after each sweep, and per sweep, summed over the chains, the
+    z-histogram [S, z_bins] and the active-pair histogram [S, gr_bins]
+    with the active-pair count [S] (None where off; integer counts in
+    float64, so the sums of shards add exactly)."""
     c, cap = state.active.shape
     dev, dtype = state.r.device, state.r.dtype
     a, t = float(a), cfg.temperature
@@ -317,19 +325,22 @@ def gc_block(state: GCMCState, w, cfg: SMCConfig, mu, a, n_sweeps: int,
     words, wx = words.to(dev), wx.to(dev)
 
     def step(r, active, energy, mu_c, s2a, w, wd, wx, order):
-        noise, unif = move_draws(wd, cap, c, s2a, order, dtype)
+        noise, unif = move_draws(wd, cap, c, s2a, order, dtype, chain0)
         r2, e2, dacc = masked_disp_pass(r, active, energy, w, cfg, a, t,
                                         noise, unif, 0, order=order)
         return (dacc,) + exchange_attempts(
             r2, active, e2, w, cfg, mu_c, t,
-            *exchange_draws(wx, n_exchange, c, cfg))
+            *exchange_draws(wx, n_exchange, c, cfg, chain0))
 
     tr = [[] for _ in range(5)]
     for s in range(n_sweeps):
-        state = _advance(state, *run_step(
-            ("gcmc", cfg, a, n_exchange), step,
-            (state.r, state.active, state.energy, mu_c, s2a, w, words[s],
-             wx[s], orders[s])))
+        if draws is not None:
+            state = gc_sweep(state, w, cfg, mu_c, a, n_exchange, draws[s])
+        else:
+            state = _advance(state, *run_step(
+                ("gcmc", cfg, a, n_exchange, chain0), step,
+                (state.r, state.active, state.energy, mu_c, s2a, w,
+                 words[s], wx[s], orders[s])))
         tr[0].append(state.active.sum(-1))
         tr[1].append(state.energy)
         if z_bins:
@@ -490,22 +501,25 @@ def run_parts(parts, n_sweeps: int, chunk: int, block, exact,
     traces) on each part, one after another from this thread (each
     part's launches go to its device); at every multiple the tracked
     energies are replaced by exact(state) (resync), with one drift
-    entry, the largest over the parts. Returns (parts, [[traces of each
-    part] per block])."""
+    entry, the largest over the parts. Both sum each part's chains as
+    the unsharded call does (potentials.split_of). Returns (parts,
+    [[traces of each part] per block])."""
     traces = []
     done = 0
-    while done < n_sweeps:
-        s0 = int(parts[0][0].sweeps[0])
-        k = min(chunk - s0 % chunk, n_sweeps - done)
-        out = [block(st, c0, k) for st, c0 in parts]
-        if (s0 + k) % chunk == 0:
-            worst: list = []
-            out = [(st.replace(energy=resync(st.energy, exact(st), worst)),
-                    tr) for st, tr in out]
-            drift.append(max(worst))
-        parts = [(st, c0) for (st, _), (_, c0) in zip(out, parts)]
-        traces.append([tr for _, tr in out])
-        done += k
+    with split_of(sum(st.n_chains for st, _ in parts), len(parts)):
+        while done < n_sweeps:
+            s0 = int(parts[0][0].sweeps[0])
+            k = min(chunk - s0 % chunk, n_sweeps - done)
+            out = [block(st, c0, k) for st, c0 in parts]
+            if (s0 + k) % chunk == 0:
+                worst: list = []
+                out = [(st.replace(energy=resync(st.energy, exact(st),
+                                                 worst)), tr)
+                       for st, tr in out]
+                drift.append(max(worst))
+            parts = [(st, c0) for (st, _), (_, c0) in zip(out, parts)]
+            traces.append([tr for _, tr in out])
+            done += k
     return parts, traces
 
 
@@ -520,7 +534,7 @@ def simulate_gcmc(cfg: SMCConfig, mu, cap: int, eqsteps: int,
                   n_exchange: int | None = None, n0: int | None = None,
                   z_bins: int = 0, gr_bins: int = 0, chunk: int = 200,
                   state0: GCMCState | None = None, seed=None,
-                  device="cuda"):
+                  device="cuda", devices=None):
     """Grand-canonical driver (tpu_smc.gcmc.simulate_gcmc): eqsteps
     thermalization sweeps (the same A; tpu_smc does not double it here)
     and maxsteps production sweeps of every chain. mu: scalar or one per
@@ -529,7 +543,17 @@ def simulate_gcmc(cfg: SMCConfig, mu, cap: int, eqsteps: int,
     (chain i's folded from it by index); seed: the run seed of the
     streams (None: chain 0's key). state0: a resumed batched state.
     The tracked energy is replaced by the exact recompute at every
-    absolute multiple of `chunk` sweeps. Returns (state, GCMCResults)."""
+    absolute multiple of `chunk` sweeps. devices: the chains split over
+    these devices (ensemble.make_mesh; tpu_smc shards its isotherm
+    family the same way), one contiguous range each with its mu, every
+    draw keyed by the global chain index, each shard's sums in the
+    one-device call's order (run_parts) and the profiles' counts added:
+    bitwise the one-device run.
+    The returned state is on `device` (state0's own when given).
+    Returns (state, GCMCResults)."""
+    from .driver import _sync
+    from .ensemble import concat_states, shard_ensemble
+
     if n_exchange is None:
         n_exchange = max(1, cap // 4)
     cfg_cap = _with_n(cfg, cap)
@@ -540,44 +564,53 @@ def simulate_gcmc(cfg: SMCConfig, mu, cap: int, eqsteps: int,
                 f"checkpoint holds {state0.r.shape[0]} chains x cap "
                 f"{state0.r.shape[1]}; run asked {n_chains} x {cap}")
         state = state0
-        device = state.r.device
-        w = wall_table(cfg, device)
     else:
-        st1, w = init_gcmc_state(cfg, key, cap, n0=n0, device=device)
-        state = batch_state(st1, n_chains)
+        state = batch_state(init_gcmc_state(cfg, key, cap, n0=n0,
+                                            device=device)[0], n_chains)
     dev = state.r.device
-    mu_c = torch.as_tensor(np.broadcast_to(np.asarray(mu, np.float64),
-                                           (n_chains,)).copy(),
-                           dtype=cfg.torch_dtype, device=dev)
+    if seed is None:
+        seed = state.key[0].cpu()      # the global chain 0's streams
+    mu_np = np.broadcast_to(np.asarray(mu, np.float64), (n_chains,)).copy()
+    parts = shard_ensemble(state, devices) if devices else [(state, 0)]
+    walls = {}
     drift: list = []
 
-    def do(state, n_sweeps, collect):
-        traces = []
-        done = 0
-        while done < n_sweeps:
-            k = min(chunk - int(state.sweeps[0]) % chunk, n_sweeps - done)
-            state, tr = gc_block(state, w, cfg_cap, mu_c, a, k, n_exchange,
-                                 z_bins if collect else 0,
-                                 gr_bins if collect else 0, seed)
-            if int(state.sweeps[0]) % chunk == 0:
-                state = state.replace(energy=resync(
-                    state.energy, total_energy_masked(
-                        state.r, state.active, w, cfg_cap), drift))
-            traces.append(tr)
-            done += k
-        return state, traces
+    def run(parts, n_sweeps, collect):
+        def block(st, c0, k):
+            d = st.r.device
+            if d not in walls:
+                walls[d] = wall_table(cfg, d)
+            mu_c = torch.as_tensor(mu_np[c0:c0 + st.n_chains],
+                                   dtype=cfg.torch_dtype, device=d)
+            return gc_block(st, walls[d], cfg_cap, mu_c, a, k, n_exchange,
+                            z_bins if collect else 0,
+                            gr_bins if collect else 0, seed, chain0=c0)
 
-    state, _ = do(state, eqsteps, collect=False)
-    state = zero_counters(state, COUNTERS)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        return run_parts(parts, n_sweeps, chunk, block, lambda st:
+                         total_energy_masked(st.r, st.active,
+                                             walls[st.r.device], cfg_cap),
+                         drift)
+
+    parts, _ = run(parts, eqsteps, collect=False)
+    parts = [(zero_counters(st, COUNTERS), c0) for st, c0 in parts]
+    for st, _ in parts:
+        _sync(st)
     t0 = time.perf_counter()
-    state, traces = do(state, maxsteps, collect=True)
+    parts, traces = run(parts, maxsteps, collect=True)
+    for st, _ in parts:
+        _sync(st)
+    state = (parts[0][0] if len(parts) == 1
+             else concat_states([p for p, _ in parts], dev))
 
     def cat(i):
-        if not traces or traces[0][i] is None:
+        if not traces or traces[0][0][i] is None:
             return None
-        x = torch.cat([t[i] for t in traces])
+        if i < 2:       # [S, C]: the parts side by side
+            x = torch.cat([torch.cat([tr[i].to(dev) for tr in trs], 1)
+                           for trs in traces])
+        else:           # chain sums: the parts' counts added
+            x = torch.cat([sum(tr[i].to(dev) for tr in trs)
+                           for trs in traces])
         return (x if i == 0 else x.double()).cpu().numpy()
 
     n_tr, e_tr = cat(0), cat(1)

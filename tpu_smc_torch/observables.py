@@ -40,11 +40,14 @@ def vmap_chains_bounded(fn, r: torch.Tensor, n: int,
                         batch: int | None = None):
     """fn over the chain axis of r in batches of at most `batch` chains
     (default obs_chain_batch(n)); fn maps [B, ...] to a tensor or a
-    tuple of tensors with leading [B]. Results are concatenated."""
+    tuple of tensors with leading [B]. Results are concatenated. Under a
+    split (potentials.split_of) each batch sums as the unsplit call's
+    batch of the same chains."""
     b = batch or obs_chain_batch(n)
-    if r.shape[0] <= b:
-        return fn(r)
-    parts = [fn(r[i:i + b]) for i in range(0, r.shape[0], b)]
+    with potentials.chain_block(b):
+        if r.shape[0] <= b:
+            return fn(r)
+        parts = [fn(r[i:i + b]) for i in range(0, r.shape[0], b)]
     if isinstance(parts[0], tuple):
         return tuple(torch.cat(p) for p in zip(*parts))
     return torch.cat(parts)
@@ -58,10 +61,11 @@ def wall_obs_chains(fn, r: torch.Tensor, w: torch.Tensor, n: int):
     if w.dim() == 2:
         return vmap_chains_bounded(lambda rb: fn(rb, w), r, n)
     b = obs_chain_batch(n)
-    if r.shape[0] <= b:
-        return fn(r, w)
-    return torch.cat([fn(r[i:i + b], w[i:i + b])
-                      for i in range(0, r.shape[0], b)])
+    with potentials.chain_block(b):
+        if r.shape[0] <= b:
+            return fn(r, w)
+        return torch.cat([fn(r[i:i + b], w[i:i + b])
+                          for i in range(0, r.shape[0], b)])
 
 
 # ----------------------------------------------------------------------

@@ -23,11 +23,84 @@ value per chain; `torch.round` is round-half-to-even like C `rint` and
 
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Tuple
 
 import torch
 
 from .config import SMCConfig
+
+# The count of outputs from which torch's CUDA sum over a contiguous last
+# axis keeps one order: below it the block gives more threads to each
+# output (Reduce.cuh's block shape follows the outputs up to 16 rows of
+# 32 threads; over another axis, up to 32 outputs), so on an H100 a
+# chain's sum of a row of N terms (measured from N = 96 on, not at 32;
+# scripts/torch_shard_sums.py) would follow the chains that share its
+# call.
+ROW_ORDER_OUTPUTS = 16
+
+# The chains of the unsplit call whose chains the calls made now hold a
+# share of (split_of, chain_block); 0 outside a split.
+_WHOLE = [0]
+
+
+@contextlib.contextmanager
+def _whole(chains: int):
+    _WHOLE.append(int(chains))
+    try:
+        yield
+    finally:
+        _WHOLE.pop()
+
+
+def split_of(chains: int, shares: int):
+    """The calls inside hold one of `shares` shares of the chain axis of
+    an unsplit call over `chains` chains (a card's shard, a rank's
+    chains; one share is no split): chain_sum then adds each chain's
+    terms in that call's order. A split inside a split (a rank's
+    shards) keeps the outer count, the whole run's. The one case it
+    misses: an unsplit call that cuts its W > b chains into blocks of b
+    (chain_block) and ends in a shorter block below 16 chains, whose
+    order no share sees."""
+    return _whole(_WHOLE[-1] or (chains if shares > 1 else 0))
+
+
+def chain_block(b: int):
+    """The calls inside hold one block of at most b chains of a call cut
+    into such blocks: under a split the unsplit call's block holds
+    min(b, its chains)."""
+    return _whole(min(b, _WHOLE[-1]))
+
+
+def split_chains() -> int:
+    """The unsplit call's chains in force (0 outside split_of)."""
+    return _WHOLE[-1]
+
+
+def chain_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """x.sum(dim) of x [C, ...] over C chains; under a split, beside the
+    zero chains padded_chains asks for: each chain's sum then takes the
+    unsplit call's order."""
+    want = padded_chains(x, dim)
+    if not want:
+        return x.sum(dim)
+    c = x.shape[0]
+    pad = x.new_zeros((want - c,) + x.shape[1:])
+    return torch.cat([x, pad]).sum(dim)[:c]
+
+
+def padded_chains(x: torch.Tensor, dim: int = -1) -> int:
+    """The chains chain_sum(x, dim) pads x [C, ...] to, 0 for none: under
+    split_of(W), min(W, ROW_ORDER_OUTPUTS) when C is fewer and the count
+    of chains can reorder the sum (over the last axis with fewer than
+    ROW_ORDER_OUTPUTS rows, or over another axis)."""
+    want = min(ROW_ORDER_OUTPUTS, _WHOLE[-1])
+    if x.dim() < 2 or x.shape[0] >= want or (
+            dim == -1 and x.numel() // max(x.shape[-1], 1)
+            >= ROW_ORDER_OUTPUTS):
+        return 0
+    return want
 
 
 def _min_image(d: torch.Tensor, period: float) -> torch.Tensor:
@@ -77,12 +150,12 @@ def _lj_terms(d: torch.Tensor, dr2: torch.Tensor, mask: torch.Tensor,
     inv6 = inv2 * inv2 * inv2
     inv12 = inv6 * inv6
     zero = torch.zeros_like(dr2)
-    u = 4.0 * torch.where(mask, inv12 - inv6, zero).sum(-1)
+    u = 4.0 * chain_sum(torch.where(mask, inv12 - inv6, zero))
     if cfg.lj_shift:
         rc6 = cfg.cutoff2 ** 3
         u = u - 4.0 * (1.0 / (rc6 * rc6) - 1.0 / rc6) * mask.to(u.dtype).sum(-1)
     dv = torch.where(mask, (48.0 * inv12 - 24.0 * inv6) * inv2, zero)
-    f = (dv.unsqueeze(-1) * d).sum(-2)
+    f = chain_sum(dv.unsqueeze(-1) * d, -2)
     return u, f
 
 
@@ -165,16 +238,17 @@ def _pair_sum(R: torch.Tensor, cfg: SMCConfig, term, box=None,
     lead = R.shape[:-2]
     step = max(1, PAIR_BUDGET // max(n * n, 1))
     flat = R.reshape((-1,) + R.shape[-2:])
-    if flat.shape[0] <= step:
-        return _pair_sum_block(R, cfg, term, box, active)
-    box_f = None if box is None else box.expand(lead).reshape(-1)
-    act_f = (None if active is None
-             else active.expand(lead + (n,)).reshape(-1, n))
-    return torch.cat([_pair_sum_block(
-        flat[b0:b0 + step], cfg, term,
-        None if box_f is None else box_f[b0:b0 + step],
-        None if act_f is None else act_f[b0:b0 + step])
-        for b0 in range(0, flat.shape[0], step)]).reshape(lead)
+    with chain_block(step):
+        if flat.shape[0] <= step:
+            return _pair_sum_block(R, cfg, term, box, active)
+        box_f = None if box is None else box.expand(lead).reshape(-1)
+        act_f = (None if active is None
+                 else active.expand(lead + (n,)).reshape(-1, n))
+        return torch.cat([_pair_sum_block(
+            flat[b0:b0 + step], cfg, term,
+            None if box_f is None else box_f[b0:b0 + step],
+            None if act_f is None else act_f[b0:b0 + step])
+            for b0 in range(0, flat.shape[0], step)]).reshape(lead)
 
 
 def _pair_sum_block(R: torch.Tensor, cfg: SMCConfig, term, box=None,
@@ -191,8 +265,8 @@ def _pair_sum_block(R: torch.Tensor, cfg: SMCConfig, term, box=None,
                                    active)
         safe = torch.where(mask, dr2, torch.ones_like(dr2))
         inv6 = 1.0 / (safe * safe * safe)
-        per_row = term(inv6, mask).sum(-1)
-        total = total + (per_row.sum(-1) if box is None
+        per_row = chain_sum(term(inv6, mask))
+        total = total + (chain_sum(per_row) if box is None
                          else fixed_order_sum(per_row))
     return total
 
@@ -258,6 +332,42 @@ def wall_site_positions(cfg: SMCConfig, dtype=None, device=None) -> torch.Tensor
     return torch.stack([ii.reshape(-1) * dw, jj.reshape(-1) * dw], dim=-1)
 
 
+def make_wall_params(x0, ym, cfg: SMCConfig) -> torch.Tensor:
+    """The per-site (a, b) coefficient table W [M*M, 2] from site widths
+    x0 and well depths ym: a = x0^12 ym, b = x0^6 ym (SMC.c:495-496),
+    computed in the inputs' dtype (float64 for numpy arrays) and cast to
+    the run's."""
+    x0, ym = torch.as_tensor(x0), torch.as_tensor(ym)
+    a = torch.pow(x0, 12.0) * ym
+    b = torch.pow(x0, 6.0) * ym
+    return torch.stack([a, b], dim=-1).to(cfg.torch_dtype)
+
+
+def sample_wall_params(words, cfg: SMCConfig, device="cuda") -> torch.Tensor:
+    """Gaussian-randomized wall coefficients (initializeWalls,
+    SMC.c:475-501): x0 ~ N(x0_mean, x0_sigma), ym ~ N(ym_mean, ym_sigma)
+    per site, from the port's Philox stream under the seed words `words`
+    [2]: site m's four words of counters (m, 0x3A11, 0, 0) give two
+    Box-Muller Gaussians in float64. The reference's srand(42) table is
+    system.build_walls."""
+    from .kernels.sweep import philox4x32, unit_uniform
+
+    mm = cfg.m * cfg.m
+    m = torch.arange(mm, dtype=torch.int64, device=device)
+    z = torch.zeros_like(m)
+    w0, w1 = (int(v) for v in torch.as_tensor(words).reshape(2))
+    u = [unit_uniform(b, torch.float64)
+         for b in philox4x32(m, z + 0x3A11, z, z, z + w0, z + w1)]
+
+    def gauss(u1, u2):
+        return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi
+                                                             * u2)
+
+    x0 = cfg.wall_x0_mean + cfg.wall_x0_sigma * gauss(u[0], u[1])
+    ym = cfg.wall_ym_mean + cfg.wall_ym_sigma * gauss(u[2], u[3])
+    return make_wall_params(x0, ym, cfg)
+
+
 def _site_coeffs(W: torch.Tensor, dr2: torch.Tensor):
     """Per-site (a, b) broadcastable against dr2 [C, ..., MM]: from the
     shared table W [MM, 2], or from per-chain tables W [C, MM, 2]
@@ -307,18 +417,18 @@ def wall_energy_force_single(rpos: torch.Tensor, W: torch.Tensor,
     inv12 = inv6 * inv6
     a, b = _site_coeffs(W, dr2)
     zero = torch.zeros_like(dr2)
-    u = u + torch.where(mask, a * inv12 - b * inv6, zero).sum(-1)
+    u = u + chain_sum(torch.where(mask, a * inv12 - b * inv6, zero))
     dv = torch.where(mask, (48.0 * a * inv12 - 24.0 * b * inv6) * inv2, zero)
-    fx = (dv * dx).sum(-1)
-    fy = (dv * dy).sum(-1)
-    fz = fz + dv.sum(-1) * dz
+    fx = chain_sum(dv * dx)
+    fy = chain_sum(dv * dy)
+    fz = fz + chain_sum(dv) * dz
     return 4.0 * u, torch.stack([fx, fy, fz], dim=-1)
 
 
 def wall_energy_total(R: torch.Tensor, W: torch.Tensor,
                       cfg: SMCConfig) -> torch.Tensor:
     """Total particle-wall energy per chain (SMC.c:822-859)."""
-    return wall_energy_force_single(R, W, cfg)[0].sum(-1)
+    return chain_sum(wall_energy_force_single(R, W, cfg)[0])
 
 
 def wall_virial_pressure(R: torch.Tensor, W: torch.Tensor, cfg: SMCConfig,
@@ -342,7 +452,8 @@ def wall_virial_pressure(R: torch.Tensor, W: torch.Tensor, cfg: SMCConfig,
     term = 24.0 * b * inv6 - 48.0 * a * inv6 * inv6
     dz6 = dz ** 6
     term0 = 24.0 * cfg.b0 / dz6 - 48.0 * cfg.a0 / (dz6 * dz6)
-    p = torch.where(mask, term + term0, torch.zeros_like(dr2)).sum(-1).sum(-1)
+    p = chain_sum(chain_sum(torch.where(mask, term + term0,
+                                    torch.zeros_like(dr2))))
     return -p / (3.0 * cfg.box_l * cfg.box_l * cfg.box_lz)
 
 

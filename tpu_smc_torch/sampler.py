@@ -32,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from .config import SMCConfig
-from .potentials import energy_force_single, total_energy
+from .potentials import energy_force_single, split_chains, total_energy
 from .state import ChainState
 
 
@@ -195,14 +195,15 @@ STEPS_PER_DEVICE = 8
 def run_step(key, fn, args):
     """fn(*args): eagerly for CPU tensors; on the card through the
     GraphStep captured for `key` (the step's mode and every static value
-    fn closes over) and the arguments' shapes and dtypes, captured on
-    first use; the STEPS_PER_DEVICE most recent of each device are
+    fn closes over), the arguments' shapes and dtypes and the unsplit
+    call's chains (potentials.split_chains: the order of its row sums),
+    captured on first use; the STEPS_PER_DEVICE most recent of each device are
     kept."""
     if not args[0].is_cuda:
         return fn(*args)
     dev = str(args[0].device)
-    key = (key, dev, tuple((tuple(a.shape), a.dtype, str(a.device))
-                           for a in args))
+    key = (key, dev, split_chains(),
+           tuple((tuple(a.shape), a.dtype, str(a.device)) for a in args))
     step = _STEPS.pop(key, None)
     if step is None:
         step = GraphStep(fn, args)

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .config import RunParams, SMCConfig
+from .potentials import split_of
 from .state import ChainState, fold_in, init_ensemble_state
 from .system import build_walls
 
@@ -161,10 +162,13 @@ def ladder_blocks(parts, cfg: SMCConfig, a_scale: float, n_sweeps: int,
     (each part's launches go to its device). Returns (parts, [stats or
     None per part])."""
     out, stats = [], []
+    c = sum(p.state.n_chains for p in parts)
     for p in parts:
-        st, s = _ladder_block(p.state, p.w, cfg, p.temps_c, a_scale,
-                              n_sweeps, sampler, collect_trace=collect_trace,
-                              a_c=p.a_c, chain0=p.chain0, seed=seed)
+        with split_of(c, len(parts)):
+            st, s = _ladder_block(p.state, p.w, cfg, p.temps_c, a_scale,
+                                  n_sweeps, sampler,
+                                  collect_trace=collect_trace, a_c=p.a_c,
+                                  chain0=p.chain0, seed=seed)
         out.append(p._replace(state=st))
         stats.append(s)
     return out, stats

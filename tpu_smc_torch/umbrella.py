@@ -56,14 +56,21 @@ class UmbrellaResults(NamedTuple):
 
 
 def _umbrella_sweeps(state: ChainState, w, cfg: SMCConfig, z0_c, k_spring,
-                     tag: int, a: float, n_sweeps: int, seed=None):
+                     tag: int, a: float, n_sweeps: int, seed=None,
+                     devices=None):
     """n_sweeps biased sweeps of every chain, window center z0_c [C] per
     chain, on the plain engine (one visiting order for all chains); on a
-    CUDA state each sweep replays a captured CUDA graph (sampler.run_step)."""
-    from .ensemble import ensemble_sweeps
+    CUDA state each sweep replays a captured CUDA graph (sampler.run_step).
+    devices: the chains split over them (ensemble_sweeps_sharded), the
+    state gathered back in chain order."""
+    from .ensemble import ensemble_sweeps, ensemble_sweeps_sharded
 
+    bias = (tag, k_spring, z0_c)
+    if devices:
+        return ensemble_sweeps_sharded(state, w, cfg, a, n_sweeps, seed,
+                                       devices, umbrella=bias)[0]
     return ensemble_sweeps(state, w, cfg, a, n_sweeps, stream_seed=seed,
-                           umbrella=(tag, k_spring, z0_c))[0]
+                           umbrella=bias)[0]
 
 
 def exchange_uniforms(key: torch.Tensor, n_w: int, replicas: int, device,
@@ -130,13 +137,21 @@ def simulate_umbrella(cfg: SMCConfig, params: RunParams, centers,
                       replicas: int = 4, r0: np.ndarray | None = None,
                       w: np.ndarray | None = None,
                       exchange_interval: int | None = None, device="cuda",
-                      stream_seed=None) -> tuple[ChainState, UmbrellaResults]:
+                      stream_seed=None,
+                      devices=None) -> tuple[ChainState, UmbrellaResults]:
     """K windows x `replicas` chains from one start (window-major), on
     the plain engine. Thermalization doubles A (SMC.c:110, 125) with the
     bias on; production samples the tagged z once per gather (or, with
     `exchange_interval`, once per exchange cycle of that many sweeps,
     maxsteps // interval cycles). Exchange attempts fold the absolute
-    cycle index into their seed words and take its parity."""
+    cycle index into their seed words and take its parity.
+    devices: the window ladder's chains split over these devices
+    (ensemble.make_mesh; tpu_smc shards the chain axis so), one
+    contiguous range each, a shard boundary possibly inside a window:
+    the sweeps run on the shards with their global chain indices and
+    the global chain 0's streams, each exchange on the joined (r, E,
+    rbin) on `device`, where the state lives between calls. Bitwise the
+    one-device run."""
     from .driver import _sync, therm_chunk
 
     centers = np.asarray(centers, np.float64)
@@ -156,7 +171,7 @@ def simulate_umbrella(cfg: SMCConfig, params: RunParams, centers,
 
     def run(st, a, n):
         return _sync(_umbrella_sweeps(st, w_t, cfg, z0_c, k_spring, tag, a,
-                                      n, seed=stream_seed))
+                                      n, seed=stream_seed, devices=devices))
 
     chunk = therm_chunk(cfg)
     done = 0
